@@ -1,0 +1,492 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch + CUDA port's join main path on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Phases (any failure exits non-zero; nothing is caught and carried on):
+  1. the card's name and power limit (nvidia-smi);
+  2. build the five CUDA kernels from src/repro_torch/kernels/csrc;
+  3. the full-size cell end to end on the kernels: R(A,B) ⋈ S(B,C) with
+     2^21 rows per relation, one heavy hitter B = 0 of 12,288 rows, a tail
+     of 2^20 values, k = 256 logical cells on n_dev = 8 logical servers.
+     Launch counts are zeroed just before `prepare` + the first `run_batch`
+     and read just after.  Requires zero overflow, the exact join size
+     Σ_v c_R(v)·c_S(v), rows equal to the same step on the plain versions
+     (`use_kernels=False`) on the card, and no new step on a second batch;
+  4. every kernel against its plain version on the card at the shapes of
+     that run, bit for bit, with kernel, plain and bound times; the bound
+     counts what this run's data needs (valid rows only, matched rows only
+     for the expansion) and is the larger of its bytes and operations times;
+  5. the paper's running example and a 4-way chain at a few thousand rows,
+     k ∈ {64, 256}, n_dev = 8, against the numpy reference join, with the
+     launch counts of each run checked (its 2- and 3-step cascades);
+  6. one JSON line of per-kernel results, then the last line
+     {"ok": true, "device": {...}}.
+
+Exits non-zero without printing a result when no CUDA device is present or
+when the repository's `src/repro_torch` is not beside this script.
+"""
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+ROOT = Path(__file__).resolve().parent
+HBM_BYTES_PER_S = 3.35e12        # H100 SXM memory rate (NVIDIA data sheet)
+# H100 SXM float32 rate outside the tensor cores (NVIDIA data sheet); the
+# kernels' int32 scalar operations issue on the same cores.
+OPS_PER_S = 67e12
+
+FULL = dict(n=1 << 21, hh_rows=12288, tail_domain=1 << 20, k=256, n_dev=8)
+MODERATE = [  # (query name, rows per relation, domain, skew)
+    ("running_example", 3000, 1 << 16, {"B": 1.5}),
+    ("chain4", 3000, 1 << 16, {"X2": 1.5}),
+]
+# Where each ported kernel lives and which TPU kernel (Pallas call) it replaces.
+KERNEL_SITES = {
+    "map_count": ("src/repro_torch/kernels/csrc/map_pack.cu",
+                  "src/repro/kernels/map_pack.py:298"),
+    "scatter_pack": ("src/repro_torch/kernels/csrc/scatter_pack.cu",
+                     "src/repro/kernels/scatter_pack.py:149"),
+    "join_hash": ("src/repro_torch/kernels/csrc/join_probe.cu",
+                  "src/repro/kernels/join_probe.py:195"),
+    "build_table": ("src/repro_torch/kernels/csrc/join_probe.cu",
+                    "src/repro/kernels/join_probe.py:234"),
+    "expand_rows": ("src/repro_torch/kernels/csrc/scatter_pack.cu",
+                    "src/repro/kernels/scatter_pack.py:246"),
+}
+
+
+def fail(msg: str) -> None:
+    raise SystemExit(f"chip_smoke: FAILED: {msg}")
+
+
+def check(cond: bool, msg: str) -> None:
+    if not cond:
+        fail(msg)
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(n_bytes: int, n_ops: int) -> tuple[float, str]:
+    """(least ms, what bounds it): the larger of bytes over the memory rate
+    and operations over the scalar rate."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def route_work(rows, spec, k: int) -> tuple[int, int, int]:
+    """(bytes read, operations, member copies) that routing every copy of
+    `rows` needs: each row read once (a padding row's first column only);
+    per copy its membership tests (padding, eq, not-in); per member copy
+    five operations per hashed axis (two multiplies, shift, stride multiply,
+    add), the replica offset and the wrap mod k."""
+    from repro_torch.core.executor import INVALID
+    from repro_torch.kernels import map_pack as mp
+    flat = rows.reshape(-1, rows.shape[-1])
+    n = flat.shape[0]
+    n_pad = int((flat[:, 0] == INVALID).sum())
+    n_bytes = (n - n_pad) * flat.shape[1] * 4 + n_pad * 4
+    _, valid = mp._route_block(flat, spec, k)                 # (n, F)
+    members = valid.sum(0).tolist()
+    n_ops, j = 0, 0
+    for hashed, reps, _, eqs, notins in spec:
+        n_hashed = sum(1 for h in hashed if h[2] != 1)
+        n_tests = 1 + len(eqs) + sum(len(v) for _, v in notins)
+        for _ in reps:
+            n_ops += n * n_tests + members[j] * (5 * n_hashed + 2)
+            j += 1
+    return n_bytes, n_ops, sum(members)
+
+
+def covered_positions(counts, lo, n_r: int) -> int:
+    """Distinct perm positions that the expansion reads: the union over
+    left rows with matches of [lo, lo + counts), per batch."""
+    b = counts.shape[0]
+    m = counts > 0
+    base = torch.arange(b, device=counts.device)[:, None] * (n_r + 1)
+    diff = torch.zeros(b * (n_r + 1), dtype=torch.int64, device=counts.device)
+    diff.index_add_(0, (base + lo.long())[m], torch.ones_like(lo.long()[m]))
+    diff.index_add_(0, (base + lo.long() + counts.long())[m],
+                    -torch.ones_like(lo.long()[m]))
+    return int((torch.cumsum(diff.view(b, n_r + 1), 1) > 0).sum())
+
+
+def time_ms(fn, iters: int) -> float:
+    """Mean device time of `fn` over `iters` calls after one warm-up, from
+    CUDA events."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def out_capacity_from_fragments(frag_l, frag_r, lcols, rcols, quantize):
+    """Max over destinations of Σ c_L·c_R over equal join keys of the
+    received fragments (two-relation cascade), quantized: the exact output
+    rows the reduce must hold per destination."""
+    worst = 0
+    for d in range(frag_l.shape[0]):
+        lk = frag_l[d][frag_l[d, :, -1] >= 0][:, lcols].long()
+        rk = frag_r[d][frag_r[d, :, -1] >= 0][:, rcols].long()
+        if not len(lk) or not len(rk):
+            continue
+        lkey = (lk[:, 0] << 32) | lk[:, 1]
+        rkey = (rk[:, 0] << 32) | rk[:, 1]
+        uk, cl = torch.unique(lkey, return_counts=True)
+        pos = torch.searchsorted(uk, rkey).clamp(max=len(uk) - 1)
+        worst = max(worst, int(cl[pos[uk[pos] == rkey]].sum()))
+    return quantize(max(worst, 1))
+
+
+def profile_batch(session, top: int = 12) -> None:
+    """Where one warm run_batch spends device time: torch.profiler's
+    per-kernel sums, and the device-busy share of the batch's wall time."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        r = session.run_batch()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    del r
+    events = [e for e in prof.key_averages()
+              if getattr(e, "device_type", None) is not None
+              and "CUDA" in str(e.device_type)]
+    busy_us = sum(e.self_device_time_total for e in events)
+    if not events or busy_us <= 0:
+        print("[profile] device time not measured (no CUDA events)")
+        return
+    print(f"[profile] warm run_batch: wall {wall_us / 1e3:.2f} ms, device "
+          f"busy {busy_us / 1e3:.2f} ms ({100 * busy_us / wall_us:.1f} %), "
+          f"idle share {100 * (1 - busy_us / wall_us):.1f} %")
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:top]:
+        print(f"[profile]   {e.self_device_time_total / 1e3:9.3f} ms "
+              f"x{e.count:<4d} {e.key[:90]}")
+
+
+def full_cell(dev):
+    """Phase 3: the full-size cell through prepare + run_batch on kernels."""
+    from repro_torch.core import plan_skew_join, two_way
+    from repro_torch.core.executor import (ExecutorConfig,
+                                           ShardedJoinExecutor, exchange,
+                                           quantize_capacity, shared_columns)
+    from repro_torch.data import drifting_join_batch
+    from repro_torch.kernels import ops
+
+    q = two_way()
+    t0 = time.perf_counter()
+    data = drifting_join_batch(q, FULL["n"], FULL["hh_rows"],
+                               FULL["tail_domain"], hot_set=(), hot_bonus=0,
+                               seed=0)
+    plan = plan_skew_join(q, data, FULL["k"])
+    t_plan = time.perf_counter() - t0
+    cr = np.bincount(data["R"][:, 1])
+    cs = np.bincount(data["S"][:, 0])
+    m = min(len(cr), len(cs))
+    exact = int((cr[:m].astype(np.int64) * cs[:m]).sum())
+    print(f"[cell] two_way n={FULL['n']} per relation, k={FULL['k']}, "
+          f"n_dev={FULL['n_dev']}: HH {dict(plan.hhs.per_attr)}, "
+          f"{len(plan.residuals)} residuals, planned in {t_plan:.2f} s; "
+          f"exact join size {exact}")
+
+    # Size the output capacity from the received fragments (not counted).
+    n_dev = FULL["n_dev"]
+    sizing = ShardedJoinExecutor(plan, n_dev, ExecutorConfig(), device=dev)
+    s0 = sizing.session().prepare(data)
+    frags = {}
+    for rel, a in zip(q.relations, s0._device_args):
+        buf, _ = ops.scatter_pack(a.view(n_dev, -1, a.shape[1]),
+                                  sizing.route_specs[rel.name], s0._ptable,
+                                  plan.k, n_dev, s0.caps[rel.name])
+        frags[rel.name] = exchange(buf)
+    lcols, rcols = shared_columns(["A", "B", "__cell__"],
+                                  ["B", "C", "__cell__"])
+    cap_out = out_capacity_from_fragments(frags["R"], frags["S"], lcols,
+                                          rcols, quantize_capacity)
+    del frags, sizing, s0
+    torch.cuda.empty_cache()
+    print(f"[cell] out_capacity per destination {cap_out} "
+          f"(exact per-destination max, quantized)")
+
+    # The main path: counts zeroed just before, read just after.
+    ex = ShardedJoinExecutor(plan, n_dev,
+                             ExecutorConfig(out_capacity=cap_out), device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    s = ex.session().prepare(data)
+    torch.cuda.synchronize()
+    t_prepare = time.perf_counter() - t0
+    prepare_launches = dict(ops.LAUNCHES)
+    res = s.run_batch()
+    torch.cuda.synchronize()
+    launches = dict(ops.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    step_launches = {k: launches[k] - prepare_launches[k] for k in launches}
+    print(f"[cell] launches on the main path {launches} "
+          f"(per run_batch {step_launches})")
+    check(all(v > 0 for v in launches.values()),
+          f"a kernel was not launched on the main path: {launches}")
+    check(int(res["shuffle_overflow"].sum()) == 0,
+          f"shuffle overflow {res['shuffle_overflow_by_rel'].tolist()}")
+    check(int(res["join_overflow"].sum()) == 0,
+          f"join overflow {res['join_overflow'].tolist()}")
+    n_valid = int(res.tensors[1].sum())
+    check(n_valid == exact, f"valid rows {n_valid} != exact {exact}")
+
+    caps = dict(s.caps)
+    w_out = len(q.attributes)
+    held = {
+        "relations": sum(nbytes(a) for a in s._device_args),
+        "send+recv buffers": sum(2 * n_dev * n_dev * caps[r.name]
+                                 * (len(r.attrs) + 1) * 4 for r in q.relations),
+        "expanded rows": n_dev * cap_out * (2 * 3) * 4,
+        "output rows (x3 copies)": 3 * n_dev * cap_out * w_out * 4,
+    }
+    print(f"[cell] caps {caps}; bytes the step holds (reckoned) "
+          f"{held} = {sum(held.values()) / 1e9:.2f} GB; peak allocated "
+          f"(measured) {peak / 1e9:.2f} GB")
+
+    compiles = ex.compile_count
+    res2 = s.run_batch()
+    check(ex.compile_count == compiles, "second run_batch built a new step")
+    del res2
+    times = []
+    for _ in range(7):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = s.run_batch()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        del r
+    t_batch = float(np.median(times))
+    print(f"[cell] prepare {t_prepare * 1e3:.1f} ms; warm run_batch median "
+          f"{t_batch * 1e3:.1f} ms of {len(times)}; "
+          f"{exact / t_batch:.4g} joined rows/s")
+    profile_batch(s)
+
+    # The same step on the plain versions, on the card.
+    out_k, valid_k = res.tensors[0], res.tensors[1]
+    del res
+    ex_plain = ShardedJoinExecutor(
+        plan, n_dev, ExecutorConfig(out_capacity=cap_out, use_kernels=False),
+        device=dev)
+    s_plain = ex_plain.session().prepare(data)
+    check(s_plain.caps == caps, "plain prepare derived other caps")
+    check(np.array_equal(s_plain.placement.table, s.placement.table),
+          "plain prepare derived another placement")
+    res_p = s_plain.run_batch()
+    check(torch.equal(res_p.tensors[0], out_k)
+          and torch.equal(res_p.tensors[1], valid_k),
+          "kernel rows differ from the plain path's")
+    print("[cell] rows equal the plain path's (torch.equal), zero overflow, "
+          "exact join size, no new step on the second batch: ok")
+    del res_p, out_k, valid_k, s_plain, ex_plain
+    torch.cuda.empty_cache()
+    return dict(plan=plan, ex=ex, session=s, launches=launches,
+                cap_out=cap_out, exact=exact)
+
+
+def kernel_checks(cell):
+    """Phase 4: each kernel against its plain version at the cell's shapes."""
+    from repro_torch.core.executor import INVALID, exchange, shared_columns
+    from repro_torch.kernels import join_probe as jp
+    from repro_torch.kernels import map_pack as mp
+    from repro_torch.kernels import scatter_pack as sp
+
+    ex, s, plan = cell["ex"], cell["session"], cell["plan"]
+    n_dev, k = ex.n_devices, ex.k
+    rows_r, rows_s = s._device_args
+    spec_r, spec_s = ex.route_specs["R"], ex.route_specs["S"]
+    out = {}
+
+    def record(name, kern, plain, args, n_bytes, n_ops, iters):
+        got, want = kern(*args), plain(*args)
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        err = 0
+        for g, w in zip(got, want):
+            check(g.shape == w.shape, f"{name}: shape {g.shape} != {w.shape}")
+            if not torch.equal(g, w.to(g.dtype)):
+                err = max(err, int((g.long() - w.long()).abs().max()))
+        check(err == 0, f"{name}: kernel differs from plain (max {err})")
+        ms = time_ms(lambda: kern(*args), iters)
+        plain_ms = time_ms(lambda: plain(*args), max(iters // 2, 2))
+        bound_ms, bound_by = bound(n_bytes, n_ops)
+        out[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                         bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+        print(f"[kernel] {name}: equal to plain; {ms:.4f} ms (plain "
+              f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms by {bound_by}: "
+              f"{n_bytes} bytes, {n_ops} operations)")
+        return got
+
+    # map_count and scatter_pack on both relations; the row kept for each
+    # is R's (fanout 17).  Bytes: the rows, the (k,) table, the outputs in
+    # full (the pack buffer's -1 padding is output).  Operations: routing,
+    # plus one histogram add per member copy.
+    for rows, spec in ((rows_s, spec_s), (rows_r, spec_r)):
+        r_bytes, r_ops, members = route_work(rows, spec, k)
+        record("map_count", mp.map_count_cuda, mp.map_count_host,
+               (rows, spec, k, n_dev), r_bytes + n_dev * k * 4,
+               r_ops + members, 10)
+    frags = {}
+    for name, rows, spec in (("S", rows_s, spec_s), ("R", rows_r, spec_r)):
+        rows3 = rows.view(n_dev, -1, rows.shape[1])
+        cap = s.caps[name]
+        r_bytes, r_ops, members = route_work(rows, spec, k)
+        buf, _ = record("scatter_pack", sp.scatter_pack_cuda,
+                        sp.scatter_pack_host,
+                        (rows3, spec, s._ptable, k, n_dev, cap),
+                        r_bytes + nbytes(s._ptable) + 4 * n_dev
+                        + n_dev * n_dev * cap * (rows.shape[1] + 1) * 4,
+                        r_ops + members, 10)
+        frags[name] = exchange(buf)
+    acc, right = frags["R"], frags["S"]
+    lcols, rcols = shared_columns(["A", "B", "__cell__"],
+                                  ["B", "C", "__cell__"])
+    lk = acc[..., lcols].contiguous()
+    rk = right[..., rcols].contiguous()
+    lv, rv = acc[..., -1] != INVALID, right[..., -1] != INVALID
+    bits = jp.default_bits(rk.shape[1])
+    # The hashes read a row's keys only when its valid flag is set: bytes
+    # are the flags, the valid rows' keys and the outputs; operations are
+    # w multiplies, w - 1 adds, the MULT multiply and the shift per valid
+    # row, plus one rank add per row for the build.
+    w_key = lk.shape[2]
+    n_lv, n_rv = int(lv.sum()), int(rv.sum())
+    (bl,) = record("join_hash", jp.join_hash_cuda, jp.join_hash_host,
+                   (lk, lv, bits), lv.numel() + n_lv * w_key * 4
+                   + lv.numel() * 4, n_lv * (2 * w_key + 1), 20)
+    br, rank, hist = record("build_table", jp.build_table_cuda,
+                            jp.build_table_host, (rk, rv, bits),
+                            rv.numel() + n_rv * w_key * 4
+                            + 2 * rv.numel() * 4 + n_dev * (1 << bits) * 4,
+                            n_rv * (2 * w_key + 1) + rv.numel(), 10)
+    counts, lo, perm = jp.probe_tables(lk, bl, rk, br, rank, hist, bits)
+    cap_out = cell["cap_out"]
+    del frags, bl, br, rank, hist, lk, rk
+    torch.cuda.empty_cache()
+    # The expansion reads counts in full, lo and the left row of every row
+    # with matches, and the perm entries and right rows of matched windows;
+    # it writes the whole (B, cap, wl + wr) output and the valid flags.
+    # Operations: the scan of counts, and per slot a binary search over
+    # the n_l offsets and three adds.
+    n_b, n_l, wl = acc.shape
+    wr = right.shape[2]
+    n_hit = int((counts > 0).sum())
+    n_cov = covered_positions(counts, lo, right.shape[1])
+    search = max(n_l - 1, 1).bit_length()
+    record("expand_rows", sp.expand_rows_cuda, sp.expand_rows_host,
+           (acc, right, counts, lo, perm, cap_out),
+           counts.numel() * 4 + n_hit * (wl + 1) * 4 + n_cov * (wr + 1) * 4
+           + n_b * cap_out * ((wl + wr) * 4 + 1),
+           n_b * n_l + n_b * cap_out * (search + 3), 4)
+    return out
+
+
+def moderate_checks(dev):
+    """Phase 5: moderate queries on the kernels vs the reference join."""
+    from repro_torch.core import (JoinQuery, canonical, plan_skew_join,
+                                  reference_join, running_example)
+    from repro_torch.core.executor import (ExecutorConfig,
+                                           ShardedJoinExecutor,
+                                           quantize_capacity)
+    from repro_torch.data import chain_query, skewed_join_dataset
+    from repro_torch.kernels import ops
+
+    queries = {"running_example": running_example(), "chain4": chain_query(4)}
+    for name, n, domain, skew in MODERATE:
+        q = queries[name]
+        data = skewed_join_dataset(q, n, domain, skew=skew, seed=7)
+        ref = reference_join(q, data)
+        rels = q.relations
+        biggest = max(len(reference_join(JoinQuery(rels[:i]), data))
+                      for i in range(2, len(rels) + 1))
+        for k in (64, 256):
+            plan = plan_skew_join(q, data, k)
+            cfg = ExecutorConfig(out_capacity=quantize_capacity(biggest))
+            ex = ShardedJoinExecutor(plan, 8, cfg, device=dev)
+            # Counts zeroed just before prepare + run_batch, read just after:
+            # each relation is counted and packed once, and every cascade
+            # step hashes, builds and expands once.
+            ops.reset_launches()
+            res = ex.session().prepare(data).run_batch()
+            launches = dict(ops.LAUNCHES)
+            n_rel = len(rels)
+            want = dict(map_count=n_rel, scatter_pack=n_rel,
+                        join_hash=n_rel - 1, build_table=n_rel - 1,
+                        expand_rows=n_rel - 1)
+            check(launches == want,
+                  f"{name} k={k}: launches {launches}, expected {want}")
+            check(int(res["shuffle_overflow"].sum()) == 0
+                  and int(res["join_overflow"].sum()) == 0,
+                  f"{name} k={k}: overflow")
+            got = canonical(res["rows"][res["valid"]])
+            check(np.array_equal(got, ref),
+                  f"{name} k={k}: rows differ from reference_join")
+            print(f"[moderate] {name} n={n} k={k}: {len(ref)} rows equal "
+                  f"reference_join ({len(plan.residuals)} residuals); "
+                  f"launches {launches}")
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    if not (ROOT / "src" / "repro_torch").is_dir():
+        print("chip_smoke: src/repro_torch not found beside chip_smoke.py",
+              file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.kernels import _build, ops
+
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    print(card)
+    dev = torch.device("cuda")
+
+    t0 = time.perf_counter()
+    _build.lib()
+    print(f"[build] kernels built and loaded in "
+          f"{time.perf_counter() - t0:.2f} s (nvcc {_build.build_seconds:.2f} s)")
+
+    cell = full_cell(dev)
+    results = kernel_checks(cell)
+    moderate_checks(dev)
+
+    kernels = []
+    for name in ops.KERNELS:
+        source, replaces = KERNEL_SITES[name]
+        kernels.append(dict(name=name, route="cuda", source=source,
+                            replaces=replaces,
+                            launches=cell["launches"][name], **results[name]))
+    check(all(kn["launches"] > 0 for kn in kernels), "a kernel never launched")
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,81 @@
+"""Dispatch of the five main-path kernels, with launch counts.
+
+A wrapper given CUDA tensors launches its hand-written kernel (raising
+`_build.KernelError` if the build or the launch fails); given CPU tensors it
+runs the kernel's plain PyTorch version.  `use_kernels=False` selects the
+plain version on any device (the executor's knob of the same name).  There
+is no fallback from a failed kernel to the plain version.
+
+`LAUNCHES[name]` counts the kernel launches of each wrapper, and only those
+(`_build.call` adds one per successful launch; an empty input launches
+nothing): a run shows that it went through the kernels when its counts are
+> 0.
+"""
+from __future__ import annotations
+
+import torch
+
+from . import join_probe as jp
+from . import map_pack as mp
+from . import scatter_pack as sp
+from ._build import LAUNCHES
+
+KERNELS = tuple(LAUNCHES)
+
+
+def reset_launches() -> None:
+    for name in KERNELS:
+        LAUNCHES[name] = 0
+
+
+def _on_card(t: torch.Tensor, use_kernels: bool) -> bool:
+    """True: launch the kernel; False: run the plain version."""
+    if t.device.type == "cuda":
+        return use_kernels
+    if t.device.type == "cpu":
+        return False
+    raise ValueError(f"unsupported device {t.device} (cuda or cpu)")
+
+
+def map_count(rows: torch.Tensor, routes, k: int, n_src: int, *,
+              use_kernels: bool = True) -> torch.Tensor:
+    """(n_src, k) routed copies per (source shard, wrapped cell)."""
+    if _on_card(rows, use_kernels):
+        return mp.map_count_cuda(rows, routes, k, n_src)
+    return mp.map_count_host(rows, routes, k, n_src)
+
+
+def scatter_pack(rows: torch.Tensor, routes, ptable: torch.Tensor, k: int,
+                 n_dev: int, cap: int, *, use_kernels: bool = True
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Map phase per source: (buf (n_src, n_dev, cap, w+1), overflow)."""
+    if _on_card(rows, use_kernels):
+        return sp.scatter_pack_cuda(rows, routes, ptable, k, n_dev, cap)
+    return sp.scatter_pack_host(rows, routes, ptable, k, n_dev, cap)
+
+
+def join_hash(keys: torch.Tensor, valid: torch.Tensor, n_bits: int, *,
+              use_kernels: bool = True) -> torch.Tensor:
+    """(B, n) bucket per row; invalid rows -> 2^n_bits."""
+    if _on_card(keys, use_kernels):
+        return jp.join_hash_cuda(keys, valid, n_bits)
+    return jp.join_hash_host(keys, valid, n_bits)
+
+
+def build_table(keys: torch.Tensor, valid: torch.Tensor, n_bits: int, *,
+                use_kernels: bool = True
+                ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(bucket, stable rank within bucket, (B, P) histogram)."""
+    if _on_card(keys, use_kernels):
+        return jp.build_table_cuda(keys, valid, n_bits)
+    return jp.build_table_host(keys, valid, n_bits)
+
+
+def expand_rows(left: torch.Tensor, right: torch.Tensor, counts: torch.Tensor,
+                lo: torch.Tensor, perm: torch.Tensor, cap: int, *,
+                use_kernels: bool = True
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Prefix-sum expansion of a probe: (out (B, cap, wl+wr), valid)."""
+    if _on_card(left, use_kernels):
+        return sp.expand_rows_cuda(left, right, counts, lo, perm, cap)
+    return sp.expand_rows_host(left, right, counts, lo, perm, cap)

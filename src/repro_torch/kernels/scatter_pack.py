@@ -1,0 +1,169 @@
+"""The map phase (`scatter_pack`) and the reduce-side expansion (`expand_rows`).
+
+scatter_pack — per source shard (leading axis), route every (row, copy)
+through the relation's recipe, fold the wrapped cell to a device through the
+(k,) placement table, rank each copy stably within its device in (row, copy)
+order and write ``row ++ logical cell`` at ``buf[src, dev, rank]``; ranks
+≥ cap are dropped and counted: overflow[src] = Σ_dev max(hist − cap, 0).
+The buffer is (n_src, n_dev, cap, w+1), -1 filled: exactly what the
+reference's per-device `scatter_pack` writes, stacked over sources.
+
+expand_rows — per destination (leading axis), turn a probe's (counts, lo,
+perm) into output rows: slot t holds
+``left[li] ++ right[perm[lo[li] + t − off[li]]]`` with off the exclusive
+prefix sum of counts and li the left row whose window covers t (clipped);
+valid = t < Σ counts.  Slots past the total hold the clipped formula's rows,
+as the reference's do.
+
+`*_host` are the plain versions (stable sort / searchsorted + gathers);
+`*_cuda` launch csrc/scatter_pack.cu.
+"""
+from __future__ import annotations
+
+import torch
+
+from . import _build
+from .map_pack import RouteSpec, _route_block, route_desc_tensor, route_fanout
+from .ref import INVALID
+
+# Copies one warp ranks per tile (scatter_pack stage 1 and 3).
+TILE_COPIES = 2048
+# Device bins one warp keeps in shared memory (8 warps a block, 48 KB).
+MAX_PACK_BINS = 1536
+
+
+def _empty_pack(rows: torch.Tensor, n_dev: int, cap: int
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    s, _, w = rows.shape
+    return (torch.full((s, n_dev, cap, w + 1), INVALID, dtype=torch.int32,
+                       device=rows.device),
+            torch.zeros(s, dtype=torch.int32, device=rows.device))
+
+
+def stable_rank(key: torch.Tensor, n_bins: int
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(rank, hist) of flat bucket ids in [0, n_bins): each element's
+    arrival rank within its bucket, via one stable sort."""
+    order = torch.argsort(key, stable=True)
+    sk = key[order]
+    pos = torch.arange(key.shape[0], device=key.device) \
+        - torch.searchsorted(sk, sk)
+    rank = torch.empty_like(pos).scatter_(0, order, pos)
+    return rank, torch.bincount(key, minlength=n_bins)
+
+
+def scatter_pack_host(rows: torch.Tensor, routes: RouteSpec,
+                      ptable: torch.Tensor, k: int, n_dev: int, cap: int
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of `scatter_pack`: rows (n_src, n_loc, w) ->
+    (buf (n_src, n_dev, cap, w+1), overflow (n_src,))."""
+    s, n, w = rows.shape
+    fanout = route_fanout(routes)
+    if n == 0 or fanout == 0:
+        return _empty_pack(rows, n_dev, cap)
+    m = n * fanout
+    logical, valid = _route_block(rows, routes, k)              # (s, n, F)
+    wrapped = torch.where(valid, logical % k, 0).long()
+    d = torch.where(valid, ptable.long()[wrapped], n_dev).reshape(s, m)
+    nb = n_dev + 1
+    src = torch.arange(s, device=rows.device)[:, None]
+    rank, hist = stable_rank((src * nb + d).reshape(-1), s * nb)
+    rank = rank.reshape(s, m)
+    hist = hist.reshape(s, nb)[:, :n_dev]
+    overflow = torch.clamp(hist - cap, min=0).sum(1).to(torch.int32)
+    slot = torch.where((d < n_dev) & (rank < cap), d * cap + rank,
+                       n_dev * cap)
+    vals = torch.cat([rows[:, :, None, :].expand(s, n, fanout, w)
+                      .reshape(s, m, w),
+                      logical.reshape(s, m, 1)], -1)
+    buf = torch.full((s, n_dev * cap + 1, w + 1), INVALID, dtype=torch.int32,
+                     device=rows.device)
+    buf[src.expand(s, m), slot] = vals           # trash row n_dev·cap dropped
+    return buf[:, :n_dev * cap].reshape(s, n_dev, cap, w + 1), overflow
+
+
+def scatter_pack_cuda(rows: torch.Tensor, routes: RouteSpec,
+                      ptable: torch.Tensor, k: int, n_dev: int, cap: int
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Launch csrc/scatter_pack.cu (fill, tile histograms, scan, rank and
+    write, overflow) for rows (n_src, n_loc, w) int32 on the card."""
+    rows = _build.as_i32(rows, "rows")
+    ptable = _build.as_i32(ptable, "ptable")
+    s, n, w = rows.shape
+    fanout = route_fanout(routes)
+    if n == 0 or fanout == 0:
+        return _empty_pack(rows, n_dev, cap)
+    if n_dev + 1 > MAX_PACK_BINS:
+        raise ValueError(f"scatter_pack kernel takes n_dev < {MAX_PACK_BINS}")
+    tile_rows = max(1, TILE_COPIES // fanout)
+    n_tiles = -(-n // tile_rows)
+    dev = rows.device
+    th = torch.empty((s, n_dev + 1, n_tiles), dtype=torch.int32, device=dev)
+    hist = torch.empty((s, n_dev), dtype=torch.int32, device=dev)
+    buf = torch.empty((s, n_dev, cap, w + 1), dtype=torch.int32, device=dev)
+    overflow = torch.empty(s, dtype=torch.int32, device=dev)
+    desc = route_desc_tensor(routes, dev)
+    _build.call("scatter_pack_launch", rows.data_ptr(), s, n, w,
+                desc.data_ptr(), fanout, ptable.data_ptr(), k, n_dev, cap,
+                tile_rows, n_tiles, th.data_ptr(), hist.data_ptr(),
+                buf.data_ptr(), overflow.data_ptr(), _build.stream(rows))
+    return buf, overflow
+
+
+def _empty_expand(left: torch.Tensor, right: torch.Tensor, cap: int
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    b = left.shape[0]
+    return (torch.full((b, cap, left.shape[2] + right.shape[2]), INVALID,
+                       dtype=torch.int32, device=left.device),
+            torch.zeros((b, cap), dtype=torch.bool, device=left.device))
+
+
+def expand_rows_host(left: torch.Tensor, right: torch.Tensor,
+                     counts: torch.Tensor, lo: torch.Tensor,
+                     perm: torch.Tensor, cap: int
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of `expand_rows`: batched searchsorted + gathers.
+    left (B, n_l, wl), right (B, n_r, wr), counts/lo (B, n_l), perm (B, n_r)
+    -> (out (B, cap, wl + wr), valid (B, cap))."""
+    b, n_l, wl = left.shape
+    n_r, wr = right.shape[1], right.shape[2]
+    if n_l == 0 or n_r == 0:
+        return _empty_expand(left, right, cap)
+    counts = counts.long()
+    off = torch.cumsum(counts, 1) - counts
+    t = torch.arange(cap, device=left.device).expand(b, cap).contiguous()
+    li = torch.clamp(torch.searchsorted(off, t, right=True) - 1, 0, n_l - 1)
+    inner = torch.clamp(torch.gather(lo.long(), 1, li) + t
+                        - torch.gather(off, 1, li), 0, n_r - 1)
+    ri = torch.gather(perm.long(), 1, inner)
+    out = torch.cat([torch.gather(left, 1, li[..., None].expand(b, cap, wl)),
+                     torch.gather(right, 1, ri[..., None].expand(b, cap, wr))],
+                    -1)
+    return out, t < counts.sum(1, keepdim=True)
+
+
+def expand_rows_cuda(left: torch.Tensor, right: torch.Tensor,
+                     counts: torch.Tensor, lo: torch.Tensor,
+                     perm: torch.Tensor, cap: int
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Launch csrc/scatter_pack.cu's expansion (scan of counts, then one
+    thread per output slot)."""
+    left = _build.as_i32(left, "left")
+    right = _build.as_i32(right, "right")
+    counts = _build.as_i32(counts, "counts")
+    lo = _build.as_i32(lo, "lo")
+    perm = _build.as_i32(perm, "perm")
+    b, n_l, wl = left.shape
+    n_r, wr = right.shape[1], right.shape[2]
+    if n_l == 0 or n_r == 0:
+        return _empty_expand(left, right, cap)
+    dev = left.device
+    off = torch.empty((b, n_l), dtype=torch.int32, device=dev)
+    total = torch.empty(b, dtype=torch.int32, device=dev)
+    out = torch.empty((b, cap, wl + wr), dtype=torch.int32, device=dev)
+    valid = torch.empty((b, cap), dtype=torch.bool, device=dev)
+    _build.call("expand_rows_launch", left.data_ptr(), right.data_ptr(),
+                counts.data_ptr(), lo.data_ptr(), perm.data_ptr(), b, n_l, wl,
+                n_r, wr, cap, off.data_ptr(), total.data_ptr(),
+                out.data_ptr(), valid.data_ptr(), _build.stream(left))
+    return out, valid

@@ -25,3 +25,9 @@ except ModuleNotFoundError:
 if settings is not None:
     settings.register_profile("ci", max_examples=20, deadline=None)
     settings.load_profile("ci")
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU with the CUDA toolkit (skips "
+        "without one)")

@@ -1,0 +1,159 @@
+"""Plain torch versions of the map-side kernels (map_count, scatter_pack)
+vs the JAX package.
+
+The same numpy inputs go through the JAX functions (the `*_host` twins, the
+Pallas kernels in interpret mode at tiny sizes, the ref.py oracles) and the
+port's torch counterparts on the CPU; int32 outputs must be bit-identical.
+The port's functions carry a leading batch axis (sources or destinations):
+each slice is held against one call of the single-device JAX function.
+"""
+import functools
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import plan_skew_join as jax_plan
+from repro.core import running_example as jax_running_example
+from repro.core.executor import _build_routes as jax_build_routes
+from repro.core.executor import _route_specs as jax_route_specs
+from repro.data import skewed_join_dataset as jax_dataset
+from repro.kernels import map_pack as jmp
+from repro.kernels import ref as jref
+from repro.kernels import scatter_pack as jsp
+from repro_torch.kernels import map_pack as tmp
+from repro_torch.kernels import ops
+from repro_torch.kernels import ref as tref
+from repro_torch.kernels import scatter_pack as tsp
+
+SEED_A, SEED_B = 0x9E3779B1, 0x85EBCA77
+
+
+def _synthetic_routes(k):
+    """Two residual routes: hashed attrs, replication, eq / not-in sets."""
+    if k == 1:
+        return ((((0, SEED_A, 1, 1),), (0,), 0, (), ()),)
+    half, quarter = max(k // 2, 1), max(k // 4, 1)
+    return (
+        (((0, SEED_A, half, 1),), (0, half), 0, (), ((1, (7, 13)),)),
+        (((0, SEED_B, quarter, 1), (2, SEED_A, 2, quarter)), (0,), quarter,
+         ((1, 7),), ()),
+    )
+
+
+@functools.lru_cache(maxsize=None)
+def _plan_routes(k):
+    """Route specs of a real SkewShares plan (fanout > 1, HH constraints)."""
+    q = jax_running_example()
+    data = jax_dataset(q, 3000, 1 << 14, skew={"B": 1.5}, seed=11)
+    plan = jax_plan(q, data, k)
+    return {n: jax_route_specs(r) for n, r in jax_build_routes(plan).items()}
+
+
+def _rows(rng, n, w, domain=50, invalid_frac=0.1):
+    rows = rng.integers(0, domain, size=(n, w)).astype(np.int32)
+    rows[rng.random(n) < invalid_frac] = -1
+    return rows
+
+
+def _np(x):
+    return np.asarray(x)
+
+
+ROUTE_CASES = [("synthetic", 1), ("synthetic", 8), ("synthetic", 256),
+               ("plan", 8), ("plan", 64)]
+
+
+def _route_sets(kind, k):
+    if kind == "synthetic":
+        return [(_synthetic_routes(k), 3)]
+    widths = {"R": 2, "S": 3, "T": 2}
+    return [(spec, widths[name]) for name, spec in _plan_routes(k).items()]
+
+
+# n = 13 < 8 sources · 2 rows: rows_per_src = 1, rows 8.. count nowhere.
+@pytest.mark.parametrize("kind,k,n", [c + (n,) for c in ROUTE_CASES
+                                      for n in (0, 400)]
+                         + [("synthetic", 8, 13), ("plan", 8, 13)])
+def test_map_count_matches_jax(kind, k, n):
+    rng = np.random.default_rng(n + k)
+    for routes, w in _route_sets(kind, k):
+        rows = _rows(rng, n, w)
+        got = tmp.map_count_host(torch.from_numpy(rows), routes, k, 8)
+        want = jmp.map_count_host(jnp.asarray(rows), routes=routes, k=k,
+                                  n_src=8)
+        np.testing.assert_array_equal(got.numpy(), _np(want))
+        np.testing.assert_array_equal(
+            tref.map_count_ref(torch.from_numpy(rows), routes, k, 8).numpy(),
+            _np(jref.map_count_ref(jnp.asarray(rows), routes, k, 8)))
+        np.testing.assert_array_equal(
+            ops.map_count(torch.from_numpy(rows), routes, k, 8).numpy(),
+            _np(want))
+
+
+def test_map_count_matches_interpret_kernel():
+    rng = np.random.default_rng(3)
+    routes = _synthetic_routes(8)
+    rows = _rows(rng, 40, 3)
+    want = jmp.map_count(jnp.asarray(rows), routes=routes, k=8, n_src=4,
+                         interpret=True)
+    got = tmp.map_count_host(torch.from_numpy(rows), routes, 8, 4)
+    np.testing.assert_array_equal(got.numpy(), _np(want))
+
+
+def _pack_both(rows3, routes, ptable, k, n_dev, cap):
+    got_buf, got_over = tsp.scatter_pack_host(
+        torch.from_numpy(rows3), routes, torch.from_numpy(ptable), k, n_dev,
+        cap)
+    for s in range(rows3.shape[0]):
+        buf, over = jsp.scatter_pack_host(
+            jnp.asarray(rows3[s]), jnp.asarray(ptable), routes=routes, k=k,
+            n_dev=n_dev, cap=cap)
+        np.testing.assert_array_equal(got_buf[s].numpy(), _np(buf))
+        assert int(got_over[s]) == int(over)
+    return got_buf, got_over
+
+
+@pytest.mark.parametrize("kind,k", ROUTE_CASES)
+@pytest.mark.parametrize("n_loc,cap", [(0, 4), (25, 64), (60, 3)])
+def test_scatter_pack_matches_jax(kind, k, n_loc, cap):
+    rng = np.random.default_rng(n_loc * 7 + k + cap)
+    n_dev = min(k, 8)
+    ptable = rng.integers(0, n_dev, size=k).astype(np.int32)
+    for routes, w in _route_sets(kind, k):
+        rows3 = _rows(rng, 4 * n_loc, w).reshape(4, n_loc, w)
+        _, over = _pack_both(rows3, routes, ptable, k, n_dev, cap)
+        if cap == 3 and n_loc:
+            assert int(over.sum()) > 0          # forced overflow engaged
+
+
+def test_scatter_pack_all_invalid_and_interpret_kernel():
+    routes = _synthetic_routes(8)
+    ptable = np.arange(8, dtype=np.int32) % 4
+    dead = np.full((2, 10, 3), -1, np.int32)
+    buf, over = _pack_both(dead, routes, ptable, 8, 4, 5)
+    assert (buf.numpy() == -1).all() and int(over.sum()) == 0
+    rows = _rows(np.random.default_rng(9), 30, 3)
+    kbuf, kover = jsp.scatter_pack(jnp.asarray(rows), jnp.asarray(ptable),
+                                   routes=routes, k=8, n_dev=4, cap=6,
+                                   interpret=True)
+    tbuf, tover = tsp.scatter_pack_host(torch.from_numpy(rows)[None], routes,
+                                        torch.from_numpy(ptable), 8, 4, 6)
+    np.testing.assert_array_equal(tbuf[0].numpy(), _np(kbuf))
+    assert int(tover[0]) == int(kover)
+    rbuf, rover = tref.scatter_pack_ref(torch.from_numpy(rows), torch.from_numpy(
+        ptable), routes, 8, 4, 6)
+    np.testing.assert_array_equal(rbuf.numpy(), _np(kbuf))
+    assert int(rover) == int(kover)
+
+
+def test_route_desc_layout():
+    routes = _synthetic_routes(8)
+    desc = tmp.route_desc(routes)
+    fanout = tmp.route_fanout(routes)
+    assert desc[:2] == [fanout, len(routes)]
+    assert desc[2:2 + 2 * fanout] == [0, 0, 0, 4, 1, 2]
+    rec0 = desc[desc[2 + 2 * fanout]:]
+    assert rec0[:3] == [1, 0, 2]                 # 1 hashed, 0 eq, 2 not-in
+    assert rec0[3:7] == [0, SEED_A, 2, 1]        # share 4 -> 2 bits
