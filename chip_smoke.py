@@ -1,12 +1,13 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch + CUDA port's join main path on one NVIDIA GPU.
+"""Drive the PyTorch + CUDA port's join paths on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero; nothing is caught and carried on):
   1. the card's name and power limit (nvidia-smi);
-  2. build the five CUDA kernels from src/repro_torch/kernels/csrc;
-  3. the full-size cell end to end on the kernels: R(A,B) ⋈ S(B,C) with
+  2. build the nine CUDA kernels from src/repro_torch/kernels/csrc;
+  3. the full-size cell end to end on the kernels (fused map + hash
+     reduce, the default `ExecutorConfig`): R(A,B) ⋈ S(B,C) with
      2^21 rows per relation, one heavy hitter B = 0 of 12,288 rows, a tail
      of 2^20 values, k = 256 logical cells on n_dev = 8 logical servers.
      Launch counts are zeroed just before `prepare` + the first `run_batch`
@@ -17,11 +18,21 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      that run, bit for bit, with kernel, plain and bound times; the bound
      counts what this run's data needs (valid rows only, matched rows only
      for the expansion) and is the larger of its bytes and operations times;
+  3b. the same cell on the staged map + sort-merge reduce
+     (`fuse_map=False, hash_reduce=False`), counts zeroed just before its
+     `prepare` + first `run_batch` and read just after: zero overflow, the
+     exact join size, rows `torch.equal` to phase 3's, no new step on a
+     second batch, the warm batch time and a profile;
+  4b. the staged arm's kernels (route_cells, fold_cells, bucket_pack,
+     segment_scan / run_lengths) against their plain versions at the
+     shapes of that run, bit for bit, with kernel, plain, bound and (where
+     one PyTorch call computes the function) library times;
   5. the paper's running example and a 4-way chain at a few thousand rows,
-     k ∈ {64, 256}, n_dev = 8, against the numpy reference join, with the
-     launch counts of each run checked (its 2- and 3-step cascades);
-  6. one JSON line of per-kernel results, then the last line
-     {"ok": true, "device": {...}}.
+     k ∈ {64, 256}, n_dev = 8, under all four arms (fused | staged map ×
+     hash | sort-merge reduce), against the numpy reference join, with the
+     exact launch counts of each run checked;
+  6. one JSON line of per-kernel results (each with the path its launches
+     were counted on), then the last line {"ok": true, "device": {...}}.
 
 Exits non-zero without printing a result when no CUDA device is present or
 when the repository's `src/repro_torch` is not beside this script.
@@ -48,18 +59,32 @@ MODERATE = [  # (query name, rows per relation, domain, skew)
     ("running_example", 3000, 1 << 16, {"B": 1.5}),
     ("chain4", 3000, 1 << 16, {"X2": 1.5}),
 ]
-# Where each ported kernel lives and which TPU kernel (Pallas call) it replaces.
+FUSED_HASH, STAGED_SORT = "fused+hash", "staged+sort"
+# The config fields of each arm.
+ARMS = {FUSED_HASH: {}, "fused+sort": {"hash_reduce": False},
+        "staged+hash": {"fuse_map": False}, STAGED_SORT: {"fuse_map": False,
+                                                         "hash_reduce": False}}
+# Where each ported kernel lives, which TPU kernel (Pallas call) it
+# replaces, and the full-size path its launches are read on.
 KERNEL_SITES = {
     "map_count": ("src/repro_torch/kernels/csrc/map_pack.cu",
-                  "src/repro/kernels/map_pack.py:298"),
+                  "src/repro/kernels/map_pack.py:298", FUSED_HASH),
     "scatter_pack": ("src/repro_torch/kernels/csrc/scatter_pack.cu",
-                     "src/repro/kernels/scatter_pack.py:149"),
+                     "src/repro/kernels/scatter_pack.py:149", FUSED_HASH),
     "join_hash": ("src/repro_torch/kernels/csrc/join_probe.cu",
-                  "src/repro/kernels/join_probe.py:195"),
+                  "src/repro/kernels/join_probe.py:195", FUSED_HASH),
     "build_table": ("src/repro_torch/kernels/csrc/join_probe.cu",
-                    "src/repro/kernels/join_probe.py:234"),
+                    "src/repro/kernels/join_probe.py:234", FUSED_HASH),
     "expand_rows": ("src/repro_torch/kernels/csrc/scatter_pack.cu",
-                    "src/repro/kernels/scatter_pack.py:246"),
+                    "src/repro/kernels/scatter_pack.py:246", FUSED_HASH),
+    "route_cells": ("src/repro_torch/kernels/csrc/route_cells.cu",
+                    "src/repro/kernels/route_cells.py:96", STAGED_SORT),
+    "fold_cells": ("src/repro_torch/kernels/csrc/route_cells.cu",
+                   "src/repro/kernels/route_cells.py:66", STAGED_SORT),
+    "bucket_pack": ("src/repro_torch/kernels/csrc/bucket_pack.cu",
+                    "src/repro/kernels/bucket_pack.py:84", STAGED_SORT),
+    "segment_scan": ("src/repro_torch/kernels/csrc/build_probe.cu",
+                     "src/repro/kernels/build_probe.py:152", STAGED_SORT),
 }
 
 
@@ -181,6 +206,52 @@ def profile_batch(session, top: int = 12) -> None:
               f"x{e.count:<4d} {e.key[:90]}")
 
 
+def expected_launches(ex, fields) -> dict[str, int]:
+    """Kernel launches of one prepare (one counting pass, as k > n_dev) and
+    one run_batch under the arm `fields`: the fused map counts and packs
+    each relation once; the staged map routes once per (relation, route
+    with hashed attributes) in prepare and again in the step, and folds
+    and packs each relation once; each cascade step hashes, builds and
+    expands once (hash), or scans twice (group ids, run lengths) and
+    expands once (sort-merge)."""
+    n_rel = len(ex.query.relations)
+    steps = n_rel - 1
+    want = dict.fromkeys(KERNEL_SITES, 0)
+    if fields.get("fuse_map", True):
+        want.update(map_count=n_rel, scatter_pack=n_rel)
+    else:
+        hashed = sum(1 for spec in ex.route_specs.values()
+                     for route in spec if route[0])
+        want.update(route_cells=2 * hashed, fold_cells=n_rel,
+                    bucket_pack=n_rel)
+    if fields.get("hash_reduce", True):
+        want.update(join_hash=steps, build_table=steps, expand_rows=steps)
+    else:
+        want.update(segment_scan=2 * steps, expand_rows=steps)
+    return want
+
+
+def warm_batches(ex, s, label: str, exact: int) -> None:
+    """No new step on a second batch; the warm run_batch median of 7."""
+    compiles = ex.compile_count
+    res2 = s.run_batch()
+    check(ex.compile_count == compiles, f"{label}: second run_batch built "
+          f"a new step")
+    del res2
+    times = []
+    for _ in range(7):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = s.run_batch()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        del r
+    t_batch = float(np.median(times))
+    print(f"[{label}] warm run_batch median {t_batch * 1e3:.1f} ms of "
+          f"{len(times)} ({', '.join(f'{t * 1e3:.1f}' for t in times)}); "
+          f"{exact / t_batch:.4g} joined rows/s")
+
+
 def full_cell(dev):
     """Phase 3: the full-size cell through prepare + run_batch on kernels."""
     from repro_torch.core import plan_skew_join, two_way
@@ -243,8 +314,9 @@ def full_cell(dev):
     step_launches = {k: launches[k] - prepare_launches[k] for k in launches}
     print(f"[cell] launches on the main path {launches} "
           f"(per run_batch {step_launches})")
-    check(all(v > 0 for v in launches.values()),
-          f"a kernel was not launched on the main path: {launches}")
+    want = expected_launches(ex, ARMS[FUSED_HASH])
+    check(launches == want,
+          f"main path launches {launches}, expected {want}")
     check(int(res["shuffle_overflow"].sum()) == 0,
           f"shuffle overflow {res['shuffle_overflow_by_rel'].tolist()}")
     check(int(res["join_overflow"].sum()) == 0,
@@ -265,22 +337,8 @@ def full_cell(dev):
           f"{held} = {sum(held.values()) / 1e9:.2f} GB; peak allocated "
           f"(measured) {peak / 1e9:.2f} GB")
 
-    compiles = ex.compile_count
-    res2 = s.run_batch()
-    check(ex.compile_count == compiles, "second run_batch built a new step")
-    del res2
-    times = []
-    for _ in range(7):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        r = s.run_batch()
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-        del r
-    t_batch = float(np.median(times))
-    print(f"[cell] prepare {t_prepare * 1e3:.1f} ms; warm run_batch median "
-          f"{t_batch * 1e3:.1f} ms of {len(times)}; "
-          f"{exact / t_batch:.4g} joined rows/s")
+    print(f"[cell] prepare {t_prepare * 1e3:.1f} ms")
+    warm_batches(ex, s, "cell", exact)
     profile_batch(s)
 
     # The same step on the plain versions, on the card.
@@ -299,10 +357,39 @@ def full_cell(dev):
           "kernel rows differ from the plain path's")
     print("[cell] rows equal the plain path's (torch.equal), zero overflow, "
           "exact join size, no new step on the second batch: ok")
-    del res_p, out_k, valid_k, s_plain, ex_plain
+    del res_p, s_plain, ex_plain
     torch.cuda.empty_cache()
     return dict(plan=plan, ex=ex, session=s, launches=launches,
-                cap_out=cap_out, exact=exact)
+                cap_out=cap_out, exact=exact, data=data, rows=out_k,
+                valid=valid_k)
+
+
+def record(out, name, kern, plain, args, n_bytes, n_ops, iters,
+           library=None):
+    """Hold `kern` against `plain` on `args` bit for bit and put their
+    times, the bound and `library`'s time (one PyTorch call computing the
+    same function, or None) in out[name]; returns the kernel's outputs."""
+    got, want = kern(*args), plain(*args)
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    err = 0
+    for g, w in zip(got, want):
+        check(g.shape == w.shape, f"{name}: shape {g.shape} != {w.shape}")
+        if not torch.equal(g, w.to(g.dtype)):
+            err = max(err, int((g.long() - w.long()).abs().max()))
+    check(err == 0, f"{name}: kernel differs from plain (max {err})")
+    ms = time_ms(lambda: kern(*args), iters)
+    plain_ms = time_ms(lambda: plain(*args), max(iters // 2, 2))
+    library_ms = None if library is None else time_ms(library, iters)
+    bound_ms, bound_by = bound(n_bytes, n_ops)
+    out[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                     bound_ms=bound_ms, bound_by=bound_by,
+                     library_ms=library_ms)
+    lib = "" if library_ms is None else f", library {library_ms:.4f} ms"
+    print(f"[kernel] {name}: equal to plain; {ms:.4f} ms (plain "
+          f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms by {bound_by}: "
+          f"{n_bytes} bytes, {n_ops} operations{lib})")
+    return got
 
 
 def kernel_checks(cell):
@@ -318,33 +405,13 @@ def kernel_checks(cell):
     spec_r, spec_s = ex.route_specs["R"], ex.route_specs["S"]
     out = {}
 
-    def record(name, kern, plain, args, n_bytes, n_ops, iters):
-        got, want = kern(*args), plain(*args)
-        got = got if isinstance(got, tuple) else (got,)
-        want = want if isinstance(want, tuple) else (want,)
-        err = 0
-        for g, w in zip(got, want):
-            check(g.shape == w.shape, f"{name}: shape {g.shape} != {w.shape}")
-            if not torch.equal(g, w.to(g.dtype)):
-                err = max(err, int((g.long() - w.long()).abs().max()))
-        check(err == 0, f"{name}: kernel differs from plain (max {err})")
-        ms = time_ms(lambda: kern(*args), iters)
-        plain_ms = time_ms(lambda: plain(*args), max(iters // 2, 2))
-        bound_ms, bound_by = bound(n_bytes, n_ops)
-        out[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                         bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
-        print(f"[kernel] {name}: equal to plain; {ms:.4f} ms (plain "
-              f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms by {bound_by}: "
-              f"{n_bytes} bytes, {n_ops} operations)")
-        return got
-
     # map_count and scatter_pack on both relations; the row kept for each
     # is R's (fanout 17).  Bytes: the rows, the (k,) table, the outputs in
     # full (the pack buffer's -1 padding is output).  Operations: routing,
     # plus one histogram add per member copy.
     for rows, spec in ((rows_s, spec_s), (rows_r, spec_r)):
         r_bytes, r_ops, members = route_work(rows, spec, k)
-        record("map_count", mp.map_count_cuda, mp.map_count_host,
+        record(out, "map_count", mp.map_count_cuda, mp.map_count_host,
                (rows, spec, k, n_dev), r_bytes + n_dev * k * 4,
                r_ops + members, 10)
     frags = {}
@@ -352,7 +419,7 @@ def kernel_checks(cell):
         rows3 = rows.view(n_dev, -1, rows.shape[1])
         cap = s.caps[name]
         r_bytes, r_ops, members = route_work(rows, spec, k)
-        buf, _ = record("scatter_pack", sp.scatter_pack_cuda,
+        buf, _ = record(out, "scatter_pack", sp.scatter_pack_cuda,
                         sp.scatter_pack_host,
                         (rows3, spec, s._ptable, k, n_dev, cap),
                         r_bytes + nbytes(s._ptable) + 4 * n_dev
@@ -372,10 +439,10 @@ def kernel_checks(cell):
     # row, plus one rank add per row for the build.
     w_key = lk.shape[2]
     n_lv, n_rv = int(lv.sum()), int(rv.sum())
-    (bl,) = record("join_hash", jp.join_hash_cuda, jp.join_hash_host,
+    (bl,) = record(out, "join_hash", jp.join_hash_cuda, jp.join_hash_host,
                    (lk, lv, bits), lv.numel() + n_lv * w_key * 4
                    + lv.numel() * 4, n_lv * (2 * w_key + 1), 20)
-    br, rank, hist = record("build_table", jp.build_table_cuda,
+    br, rank, hist = record(out, "build_table", jp.build_table_cuda,
                             jp.build_table_host, (rk, rv, bits),
                             rv.numel() + n_rv * w_key * 4
                             + 2 * rv.numel() * 4 + n_dev * (1 << bits) * 4,
@@ -394,11 +461,143 @@ def kernel_checks(cell):
     n_hit = int((counts > 0).sum())
     n_cov = covered_positions(counts, lo, right.shape[1])
     search = max(n_l - 1, 1).bit_length()
-    record("expand_rows", sp.expand_rows_cuda, sp.expand_rows_host,
+    record(out, "expand_rows", sp.expand_rows_cuda, sp.expand_rows_host,
            (acc, right, counts, lo, perm, cap_out),
            counts.numel() * 4 + n_hit * (wl + 1) * 4 + n_cov * (wr + 1) * 4
            + n_b * cap_out * ((wl + wr) * 4 + 1),
            n_b * n_l + n_b * cap_out * (search + 3), 4)
+    return out
+
+
+def staged_cell(dev, cell):
+    """Phase 3b: the full-size cell on the staged map + sort-merge reduce,
+    held against phase 3's rows."""
+    from repro_torch.core.executor import ExecutorConfig, ShardedJoinExecutor
+    from repro_torch.kernels import ops
+
+    n_dev, exact = FULL["n_dev"], cell["exact"]
+    fields = ARMS[STAGED_SORT]
+    ex = ShardedJoinExecutor(cell["plan"], n_dev,
+                             ExecutorConfig(out_capacity=cell["cap_out"],
+                                            **fields), device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    s = ex.session().prepare(cell["data"])
+    torch.cuda.synchronize()
+    t_prepare = time.perf_counter() - t0
+    res = s.run_batch()
+    torch.cuda.synchronize()
+    launches = dict(ops.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    print(f"[staged] {STAGED_SORT} launches {launches}")
+    want = expected_launches(ex, fields)
+    check(launches == want, f"{STAGED_SORT} launches {launches}, "
+          f"expected {want}")
+    check(s.caps == cell["caps"], f"{STAGED_SORT} caps {s.caps} != "
+          f"{cell['caps']}")
+    check(np.array_equal(s.placement.table, cell["table"]),
+          f"{STAGED_SORT} derived another placement")
+    check(int(res["shuffle_overflow"].sum()) == 0,
+          f"{STAGED_SORT} shuffle overflow "
+          f"{res['shuffle_overflow_by_rel'].tolist()}")
+    check(int(res["join_overflow"].sum()) == 0,
+          f"{STAGED_SORT} join overflow {res['join_overflow'].tolist()}")
+    n_valid = int(res.tensors[1].sum())
+    check(n_valid == exact, f"{STAGED_SORT} valid rows {n_valid} != exact "
+          f"{exact}")
+    check(torch.equal(res.tensors[0], cell["rows"])
+          and torch.equal(res.tensors[1], cell["valid"]),
+          f"{STAGED_SORT} rows differ from {FUSED_HASH}'s")
+    del res
+    print(f"[staged] rows torch.equal to {FUSED_HASH}'s, zero overflow, "
+          f"{n_valid} valid rows; prepare {t_prepare * 1e3:.1f} ms; peak "
+          f"allocated (measured, {FUSED_HASH} rows held) {peak / 1e9:.2f} GB")
+    warm_batches(ex, s, "staged", exact)
+    profile_batch(s)
+    return dict(ex=ex, session=s, launches=launches)
+
+
+def staged_kernel_checks(cell):
+    """Phase 4b: the staged arm's kernels against their plain versions at
+    the staged cell's shapes (R's where a kernel runs on both relations)."""
+    from repro_torch.core import executor as exm
+    from repro_torch.core.executor import INVALID, exchange, shared_columns
+    from repro_torch.kernels import bucket_pack as bp
+    from repro_torch.kernels import build_probe as bpr
+    from repro_torch.kernels import route_cells as rc
+
+    ex, s = cell["ex"], cell["session"]
+    n_dev, k = ex.n_devices, ex.k
+    rows_r, rows_s = s._device_args
+    out, extra = {}, {}
+
+    # route_cells on R's rows (all sources, as the step calls it), for the
+    # route with the most hashed axes.  Bytes: the hashed columns and the
+    # cells; operations: five per row and axis.
+    recipe = max((route[0] for route in ex.route_specs["R"] if route[0]),
+                 key=lambda h: sum(1 for x in h if x[2] != 1))
+    axes = [x for x in recipe if x[2] != 1]
+    n = rows_r.shape[0]
+    record(out, "route_cells", rc.route_cells_cuda, rc.route_cells_host,
+           (rows_r, recipe), n * len({x[0] for x in axes}) * 4 + n * 4,
+           n * 5 * len(axes), 20)
+    # fold_cells and bucket_pack on the staged map's copies.  fold: bytes
+    # the dests in and out and the table, one select per copy; library:
+    # table[dest] on clamped dests (leaves out the -1 pass-through).  pack:
+    # bytes the dests, the valid copies' rows, the whole buffer and the
+    # overflow; two operations per copy (bin, rank add).
+    frags = {}
+    for name, rows in (("S", rows_s), ("R", rows_r)):
+        rows3 = rows.view(n_dev, -1, rows.shape[1])
+        dest, tagged = exm._route_relation(rows3, ex.route_specs[name], k,
+                                           True)
+        m = dest.numel()
+        clamped = dest.clamp(min=0).long()
+        (phys,) = record(out, "fold_cells", rc.fold_cells_cuda,
+                         rc.fold_cells_host, (dest, s._ptable),
+                         2 * m * 4 + k * 4, m, 20,
+                         library=lambda: s._ptable[clamped])
+        del clamped, dest
+        cap, w1 = s.caps[name], tagged.shape[2]
+        n_kept = int(((phys >= 0) & (phys < n_dev)).sum())
+        buf, _ = record(out, "bucket_pack", bp.bucket_pack_cuda,
+                        bp.bucket_pack_host, (phys, tagged, n_dev, cap),
+                        m * 4 + n_kept * w1 * 4
+                        + n_dev * n_dev * cap * w1 * 4 + n_dev * 4,
+                        2 * m, 10)
+        frags[name] = exchange(buf)
+        del tagged, phys, buf
+    # segment_scan over the sort-merge step's sorted union of keys, and
+    # run_lengths over the sorted right group ids.  Bytes: the keys, the
+    # outputs; operations: w compares and one scan add per row.  Library:
+    # torch.unique_consecutive over the rows with the batch axis flattened
+    # (leaves out the batch boundaries and the run starts).
+    acc, right = frags["R"], frags["S"]
+    lcols, rcols = shared_columns(["A", "B", "__cell__"],
+                                  ["B", "C", "__cell__"])
+    lv, rv = acc[..., -1] != INVALID, right[..., -1] != INVALID
+    lks = torch.where(lv[..., None], acc[..., lcols], -2)
+    rks = torch.where(rv[..., None], right[..., rcols], -3)
+    comb = torch.cat([lks, rks], 1)
+    perm = exm._lexsort_rows(comb)
+    keys = exm._rows_at(comb, perm)
+    del frags, acc, right, lks, rks, comb
+    b, n_k, w = keys.shape
+    flat = keys.reshape(-1, w)
+    seg, _ = record(out, "segment_scan", bpr.segment_scan_cuda,
+                    bpr.segment_scan_host, (keys,),
+                    b * n_k * w * 4 + 2 * b * n_k * 4, b * n_k * (w + 1), 10,
+                    library=lambda: torch.unique_consecutive(
+                        flat, dim=0, return_inverse=True, return_counts=True))
+    g_r = torch.empty_like(seg).scatter_(1, perm, seg)[:, lv.shape[1]:]
+    sg_r = torch.sort(g_r, dim=1, stable=True).values[..., None].contiguous()
+    n_r = sg_r.shape[1]
+    record(extra, "run_lengths", bpr.run_lengths_cuda, bpr.run_lengths_host,
+           (sg_r,), b * n_r * 4 + 3 * b * n_r * 4, 2 * b * n_r, 10,
+           library=lambda: torch.unique_consecutive(
+               sg_r.reshape(-1), return_inverse=True, return_counts=True))
     return out
 
 
@@ -422,29 +621,28 @@ def moderate_checks(dev):
                       for i in range(2, len(rels) + 1))
         for k in (64, 256):
             plan = plan_skew_join(q, data, k)
-            cfg = ExecutorConfig(out_capacity=quantize_capacity(biggest))
-            ex = ShardedJoinExecutor(plan, 8, cfg, device=dev)
-            # Counts zeroed just before prepare + run_batch, read just after:
-            # each relation is counted and packed once, and every cascade
-            # step hashes, builds and expands once.
-            ops.reset_launches()
-            res = ex.session().prepare(data).run_batch()
-            launches = dict(ops.LAUNCHES)
-            n_rel = len(rels)
-            want = dict(map_count=n_rel, scatter_pack=n_rel,
-                        join_hash=n_rel - 1, build_table=n_rel - 1,
-                        expand_rows=n_rel - 1)
-            check(launches == want,
-                  f"{name} k={k}: launches {launches}, expected {want}")
-            check(int(res["shuffle_overflow"].sum()) == 0
-                  and int(res["join_overflow"].sum()) == 0,
-                  f"{name} k={k}: overflow")
-            got = canonical(res["rows"][res["valid"]])
-            check(np.array_equal(got, ref),
-                  f"{name} k={k}: rows differ from reference_join")
-            print(f"[moderate] {name} n={n} k={k}: {len(ref)} rows equal "
-                  f"reference_join ({len(plan.residuals)} residuals); "
-                  f"launches {launches}")
+            for arm, fields in ARMS.items():
+                cfg = ExecutorConfig(out_capacity=quantize_capacity(biggest),
+                                     **fields)
+                ex = ShardedJoinExecutor(plan, 8, cfg, device=dev)
+                # Counts zeroed just before prepare + run_batch, read just
+                # after.
+                ops.reset_launches()
+                res = ex.session().prepare(data).run_batch()
+                launches = dict(ops.LAUNCHES)
+                want = expected_launches(ex, fields)
+                check(launches == want, f"{name} k={k} {arm}: launches "
+                      f"{launches}, expected {want}")
+                check(int(res["shuffle_overflow"].sum()) == 0
+                      and int(res["join_overflow"].sum()) == 0,
+                      f"{name} k={k} {arm}: overflow")
+                got = canonical(res["rows"][res["valid"]])
+                check(np.array_equal(got, ref),
+                      f"{name} k={k} {arm}: rows differ from reference_join")
+                print(f"[moderate] {name} n={n} k={k} {arm}: {len(ref)} rows "
+                      f"equal reference_join ({len(plan.residuals)} "
+                      f"residuals); launches "
+                      f"{ {kn: v for kn, v in launches.items() if v} }")
 
 
 def main() -> int:
@@ -472,14 +670,27 @@ def main() -> int:
 
     cell = full_cell(dev)
     results = kernel_checks(cell)
+    s = cell.pop("session")
+    cell["caps"], cell["table"] = dict(s.caps), s.placement.table.copy()
+    del s, cell["ex"]
+    torch.cuda.empty_cache()
+    staged = staged_cell(dev, cell)
+    del cell["rows"], cell["valid"]
+    torch.cuda.empty_cache()
+    results.update(staged_kernel_checks(staged))
+    path_launches = {FUSED_HASH: cell["launches"],
+                     STAGED_SORT: staged["launches"]}
+    del staged
+    torch.cuda.empty_cache()
     moderate_checks(dev)
 
     kernels = []
     for name in ops.KERNELS:
-        source, replaces = KERNEL_SITES[name]
+        source, replaces, path = KERNEL_SITES[name]
         kernels.append(dict(name=name, route="cuda", source=source,
-                            replaces=replaces,
-                            launches=cell["launches"][name], **results[name]))
+                            replaces=replaces, path=path,
+                            launches=path_launches[path][name],
+                            **results[name]))
     check(all(kn["launches"] > 0 for kn in kernels), "a kernel never launched")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -24,10 +24,16 @@ argument of a step: re-placing never builds a new step.  Steps are cached on
 (shapes, caps, cap_out), with the `compile_count`, `step_hits` and
 `evicted_steps` counters of the reference ("compile" = build a step).
 
-Only the default `ExecutorConfig` arm runs here (fused map, hash reduce,
-serial exchange); `use_kernels=False` runs the kernels' plain versions on
-the same device.  Entry points take `device=` and default to the card; with
-no card they raise.
+Both oracle arms of the reference run here too.  `fuse_map=False` is the
+staged map: `_route_relation` (`route_cells` per route, replication and
+membership as torch ops, the (n_src, n_loc·F, w+1) tagged copies made),
+`_fold_dests` (`fold_cells`) and `_pack_buckets` (`bucket_pack`);
+`hash_reduce=False` is the sort-merge reduce: `_lexsort_rows` (torch's
+stable sorts), `_group_ids` (`segment_scan`) and `_probe_sort`
+(`run_lengths`, `searchsorted`).  Every arm gives the same bits.  The
+chunked exchange (`overlap_shuffle` ≥ 2) is not ported.  `use_kernels=False`
+runs the kernels' plain versions on the same device.  Entry points take
+`device=` and default to the card; with no card they raise.
 """
 from __future__ import annotations
 
@@ -41,6 +47,7 @@ import torch
 
 from ..kernels import ops
 from ..kernels.join_probe import default_bits, probe_tables
+from ..kernels.map_pack import count_scatter
 from .hypercube import hash_seed
 from .placement import (CellPlacement, check_fold, modulo_placement,
                         place_cells)
@@ -119,8 +126,8 @@ class ExecutorConfig:
     capacity_factor: float = 2.0       # shuffle slack over the max observed load
     out_capacity: int = 4096           # per-device join output rows (static)
     use_kernels: bool = True           # CUDA kernels (else their plain versions)
-    fuse_map: bool = True              # fused map; the staged arm is not ported
-    hash_reduce: bool = True           # hash join; the sort-merge arm is not
+    fuse_map: bool = True              # fused map (else route -> fold -> pack)
+    hash_reduce: bool = True           # hash join (else sort-merge)
     hash_bits: int | None = None       # hash-table bits; None -> ~2·n_r buckets
     cap_bucket: float = 2.0            # grid derived capacities are quantized to
     overlap_shuffle: int = 0           # chunked exchange; not ported (≤ 1 only)
@@ -128,11 +135,6 @@ class ExecutorConfig:
 
 
 def _check_config(cfg: ExecutorConfig) -> None:
-    if not cfg.fuse_map:
-        raise NotImplementedError("fuse_map=False (staged map) is not ported")
-    if not cfg.hash_reduce:
-        raise NotImplementedError(
-            "hash_reduce=False (sort-merge reduce) is not ported")
     if int(cfg.overlap_shuffle) > 1:
         raise NotImplementedError("overlap_shuffle >= 2 is not ported")
 
@@ -242,6 +244,65 @@ def resolve_device(device=None) -> torch.device:
 
 
 # ---------------------------------------------------------------------------
+# Staged map (fuse_map=False)
+# ---------------------------------------------------------------------------
+
+def _route_copies(rows: torch.Tensor, routes, k: int, use_kernels: bool
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(logical (n, F), dest (n, F)) of rows (n, w) over every route:
+    the unwrapped and the wrapped (mod k) logical cell of each copy, -1 on
+    non-members; copy columns are routes in order, reps within a route."""
+    n = rows.shape[0]
+    member_base = rows[:, 0] != INVALID
+    logical_cols, dest_cols = [], []
+    for hashed, reps, offset, eqs, notins in routes:
+        member = member_base
+        for col, val in eqs:
+            member = member & (rows[:, col] == val)
+        for col, vals in notins:
+            hh = torch.tensor(vals, dtype=rows.dtype, device=rows.device)
+            member = member & ~(rows[:, col][:, None] == hh[None, :]).any(1)
+        if hashed:
+            base = ops.route_cells(rows, hashed, use_kernels=use_kernels)
+        else:
+            base = torch.zeros(n, dtype=torch.int32, device=rows.device)
+        reps_t = torch.tensor(reps, dtype=torch.int32, device=rows.device)
+        logical = base[:, None] + reps_t[None, :] + offset
+        logical_cols.append(torch.where(member[:, None], logical, INVALID))
+        dest_cols.append(torch.where(member[:, None], logical % k, INVALID))
+    return torch.cat(logical_cols, 1), torch.cat(dest_cols, 1)
+
+
+def _route_relation(rows: torch.Tensor, routes, k: int, use_kernels: bool
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Route every source shard's rows (n_src, n_loc, w) through all of the
+    relation's routes: (dest (n_src, n_loc·F) wrapped cells, tagged
+    (n_src, n_loc·F, w+1) rows ++ unwrapped cell), copies in row-major
+    (row, copy) order."""
+    s, n, w = rows.shape
+    flat = rows.reshape(s * n, w)
+    logical, dest = _route_copies(flat, routes, k, use_kernels)
+    fan = logical.shape[1]
+    tagged = torch.cat([flat[:, None, :].expand(s * n, fan, w),
+                        logical[:, :, None]], -1)
+    return dest.reshape(s, n * fan), tagged.reshape(s, n * fan, w + 1)
+
+
+def _fold_dests(dest: torch.Tensor, ptable: torch.Tensor, use_kernels: bool
+                ) -> torch.Tensor:
+    """Wrapped logical cells -> devices through the (k,) placement table;
+    -1 passes through."""
+    return ops.fold_cells(dest, ptable, use_kernels=use_kernels)
+
+
+def _pack_buckets(dest: torch.Tensor, rows: torch.Tensor, k: int, cap: int,
+                  use_kernels: bool) -> tuple[torch.Tensor, torch.Tensor]:
+    """Stable counting-sort pack per source: dest (n_src, m), rows
+    (n_src, m, w) -> (buf (n_src, k, cap, w), overflow (n_src,))."""
+    return ops.bucket_pack(dest, rows, k, cap, use_kernels=use_kernels)
+
+
+# ---------------------------------------------------------------------------
 # Exchange and reduce
 # ---------------------------------------------------------------------------
 
@@ -261,13 +322,79 @@ def shared_columns(acc_attrs: list[str], right_attrs: list[str]
     return [l for l, _ in shared], [r for _, r in shared]
 
 
+def _rows_at(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """x (B, n, w) gathered at row indices idx (B, m) -> (B, m, w)."""
+    return torch.gather(x, 1, idx[..., None].expand(-1, -1, x.shape[2]))
+
+
+def _lexsort_rows(keys: torch.Tensor) -> torch.Tensor:
+    """Stable lexicographic row order of keys (B, n, w), column 0 primary:
+    one stable sort per column, last column first.  The permutation is
+    unique, so it equals the reference's packed-word sort."""
+    b, n, w = keys.shape
+    perm = torch.arange(n, device=keys.device).expand(b, n)
+    for c in range(w - 1, -1, -1):
+        col = torch.gather(keys[..., c], 1, perm)
+        perm = torch.gather(perm, 1, torch.sort(col, dim=1, stable=True).indices)
+    return perm
+
+
+def _group_ids(left_keys: torch.Tensor, right_keys: torch.Tensor,
+               use_kernels: bool) -> tuple[torch.Tensor, torch.Tensor]:
+    """Dense ranks of the union of two key sets per batch row: rows get
+    equal group ids iff their keys are equal (across or within sides)."""
+    n_l = left_keys.shape[1]
+    comb = torch.cat([left_keys, right_keys], 1)
+    perm = _lexsort_rows(comb)
+    seg, _ = ops.segment_scan(_rows_at(comb, perm), use_kernels=use_kernels)
+    g = torch.empty_like(seg).scatter_(1, perm, seg)
+    return g[:, :n_l], g[:, n_l:]
+
+
+def _probe_sort(lk: torch.Tensor, l_valid: torch.Tensor, rk: torch.Tensor,
+                r_valid: torch.Tensor, use_kernels: bool
+                ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(counts, lo, perm) by sort-merge: dense-rank both sides' keys (with
+    sentinels -2 for invalid left and -3 for invalid right rows, so they
+    never match), stable-sort the right side by group id (each group in
+    arrival order), and read each left row's group start and run length."""
+    n_r = rk.shape[1]
+    lks = torch.where(l_valid[..., None], lk, -2)
+    rks = torch.where(r_valid[..., None], rk, -3)
+    g_l, g_r = _group_ids(lks, rks, use_kernels)
+    order_r = torch.sort(g_r, dim=1, stable=True).indices
+    sg_r = torch.gather(g_r, 1, order_r)
+    _, _, rlen = ops.run_lengths(sg_r[..., None], use_kernels=use_kernels)
+    lo = torch.searchsorted(sg_r, g_l.contiguous())
+    safe = torch.clamp(lo, max=n_r - 1)
+    hit = (lo < n_r) & (torch.gather(sg_r, 1, safe) == g_l)
+    counts = torch.where(hit, torch.gather(rlen, 1, safe), 0)
+    return (counts.to(torch.int32), lo.to(torch.int32),
+            order_r.to(torch.int32))
+
+
+def _probe_hash(lk: torch.Tensor, l_valid: torch.Tensor, rk: torch.Tensor,
+                r_valid: torch.Tensor, use_kernels: bool,
+                hash_bits: int | None
+                ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(counts, lo, perm) by the radix hash join: `join_hash` (left),
+    `build_table` (right), then `probe_tables`."""
+    bits = hash_bits or default_bits(rk.shape[1])
+    bl = ops.join_hash(lk, l_valid, bits, use_kernels=use_kernels)
+    br, rank, hist = ops.build_table(rk, r_valid, bits,
+                                     use_kernels=use_kernels)
+    return probe_tables(lk, bl, rk, br, rank, hist, bits)
+
+
 def _local_join(frags: dict[str, torch.Tensor], query: JoinQuery,
-                cap_out: int, use_kernels: bool, hash_bits: int | None
+                cap_out: int, use_kernels: bool, hash_reduce: bool,
+                hash_bits: int | None
                 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Cascade natural join of every destination's fragments at once.
 
     Fragments are (n_dst, m, w+1) with the logical cell id last; each step
-    joins on the shared named attributes AND equal cell id, and expands to
+    joins on the shared named attributes AND equal cell id (probed by hash
+    or by sort-merge, `hash_reduce`), and expands to
     the static `cap_out` rows per destination in (left row, right arrival)
     order.  Returns (rows (n_dst, cap_out, n_attrs), valid (n_dst, cap_out),
     overflow (n_dst,) int64)."""
@@ -283,11 +410,12 @@ def _local_join(frags: dict[str, torch.Tensor], query: JoinQuery,
         lcols, rcols = shared_columns(acc_attrs, right_attrs)
         lk = acc[..., lcols].contiguous()
         rk = right[..., rcols].contiguous()
-        bits = hash_bits or default_bits(rk.shape[1])
-        bl = ops.join_hash(lk, acc_valid, bits, use_kernels=use_kernels)
-        br, rank, hist = ops.build_table(rk, r_valid, bits,
-                                         use_kernels=use_kernels)
-        counts, lo, perm = probe_tables(lk, bl, rk, br, rank, hist, bits)
+        if hash_reduce:
+            counts, lo, perm = _probe_hash(lk, acc_valid, rk, r_valid,
+                                           use_kernels, hash_bits)
+        else:
+            counts, lo, perm = _probe_sort(lk, acc_valid, rk, r_valid,
+                                           use_kernels)
         n_match = counts.sum(1, dtype=torch.int64)
         overflow = overflow + torch.clamp(n_match - cap_out, min=0)
         exp, valid_out = ops.expand_rows(acc, right, counts, lo, perm,
@@ -373,9 +501,17 @@ class ShardedJoinExecutor:
         shard, wrapped logical cell): the input of LPT placement and of the
         capacity fold."""
         cfg = self.config
-        return [ops.map_count(a, self.route_specs[rel.name], self.k,
-                              self.n_devices, use_kernels=cfg.use_kernels)
-                for rel, a in zip(self.query.relations, args)]
+        out = []
+        for rel, a in zip(self.query.relations, args):
+            spec = self.route_specs[rel.name]
+            if cfg.fuse_map:
+                out.append(ops.map_count(a, spec, self.k, self.n_devices,
+                                         use_kernels=cfg.use_kernels))
+            else:
+                _, dest = _route_copies(a, spec, self.k, cfg.use_kernels)
+                out.append(count_scatter(dest.reshape(-1), a.shape[0],
+                                         self.k, self.n_devices))
+        return out
 
     def _compiled_step(self, shapes: tuple, caps: Mapping[str, int],
                        cap_out: int | None = None):
@@ -408,16 +544,25 @@ class ShardedJoinExecutor:
         recv = torch.zeros(n_dev, dtype=torch.int64, device=ptable.device)
         for rel, a, cap in zip(self.query.relations, arrs, caps):
             rows = a.view(n_dev, -1, a.shape[1])          # source shards
-            buf, over = ops.scatter_pack(rows, self.route_specs[rel.name],
-                                         ptable, self.k, n_dev, cap,
-                                         use_kernels=cfg.use_kernels)
+            spec = self.route_specs[rel.name]
+            if cfg.fuse_map:
+                buf, over = ops.scatter_pack(rows, spec, ptable, self.k,
+                                             n_dev, cap,
+                                             use_kernels=cfg.use_kernels)
+            else:
+                dest, tagged = _route_relation(rows, spec, self.k,
+                                               cfg.use_kernels)
+                phys = _fold_dests(dest, ptable, cfg.use_kernels)
+                buf, over = _pack_buckets(phys, tagged, n_dev, cap,
+                                          cfg.use_kernels)
             frag = exchange(buf)
             overs.append(over)
             recv = recv + (frag[..., -1] != INVALID).sum(1)
             frags[rel.name] = frag
         sh_over = torch.stack(overs, 1)                   # (n_src, n_rel)
         out, valid, j_over = _local_join(frags, self.query, cap_out,
-                                         cfg.use_kernels, cfg.hash_bits)
+                                         cfg.use_kernels, cfg.hash_reduce,
+                                         cfg.hash_bits)
         return out, valid, sh_over, j_over, recv
 
     # -- data plane ----------------------------------------------------------

@@ -24,6 +24,18 @@
 // Copy j of a row is a member of its route when the row is not padding and
 // meets the route's eq / not-in constraints; its unwrapped logical cell is
 // sum_i (top bits_i of row[col_i]*seed_i*MULT) * stride_i + rep + offset.
+// Hypercube base cell of a row over uint32: sum over the nh records
+// (col, seed, bits, stride) at p of (top bits of row[col]*seed*MULT) * stride.
+__device__ __forceinline__ uint32_t hashed_cell(const int* row,
+                                                const long long* p, int nh) {
+  uint32_t base = 0;
+  for (int i = 0; i < nh; ++i, p += 4) {
+    const uint32_t h = ((uint32_t)row[p[0]] * (uint32_t)p[1]) * REPRO_MULT;
+    base += (h >> (32 - (int)p[2])) * (uint32_t)p[3];
+  }
+  return base;
+}
+
 __device__ __forceinline__ bool route_copy(const int* row, const long long* desc,
                                            int j, int* logical) {
   const int F = (int)desc[0];
@@ -32,12 +44,8 @@ __device__ __forceinline__ bool route_copy(const int* row, const long long* desc
   const long long* rec = desc + desc[2 + 2 * F + r];
   const int nh = (int)rec[0], ne = (int)rec[1], nn = (int)rec[2];
   const long long* p = rec + 3;
-  uint32_t base = 0;
-  for (int i = 0; i < nh; ++i, p += 4) {
-    const uint32_t h = ((uint32_t)row[p[0]] * (uint32_t)p[1]) * REPRO_MULT;
-    base += (h >> (32 - (int)p[2])) * (uint32_t)p[3];
-  }
-  *logical = (int)(base + add);
+  *logical = (int)(hashed_cell(row, p, nh) + add);
+  p += 4 * nh;
   bool member = row[0] != -1;
   for (int i = 0; i < ne; ++i, p += 2) member &= row[p[0]] == (int)p[1];
   for (int i = 0; i < nn; ++i, p += 2) member &= row[p[0]] != (int)p[1];
@@ -48,6 +56,53 @@ __device__ __forceinline__ unsigned lanemask_lt() {
   unsigned m;
   asm("mov.u32 %0, %%lanemask_lt;" : "=r"(m));
   return m;
+}
+
+// The stable-rank tile walk of scatter_pack, build_table and bucket_pack.
+// One warp walks items [i0, i1) of its tile in order, 32 at a time, with
+// one counter per bin (`counter(d)` is a reference to bin d's).  bin(i) is
+// item i's bin, or -1 for an item that counts nowhere.  Count pass
+// (kRank false): each bin's counter grows by its items.  Rank pass: each
+// item's rank is its bin's counter plus the earlier lanes of its chunk in
+// the same bin (`emit(i, d, rank)`), and the counter then advances by the
+// bin's group.  Started at each tile's exclusive prefix over the earlier
+// tiles (a scan of the count pass's counters), the ranks are the items'
+// stable arrival ranks within their bins.
+template <bool kRank, class Bin, class Counter, class Emit>
+__device__ __forceinline__ void warp_tile_walk(long long i0, long long i1,
+                                               Bin bin, Counter counter,
+                                               Emit emit) {
+  const int lane = threadIdx.x & 31;
+  const unsigned lt = lanemask_lt();
+  for (long long c0 = i0; c0 < i1; c0 += 32) {
+    const long long i = c0 + lane;
+    const int d = i < i1 ? bin(i) : -1;
+    const unsigned same = __match_any_sync(REPRO_FULL_MASK, d);
+    const bool leader = d >= 0 && lane == __ffs(same) - 1;
+    if constexpr (kRank) {
+      const int base = d >= 0 ? counter(d) : 0;
+      __syncwarp();
+      if (d >= 0) emit(i, d, base + __popc(same & lt));
+      if (leader) counter(d) = base + __popc(same);
+    } else {
+      if (leader) counter(d) += __popc(same);
+    }
+    __syncwarp();
+  }
+}
+
+// overflow[r] = sum over the n_bins bins of row r of max(hist - cap, 0).
+static __global__ void bins_overflow_kernel(const int* hist, int n_rows,
+                                            int n_bins, int cap,
+                                            int* overflow) {
+  const int r = blockIdx.x * blockDim.x + threadIdx.x;
+  if (r >= n_rows) return;
+  int o = 0;
+  for (int d = 0; d < n_bins; ++d) {
+    const int h = hist[(long long)r * n_bins + d];
+    if (h > cap) o += h - cap;
+  }
+  overflow[r] = o;
 }
 
 // In-place exclusive scan of each row of a (n_rows, len) int32 matrix, one

@@ -20,7 +20,8 @@
 //      (__match_any_sync groups, one leader update per group and chunk);
 //   2. an exclusive scan of th over tiles per (b, bucket); totals -> hist;
 //   3. the warp walks its tile again in order and reads rank = base +
-//      earlier equal lanes, advancing the bucket's base per chunk.
+//      earlier equal lanes, advancing the bucket's base per chunk
+//      (stages 1 and 3 are common.cuh's warp_tile_walk).
 // The wrapper sizes the tiles so th stays within a fixed memory budget.
 #include "common.cuh"
 
@@ -57,41 +58,37 @@ extern "C" int join_hash_launch(const int* keys, const unsigned char* valid,
   return (int)cudaGetLastError();
 }
 
-// Stage 1 (count) and stage 3 (rank) share one walk; `rank_pass` selects.
+// Stage 1 (count) and stage 3 (rank) share one walk (warp_tile_walk);
+// `rank_pass` selects.  The warp's counters are its column of th.
 static __global__ void build_tile_kernel(const int* keys,
                                          const unsigned char* valid, int B,
                                          long long n, int w, int n_bits,
                                          long long tile_rows,
                                          long long n_tiles, int* th,
                                          int rank_pass, int* bkt, int* rank) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int warp = threadIdx.x >> 5;
   const long long gw = (long long)blockIdx.x * REPRO_WARPS_PER_BLOCK + warp;
   if (gw >= (long long)B * n_tiles) return;
   const long long b = gw / n_tiles;
   const long long t = gw % n_tiles;
   const long long nb = (1LL << n_bits) + 1;
   int* col = th + b * nb * n_tiles + t;  // th[b, bucket, t] = col[bucket * n_tiles]
-  const unsigned lt = lanemask_lt();
   long long i1 = (t + 1) * tile_rows;
   if (i1 > n) i1 = n;
-  for (long long i0 = t * tile_rows; i0 < i1; i0 += 32) {
-    const long long i = i0 + lane;
+  auto bin = [&](long long i) {
     const long long gi = b * n + i;
-    const int d = i < i1 ? join_bucket(keys + gi * w, w, valid[gi] != 0, n_bits) : -1;
-    const unsigned same = __match_any_sync(REPRO_FULL_MASK, d);
-    const bool leader = d >= 0 && lane == __ffs(same) - 1;
-    if (rank_pass) {
-      const int base = d >= 0 ? col[d * n_tiles] : 0;
-      __syncwarp();
-      if (d >= 0) {
-        bkt[gi] = d;
-        rank[gi] = base + __popc(same & lt);
-      }
-      if (leader) col[d * n_tiles] = base + __popc(same);
-    } else if (leader) {
-      col[d * n_tiles] += __popc(same);
-    }
-    __syncwarp();
+    return join_bucket(keys + gi * w, w, valid[gi] != 0, n_bits);
+  };
+  auto counter = [&](int d) -> int& { return col[(long long)d * n_tiles]; };
+  if (rank_pass) {
+    warp_tile_walk<true>(t * tile_rows, i1, bin, counter,
+                         [&](long long i, int d, int r) {
+      bkt[b * n + i] = d;
+      rank[b * n + i] = r;
+    });
+  } else {
+    warp_tile_walk<false>(t * tile_rows, i1, bin, counter,
+                          [](long long, int, int) {});
   }
 }
 

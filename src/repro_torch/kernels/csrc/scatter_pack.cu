@@ -19,8 +19,8 @@
 //      base, the scan total is hist[src, dev];
 //   3. the warp walks its tile again in order: rank = base + earlier equal
 //      lanes (__popc(match & lanemask_lt)), counters advance per chunk
-//      (pack_tile_kernel, rank_pass = 1; build_table's tile kernel has the
-//      same shape).
+//      (pack_tile_kernel, rank_pass = 1).  Both walks are common.cuh's
+//      warp_tile_walk, shared with build_table and bucket_pack.
 // Ranks are exactly the reference's, so overflow drops the same copies.
 //
 // expand_rows replaces the Pallas `_expand_rows_kernel`
@@ -47,9 +47,9 @@ static __device__ __forceinline__ int pack_dest(const int* rows, int w,
   return n_dev;
 }
 
-// Stage 1 (count) and stage 3 (rank and write) share one walk of the tile;
-// `rank_pass` selects.  Counters start at 0 (count) or at the tile's scanned
-// base (rank), and advance per chunk by each device's group size.
+// Stage 1 (count) and stage 3 (rank and write) share one walk of the tile
+// (warp_tile_walk); `rank_pass` selects.  Counters live in shared memory and
+// start at 0 (count) or at the tile's scanned base (rank).
 static __global__ void pack_tile_kernel(const int* rows, int n_src,
                                         long long n_loc, int w,
                                         const long long* desc, int F,
@@ -70,41 +70,28 @@ static __global__ void pack_tile_kernel(const int* rows, int n_src,
   __syncwarp();
   const int* srows = rows + (long long)src * n_loc * w;
   int* sbuf = buf + (long long)src * n_dev * cap * (w + 1);
-  const unsigned lt = lanemask_lt();
   long long end_row = (t + 1) * tile_rows;
   if (end_row > n_loc) end_row = n_loc;
-  const long long c1 = end_row * F;
-  for (long long c0 = t * tile_rows * F; c0 < c1; c0 += 32) {
-    const long long c = c0 + lane;
-    int logical = 0;
-    const int d = c < c1 ? pack_dest(srows, w, desc, F, ptable, k, n_dev, c, &logical) : -1;
-    const unsigned same = __match_any_sync(REPRO_FULL_MASK, d);
-    const int base = d >= 0 ? cnt[d] : 0;
-    __syncwarp();
-    const int rank = base + __popc(same & lt);
-    if (rank_pass && d >= 0 && d < n_dev && rank < cap) {
-      const int* src_row = srows + (c / F) * w;
-      int* dst = sbuf + ((long long)d * cap + rank) * (w + 1);
-      for (int i = 0; i < w; ++i) dst[i] = src_row[i];
-      dst[w] = logical;
-    }
-    if (d >= 0 && lane == __ffs(same) - 1) cnt[d] = base + __popc(same);
-    __syncwarp();
-  }
-  if (!rank_pass)
+  int logical = 0;
+  auto bin = [&](long long c) {
+    return pack_dest(srows, w, desc, F, ptable, k, n_dev, c, &logical);
+  };
+  auto counter = [&](int d) -> int& { return cnt[d]; };
+  if (rank_pass) {
+    warp_tile_walk<true>(t * tile_rows * F, end_row * F, bin, counter,
+                         [&](long long c, int d, int rank) {
+      if (d < n_dev && rank < cap) {
+        const int* src_row = srows + (c / F) * w;
+        int* dst = sbuf + ((long long)d * cap + rank) * (w + 1);
+        for (int i = 0; i < w; ++i) dst[i] = src_row[i];
+        dst[w] = logical;
+      }
+    });
+  } else {
+    warp_tile_walk<false>(t * tile_rows * F, end_row * F, bin, counter,
+                          [](long long, int, int) {});
     for (int d = lane; d < nb; d += 32) col[d * n_tiles] = cnt[d];
-}
-
-static __global__ void pack_overflow_kernel(const int* hist, int n_src,
-                                            int n_dev, int cap, int* overflow) {
-  const int src = blockIdx.x * blockDim.x + threadIdx.x;
-  if (src >= n_src) return;
-  int o = 0;
-  for (int d = 0; d < n_dev; ++d) {
-    const int h = hist[(long long)src * n_dev + d];
-    if (h > cap) o += h - cap;
   }
-  overflow[src] = o;
 }
 
 extern "C" int scatter_pack_launch(const int* rows, int n_src, long long n_loc,
@@ -133,7 +120,7 @@ extern "C" int scatter_pack_launch(const int* rows, int n_src, long long n_loc,
       rows, n_src, n_loc, w, desc, F, ptable, k, n_dev, cap, tile_rows,
       n_tiles, th, 1, buf);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  pack_overflow_kernel<<<blocks_for(n_src, 128), 128, 0, s>>>(hist, n_src,
+  bins_overflow_kernel<<<blocks_for(n_src, 128), 128, 0, s>>>(hist, n_src,
                                                                n_dev, cap,
                                                                overflow);
   return (int)cudaGetLastError();

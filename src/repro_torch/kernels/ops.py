@@ -1,4 +1,10 @@
-"""Dispatch of the five main-path kernels, with launch counts.
+"""Dispatch of the ported kernels, with launch counts.
+
+Nine kernels: the main path's `map_count`, `scatter_pack`, `join_hash`,
+`build_table` and `expand_rows`; the staged map's `route_cells`,
+`fold_cells` and `bucket_pack` (`fuse_map=False`); the sort-merge reduce's
+`segment_scan` (`hash_reduce=False`; `run_lengths` is the same kernel with
+run lengths, and counts under `segment_scan`).
 
 A wrapper given CUDA tensors launches its hand-written kernel (raising
 `_build.KernelError` if the build or the launch fails); given CPU tensors it
@@ -15,8 +21,11 @@ from __future__ import annotations
 
 import torch
 
+from . import bucket_pack as bp
+from . import build_probe as bpr
 from . import join_probe as jp
 from . import map_pack as mp
+from . import route_cells as rc
 from . import scatter_pack as sp
 from ._build import LAUNCHES
 
@@ -79,3 +88,44 @@ def expand_rows(left: torch.Tensor, right: torch.Tensor, counts: torch.Tensor,
     if _on_card(left, use_kernels):
         return sp.expand_rows_cuda(left, right, counts, lo, perm, cap)
     return sp.expand_rows_host(left, right, counts, lo, perm, cap)
+
+
+def route_cells(rows: torch.Tensor, recipe, *, use_kernels: bool = True
+                ) -> torch.Tensor:
+    """(n,) hypercube base cell of rows (n, w)."""
+    if _on_card(rows, use_kernels):
+        return rc.route_cells_cuda(rows, recipe)
+    return rc.route_cells_host(rows, recipe)
+
+
+def fold_cells(dest: torch.Tensor, table: torch.Tensor, *,
+               use_kernels: bool = True) -> torch.Tensor:
+    """table[dest], -1 kept (dest past the table -> 0)."""
+    if _on_card(dest, use_kernels):
+        return rc.fold_cells_cuda(dest, table)
+    return rc.fold_cells_host(dest, table)
+
+
+def bucket_pack(dest: torch.Tensor, rows: torch.Tensor, k: int, cap: int, *,
+                use_kernels: bool = True
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Stable pack per batch row: (buf (B, k, cap, w), overflow (B,))."""
+    if _on_card(dest, use_kernels):
+        return bp.bucket_pack_cuda(dest, rows, k, cap)
+    return bp.bucket_pack_host(dest, rows, k, cap)
+
+
+def segment_scan(keys: torch.Tensor, *, use_kernels: bool = True
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(seg, start) over sorted keys (B, n, w)."""
+    if _on_card(keys, use_kernels):
+        return bpr.segment_scan_cuda(keys)
+    return bpr.segment_scan_host(keys)
+
+
+def run_lengths(keys: torch.Tensor, *, use_kernels: bool = True
+                ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(seg, start, run length) over sorted keys (B, n, w)."""
+    if _on_card(keys, use_kernels):
+        return bpr.run_lengths_cuda(keys)
+    return bpr.run_lengths_host(keys)

@@ -1,4 +1,4 @@
-"""Plain torch oracles of the five main-path kernels (and their helpers).
+"""Plain torch oracles of the ported kernels (and their helpers).
 
 Each `<name>_ref` is a dead-simple statement of what a kernel computes, for
 one device (no batch axis): one-hot cumsums, plain gathers, no blocking.
@@ -63,9 +63,10 @@ def _map_route_ref(rows: torch.Tensor, routes, k: int
 
 
 def fold_cells_ref(dest: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
-    """Physical device per wrapped logical cell; -1 passes through."""
+    """Physical device per wrapped logical cell; -1 passes through.  A dest
+    past the table reads its last entry (the reference's clamped gather)."""
     valid = dest >= 0
-    safe = torch.where(valid, dest, torch.zeros_like(dest)).long()
+    safe = torch.clamp(dest.long(), 0, table.shape[0] - 1)
     return torch.where(valid, table[safe], torch.full_like(dest, INVALID))
 
 
@@ -95,6 +96,30 @@ def bucket_pack_ref(dest: torch.Tensor, rows: torch.Tensor, k: int, cap: int
     keep = (dest >= 0) & (dest < k) & (rank < cap)
     buf[dest[keep].long(), rank[keep].long()] = rows[keep]
     return buf, overflow
+
+
+def segment_scan_ref(keys: torch.Tensor
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(seg_ids, run_start) over lexicographically sorted keys (n, w): the
+    dense rank of each row's run and the index of the run's first row."""
+    n = keys.shape[0]
+    if n == 0:
+        z = torch.zeros(0, dtype=torch.int32, device=keys.device)
+        return z, z.clone()
+    idx = torch.arange(n, dtype=torch.int64, device=keys.device)
+    flags = torch.cat([torch.ones(1, dtype=torch.bool, device=keys.device),
+                       (keys[1:] != keys[:-1]).any(1)])
+    seg = torch.cumsum(flags.long(), 0) - 1
+    start = torch.cummax(torch.where(flags, idx, -1), 0).values
+    return seg.to(torch.int32), start.to(torch.int32)
+
+
+def run_lengths_ref(keys: torch.Tensor
+                    ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(seg_ids, run_start, run_length) over sorted keys (n, w)."""
+    seg, start = segment_scan_ref(keys)
+    counts = torch.bincount(seg.long(), minlength=keys.shape[0])
+    return seg, start, counts[seg.long()].to(torch.int32)
 
 
 def map_pack_ref(rows: torch.Tensor, ptable: torch.Tensor, routes, k: int,

@@ -1,6 +1,13 @@
 """Shared cases of the executor comparison tests (tests/test_torch_executor_*):
 the same plan and data through the JAX `ExecutorSession` on 8 virtual
-devices and through the port's session on the CPU."""
+devices and through the port's session on the CPU.
+
+The port runs under every `ExecutorConfig` arm (`ARMS`) against the JAX
+package's default fused + hash session, which the reference pins
+bit-identical to its staged and sort-merge arms; a JAX session is made
+once per (query, data, k, config) and reused across arms."""
+import hashlib
+
 import numpy as np
 
 from repro.core import plan_skew_join as jax_plan
@@ -13,6 +20,11 @@ from repro_torch.core.executor import (ExecutorConfig, ShardedJoinExecutor,
                                        quantize_capacity, session_from_numpy)
 
 N_DEV = 8
+# The port's ExecutorConfig arms: (map, reduce) -> config fields.
+ARMS = {"fused+hash": {}, "fused+sort": {"hash_reduce": False},
+        "staged+hash": {"fuse_map": False},
+        "staged+sort": {"fuse_map": False, "hash_reduce": False}}
+_JAX_SESSIONS: dict = {}
 RESULT_KEYS = ("rows", "valid", "shuffle_overflow", "shuffle_overflow_by_rel",
                "join_overflow", "recv_counts")
 
@@ -26,12 +38,23 @@ def out_capacity(query, data):
     return quantize_capacity(max(biggest, 1))
 
 
-def jax_session(jq, data, k, cap_out, caps=None):
+def jax_session(jq, data, k, cap_out, caps=None, **arm):
     plan = jax_plan(jq, data, k)
     ex = JaxExecutor(plan, make_mesh_compat((N_DEV,), ("cells",)),
-                     config=JaxConfig(out_capacity=cap_out))
+                     config=JaxConfig(out_capacity=cap_out, **arm))
     s = ex.session().prepare(data, caps=caps)
     return plan, ex, s, s.run_batch()
+
+
+def _cached_jax_session(jq, data, k, cap_out, jax_arm):
+    digest = hashlib.sha256()
+    for name in sorted(data):
+        digest.update(name.encode() + np.ascontiguousarray(data[name]).tobytes())
+    key = (tuple((r.name, r.attrs) for r in jq.relations), digest.hexdigest(),
+           k, cap_out, tuple(sorted(jax_arm.items())))
+    if key not in _JAX_SESSIONS:
+        _JAX_SESSIONS[key] = jax_session(jq, data, k, cap_out, **jax_arm)
+    return _JAX_SESSIONS[key]
 
 
 def assert_same_result(got, want):
@@ -40,13 +63,17 @@ def assert_same_result(got, want):
                                       np.asarray(want[key]), err_msg=key)
 
 
-def check_against_jax(jq, tq, data, k):
-    """Port's planner, prepare and run_batch == JAX's, bit for bit; rows ==
-    reference_join; the second same-shaped batch builds no step."""
+def check_against_jax(jq, tq, data, k, arm="fused+hash", jax_arm=None):
+    """Port's planner, prepare and run_batch under `arm` (a key of ARMS) ==
+    the JAX session's under `jax_arm` (config fields; default fused +
+    hash), bit for bit; rows == reference_join; the second same-shaped
+    batch builds no step."""
     cap_out = out_capacity(tq, data)
-    jplan, jex, js, jres = jax_session(jq, data, k, cap_out)
+    jplan, jex, js, jres = _cached_jax_session(jq, data, k, cap_out,
+                                               jax_arm or {})
     plan = plan_skew_join(tq, data, k)
-    ex = ShardedJoinExecutor(plan, N_DEV, ExecutorConfig(out_capacity=cap_out),
+    ex = ShardedJoinExecutor(plan, N_DEV,
+                             ExecutorConfig(out_capacity=cap_out, **ARMS[arm]),
                              device="cpu")
     assert ex.route_specs == jex.route_specs
     s = ex.session().prepare(data)
@@ -59,12 +86,13 @@ def check_against_jax(jq, tq, data, k):
     assert int(res["join_overflow"].sum()) == 0
     np.testing.assert_array_equal(canonical(res["rows"][res["valid"]]),
                                   reference_join(tq, data))
-    # The reference's plan state drives a port session to the same result.
-    rels = [(r.name, r.attrs) for r in jq.relations]
-    s2 = session_from_numpy(rels, k, N_DEV, jex.route_specs,
-                            js.placement.table, js.caps, js.cap_out,
-                            device="cpu")
-    assert_same_result(s2.run_batch(data), jres)
+    if arm == "fused+hash":
+        # The reference's plan state drives a port session to the same result.
+        rels = [(r.name, r.attrs) for r in jq.relations]
+        s2 = session_from_numpy(rels, k, N_DEV, jex.route_specs,
+                                js.placement.table, js.caps, js.cap_out,
+                                device="cpu")
+        assert_same_result(s2.run_batch(data), jres)
     # Warm path: a second batch of the same shape reuses the step.
     assert ex.compile_count == 1
     half = {name: arr[: len(arr) // 2] for name, arr in data.items()}

@@ -14,9 +14,12 @@ from repro_torch.core import (canonical, plan_skew_join, reference_join,
 from repro_torch.core.executor import (ExecutorConfig, ShardedJoinExecutor,
                                        _build_routes, _route_specs)
 from repro_torch.data import chain_query, skewed_join_dataset
+from repro_torch.kernels import bucket_pack as bp
+from repro_torch.kernels import build_probe as bpr
 from repro_torch.kernels import join_probe as jp
 from repro_torch.kernels import map_pack as mp
 from repro_torch.kernels import ops
+from repro_torch.kernels import route_cells as rc
 from repro_torch.kernels import scatter_pack as sp
 
 pytestmark = pytest.mark.cuda
@@ -114,25 +117,123 @@ def test_expand_rows_kernel(dev, b, n_l, n_r, cap):
     _eq(got[1], want[1])
 
 
+@pytest.mark.parametrize("n,recipe", [
+    (1, ((0, 0x9E3779B1, 8, 1),)),
+    (1000, ((0, 0x9E3779B1, 1, 4), (1, 0x85EBCA77, 4, 1))),
+    (70000, ((0, 0x9E3779B1, 4, 1), (1, 0x85EBCA77, 64, 4))),
+    (500, ((1, 0x9E3779B1, 1, 1),))])
+def test_route_cells_kernel(dev, n, recipe):
+    rows = torch.from_numpy(_rows(np.random.default_rng(n), n, 2, 1 << 20))
+    rows = rows.to(dev)
+    _eq(ops.route_cells(rows, recipe), rc.route_cells_host(rows, recipe))
+
+
+@pytest.mark.parametrize("k,m", [(8, 1), (8, 100000), (256, 5000),
+                                 (20000, 3000)])
+def test_fold_cells_kernel(dev, k, m):
+    """dest past the table gives 0; k > 8192 reads the table from device
+    memory instead of shared memory."""
+    rng = np.random.default_rng(k + m)
+    table = torch.from_numpy(rng.integers(0, 8, k).astype(np.int32)).to(dev)
+    dest = torch.from_numpy(rng.integers(-1, k + 3, m).astype(np.int32))
+    dest = dest.to(dev)
+    _eq(ops.fold_cells(dest, table), rc.fold_cells_host(dest, table))
+
+
+@pytest.mark.parametrize("b,m,k,cap", [(1, 0, 8, 4), (2, 1, 1, 1),
+                                       (8, 5000, 8, 700), (3, 70000, 33, 100),
+                                       (2, 20000, 256, 200)])
+def test_bucket_rank_and_pack_kernels(dev, b, m, k, cap):
+    """Forced overflow where cap is below the buckets' sizes: the ranks
+    must be the plain version's exactly."""
+    rng = np.random.default_rng(b * m + k)
+    dest = rng.integers(-1, k + 2, (b, m)).astype(np.int32)
+    dest[:, : m // 3] = k // 2                    # one hot bucket
+    dest = torch.from_numpy(dest).to(dev)
+    rows = torch.from_numpy(rng.integers(0, 1000, (b, m, 3))
+                            .astype(np.int32)).to(dev)
+    for got, want in zip(bp.bucket_rank_cuda(dest, k),
+                         bp.bucket_rank_host(dest, k)):
+        _eq(got, want)
+    for got, want in zip(ops.bucket_pack(dest, rows, k, cap),
+                         bp.bucket_pack_host(dest, rows, k, cap)):
+        _eq(got, want)
+
+
+@pytest.mark.parametrize("b,n,w,case", [
+    (1, 0, 2, "random"), (2, 1, 1, "random"), (3, 2047, 2, "random"),
+    (3, 2049, 3, "random"), (8, 100000, 1, "random"), (2, 70000, 2, "long"),
+    (2, 5000, 2, "all_equal"), (2, 5000, 2, "all_distinct")])
+def test_segment_scan_kernel(dev, b, n, w, case):
+    """Runs that cross the kernel's 2048-row tiles, ragged last tiles."""
+    rng = np.random.default_rng(n + w)
+    if case == "all_equal":
+        keys = np.zeros((b, n, w), np.int32)
+    elif case == "all_distinct":
+        keys = np.tile(np.arange(n * w, dtype=np.int32).reshape(1, n, w),
+                       (b, 1, 1))
+    else:
+        domain = 3 if case == "long" else max(n // 5, 2)
+        keys = np.sort(rng.integers(-3, domain, (b, n, w)).astype(np.int32),
+                       axis=1)
+    keys = torch.from_numpy(keys).to(dev)
+    for got, want in zip(ops.segment_scan(keys), bpr.segment_scan_host(keys)):
+        _eq(got, want)
+    for got, want in zip(ops.run_lengths(keys), bpr.run_lengths_host(keys)):
+        _eq(got, want)
+
+
+def test_new_kernel_wrappers_reject_shapes_they_do_not_take(dev):
+    ops.reset_launches()
+    rows = torch.zeros((4, 2), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError):
+        rc.route_cells_cuda(rows, ((2, 0x9E3779B1, 4, 1),))   # column 2 of 2
+    with pytest.raises(ValueError):
+        rc.fold_cells_cuda(rows[:, 0], rows)                 # 2-D table
+    with pytest.raises(ValueError):
+        bp.bucket_pack_cuda(rows, rows[None], 4, 2)          # (4, 2) vs (1, 4)
+    with pytest.raises(ValueError):
+        bp.bucket_rank_cuda(rows[0], 4)                      # 1-D dest
+    with pytest.raises(ValueError):
+        bpr.segment_scan_cuda(rows)                          # 2-D keys
+    assert all(v == 0 for v in ops.LAUNCHES.values())
+
+
+# Kernels each ExecutorConfig arm launches (prepare counts, k > n_dev).
+ARM_KERNELS = {
+    (True, True): {"map_count", "scatter_pack", "join_hash", "build_table",
+                   "expand_rows"},
+    (True, False): {"map_count", "scatter_pack", "segment_scan",
+                    "expand_rows"},
+    (False, True): {"route_cells", "fold_cells", "bucket_pack", "join_hash",
+                    "build_table", "expand_rows"},
+    (False, False): {"route_cells", "fold_cells", "bucket_pack",
+                     "segment_scan", "expand_rows"},
+}
+
+
+@pytest.mark.parametrize("fuse_map,hash_reduce", list(ARM_KERNELS))
 @pytest.mark.parametrize("q,skew,k", [
     (two_way(), {"B": 1.5}, 64),
     (running_example(), {"B": 1.2, "C": 1.2}, 256),
     (chain_query(4), {"X2": 1.2}, 64),
 ])
-def test_executor_on_card(dev, q, skew, k):
+def test_executor_on_card(dev, q, skew, k, fuse_map, hash_reduce):
     data = skewed_join_dataset(q, 200, 60, skew=skew, seed=3)
     plan = plan_skew_join(q, data, k)
     results = []
     for use_kernels in (True, False):
-        cfg = ExecutorConfig(out_capacity=1 << 17, use_kernels=use_kernels)
+        cfg = ExecutorConfig(out_capacity=1 << 17, use_kernels=use_kernels,
+                             fuse_map=fuse_map, hash_reduce=hash_reduce)
         ops.reset_launches()
         ex = ShardedJoinExecutor(plan, 8, cfg, device=dev)
         res = ex.session().prepare(data).run_batch()
         assert res["shuffle_overflow"].sum() == 0
         assert res["join_overflow"].sum() == 0
         results.append(res)
-        launched = all(ops.LAUNCHES[name] > 0 for name in ops.KERNELS)
-        assert launched == use_kernels, ops.LAUNCHES
+        launched = {name for name in ops.KERNELS if ops.LAUNCHES[name] > 0}
+        want = ARM_KERNELS[fuse_map, hash_reduce] if use_kernels else set()
+        assert launched == want, ops.LAUNCHES
     kern, plain = results
     for key in kern:
         np.testing.assert_array_equal(kern[key], plain[key])

@@ -34,6 +34,8 @@ def test_port_imports_with_jax_and_repro_blocked():
         "import repro_torch, repro_torch.core, repro_torch.data\n"
         "import repro_torch.core.executor, repro_torch.kernels.ops\n"
         "import repro_torch.kernels.ref, repro_torch.kernels._build\n"
+        "import repro_torch.kernels.route_cells, repro_torch.kernels.bucket_pack\n"
+        "import repro_torch.kernels.build_probe\n"
         "assert not any(m == 'jax' or m.startswith('jax.') or m == 'repro' "
         "or m.startswith('repro.') for m in sys.modules "
         "if sys.modules[m] is not None)\n"
@@ -77,11 +79,24 @@ def test_default_device_is_cuda_and_raises_without_it(monkeypatch):
 def test_unported_config_arms_raise():
     q = two_way()
     plan = plan_skew_join(q, skewed_join_dataset(q, 100, 20, seed=1), 8)
-    for cfg in (ExecutorConfig(fuse_map=False),
-                ExecutorConfig(hash_reduce=False),
-                ExecutorConfig(overlap_shuffle=2)):
+    for shuffle in (2, 4):
         with pytest.raises(NotImplementedError):
-            ShardedJoinExecutor(plan, 8, cfg, device="cpu")
+            ShardedJoinExecutor(plan, 8, ExecutorConfig(overlap_shuffle=shuffle),
+                                device="cpu")
+
+
+@pytest.mark.parametrize("fuse_map,hash_reduce", [(False, True), (True, False),
+                                                  (False, False)])
+def test_ported_config_arms_run_on_cpu_with_no_launch(fuse_map, hash_reduce):
+    ops.reset_launches()
+    q = two_way()
+    data = skewed_join_dataset(q, 200, 30, skew={"B": 1.3}, seed=2)
+    plan = plan_skew_join(q, data, 64)
+    cfg = ExecutorConfig(out_capacity=1 << 14, fuse_map=fuse_map,
+                         hash_reduce=hash_reduce)
+    res = ShardedJoinExecutor(plan, 8, cfg, device="cpu").run(data)
+    assert int(np.asarray(res["valid"]).sum()) > 0
+    assert all(v == 0 for v in ops.LAUNCHES.values())
 
 
 def test_cpu_tensors_take_the_plain_versions_and_count_no_launch():
