@@ -5,7 +5,7 @@
 
 Phases (any failure exits non-zero; nothing is caught and carried on):
   1. the card's name and power limit (nvidia-smi);
-  2. build the nine CUDA kernels from src/repro_torch/kernels/csrc;
+  2. build the thirteen CUDA kernels from src/repro_torch/kernels/csrc;
   3. the full-size cell end to end on the kernels (fused map + hash
      reduce, the default `ExecutorConfig`): R(A,B) ⋈ S(B,C) with
      2^21 rows per relation, one heavy hitter B = 0 of 12,288 rows, a tail
@@ -18,6 +18,16 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      that run, bit for bit, with kernel, plain and bound times; the bound
      counts what this run's data needs (valid rows only, matched rows only
      for the expansion) and is the larger of its bytes and operations times;
+  4c. the kernel library (the executor does not call it) on that cell's
+     data, launch counts zeroed just before and read just after: map_pack
+     on R's and S's (8, 2^18, 2) shards, `torch.equal` to scatter_pack,
+     with its time beside scatter_pack's and the staged route -> fold ->
+     pack's; hash_partition on R's B column at the tail residual's B share
+     (ids equal to numpy's multiply_shift) and at 2^20 buckets;
+     match_counts and first_match on the B columns of one tail cell's and
+     one heavy cell's routed fragments (Σ counts over the tail cell = the
+     cell's Σ_v c_R(v)·c_S(v); every heavy pair matches) and on a random
+     16,384 × 4,096 pair; then each against its plain version, as in 4;
   3b. the same cell on the staged map + sort-merge reduce
      (`fuse_map=False, hash_reduce=False`), counts zeroed just before its
      `prepare` + first `run_batch` and read just after: zero overflow, the
@@ -60,6 +70,7 @@ MODERATE = [  # (query name, rows per relation, domain, skew)
     ("chain4", 3000, 1 << 16, {"X2": 1.5}),
 ]
 FUSED_HASH, STAGED_SORT = "fused+hash", "staged+sort"
+LIBRARY = "library"
 # The config fields of each arm.
 ARMS = {FUSED_HASH: {}, "fused+sort": {"hash_reduce": False},
         "staged+hash": {"fuse_map": False}, STAGED_SORT: {"fuse_map": False,
@@ -85,7 +96,19 @@ KERNEL_SITES = {
                     "src/repro/kernels/bucket_pack.py:84", STAGED_SORT),
     "segment_scan": ("src/repro_torch/kernels/csrc/build_probe.cu",
                      "src/repro/kernels/build_probe.py:152", STAGED_SORT),
+    "map_pack": ("src/repro_torch/kernels/csrc/map_pack.cu",
+                 "src/repro/kernels/map_pack.py:225", LIBRARY),
+    "hash_partition": ("src/repro_torch/kernels/csrc/hash_partition.cu",
+                       "src/repro/kernels/hash_partition.py:90", LIBRARY),
+    "match_counts": ("src/repro_torch/kernels/csrc/build_probe.cu",
+                     "src/repro/kernels/build_probe.py:99", LIBRARY),
+    "first_match": ("src/repro_torch/kernels/csrc/build_probe.cu",
+                    "src/repro/kernels/build_probe.py:127", LIBRARY),
 }
+# The kernel library phase's random pair: the shape and key range the JAX
+# package's `kernel_throughput` table times match_counts at.
+RANDOM_PAIR = dict(n_keys=1 << 20, n_probe=1 << 14, n_build=1 << 12,
+                   key_range=1 << 30)
 
 
 def fail(msg: str) -> None:
@@ -159,6 +182,24 @@ def time_ms(fn, iters: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters: int = 20) -> float:
+    """Device time per call of `fn`: torch.profiler's sum of the CUDA
+    kernels and memsets of `iters` calls after one warm-up.  Unlike
+    `time_ms` it does not count the card waiting for the host, which sets
+    the floor of a call that takes microseconds on the card."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    busy_us = sum(e.self_device_time_total for e in prof.key_averages()
+                  if "CUDA" in str(getattr(e, "device_type", "")))
+    return busy_us / 1e3 / iters
 
 
 def out_capacity_from_fragments(frag_l, frag_r, lcols, rcols, quantize):
@@ -469,6 +510,157 @@ def kernel_checks(cell):
     return out
 
 
+def library_checks(cell):
+    """Phase 4c: the kernel library on the cell's data through `ops`, then
+    each kernel against its plain version."""
+    from repro_torch.core import executor as exm
+    from repro_torch.core.executor import exchange
+    from repro_torch.core.hypercube import multiply_shift
+    from repro_torch.kernels import build_probe as bpr
+    from repro_torch.kernels import hash_partition as hp
+    from repro_torch.kernels import map_pack as mp
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import scatter_pack as sp
+
+    ex, s = cell["ex"], cell["session"]
+    n_dev, k = ex.n_devices, ex.k
+    rows_r, rows_s = s._device_args
+    specs = ex.route_specs
+    # The tail residual hashes R's B (column 1) to its share.
+    (seed, nb_tail), = {(h[1], h[2]) for route in specs["R"]
+                        for h in route[0] if h[0] == 1 and h[2] > 1}
+    rng = np.random.default_rng(0)
+    keys = rng.integers(0, RANDOM_PAIR["key_range"], RANDOM_PAIR["n_keys"])
+    rand_probe = torch.from_numpy(
+        keys[:RANDOM_PAIR["n_probe"]].astype(np.int32)).to(rows_r.device)
+    rand_build = torch.from_numpy(
+        keys[:RANDOM_PAIR["n_build"]].astype(np.int32)).to(rows_r.device)
+    shards = {"S": rows_s.view(n_dev, -1, rows_s.shape[1]),
+              "R": rows_r.view(n_dev, -1, rows_r.shape[1])}
+    b_keys = rows_r[:, 1].contiguous()
+
+    # The library path: counts zeroed just before, read just after.
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    packed = {name: ops.map_pack(rows3, specs[name], s._ptable, k, n_dev,
+                                 s.caps[name])
+              for name, rows3 in shards.items()}
+    flat = {name: exchange(buf).reshape(-1, buf.shape[-1])
+            for name, (buf, _) in packed.items()}
+    tag_r, b_r = flat["R"][:, -1], flat["R"][:, 1]
+    cells = {"tail": int(tag_r[(tag_r >= 0) & (b_r != 0)][0]),
+             "heavy": int(tag_r[(tag_r >= 0) & (b_r == 0)][0])}
+    pairs = {label: (flat["R"][flat["R"][:, -1] == c][:, 1].contiguous(),
+                     flat["S"][flat["S"][:, -1] == c][:, 0].contiguous())
+             for label, c in cells.items()}
+    pairs["random"] = (rand_probe, rand_build)
+    hashed = {nb: ops.hash_partition(b_keys, seed, nb)
+              for nb in (1 << 20, nb_tail)}
+    matched = {label: (ops.match_counts(*pair), ops.first_match(*pair))
+               for label, pair in pairs.items()}
+    torch.cuda.synchronize()
+    launches = dict(ops.LAUNCHES)
+    want = dict.fromkeys(KERNEL_SITES, 0)
+    want.update(map_pack=2, hash_partition=2, match_counts=3, first_match=3)
+    check(launches == want, f"library launches {launches}, expected {want}")
+    print(f"[library] launches {launches}")
+
+    # What came out: the pack equals scatter_pack's; the ids the planner's
+    # hash; the tail cell's matches its exact join size; every heavy pair
+    # matches; the random pair's counts and first indices numpy's.
+    for name, rows3 in shards.items():
+        buf, over = packed[name]
+        want_buf, want_over = ops.scatter_pack(rows3, specs[name], s._ptable,
+                                               k, n_dev, s.caps[name])
+        check(torch.equal(buf, want_buf) and torch.equal(over, want_over),
+              f"map_pack on {name} differs from scatter_pack")
+        check(int(over.sum()) == 0, f"map_pack on {name} overflowed")
+    ids = hashed[nb_tail][0].cpu().numpy()
+    check(np.array_equal(ids, multiply_shift(b_keys.cpu().numpy(), seed,
+                                             nb_tail)),
+          "hash_partition ids differ from multiply_shift")
+    for _, hist in hashed.values():
+        check(int(hist.sum()) == b_keys.shape[0], "hash_partition histogram")
+    probe, build = (x.cpu().numpy() for x in pairs["tail"])
+    cr, cs = np.bincount(probe), np.bincount(build)
+    m = min(len(cr), len(cs))
+    tail_exact = int((cr[:m].astype(np.int64) * cs[:m]).sum())
+    check(int(matched["tail"][0].sum()) == tail_exact,
+          f"tail cell Σ match_counts != {tail_exact}")
+    counts_h, first_h = matched["heavy"]
+    check(bool((counts_h == pairs["heavy"][1].shape[0]).all())
+          and bool((first_h == 0).all()), "heavy cell: not every pair matched")
+    probe, build = (x.cpu().numpy() for x in pairs["random"])
+    uniq, first_idx, cnt = np.unique(build, return_index=True,
+                                     return_counts=True)
+    pos = np.clip(np.searchsorted(uniq, probe), 0, len(uniq) - 1)
+    hit = uniq[pos] == probe
+    check(np.array_equal(matched["random"][0].cpu().numpy(),
+                         np.where(hit, cnt[pos], 0))
+          and np.array_equal(matched["random"][1].cpu().numpy(),
+                             np.where(hit, first_idx[pos], -1)),
+          "random pair: matches differ from numpy's")
+    sizes = {label: tuple(x.shape[0] for x in pair)
+             for label, pair in pairs.items()}
+    print(f"[library] map_pack == scatter_pack on R and S, zero overflow; "
+          f"hash_partition ids == multiply_shift at nb={nb_tail}; pairs "
+          f"(probe, build) {sizes} of cells {cells}; tail Σ counts = "
+          f"{tail_exact}; every heavy pair matches; random pair == numpy")
+    del packed, flat, hashed
+
+    # Each kernel against its plain version; the kept row of each is
+    # map_pack on R, hash_partition at the tail share, match_counts and
+    # first_match on the tail cell.
+    out, extra = {}, {}
+    for name, rows3 in shards.items():
+        spec, cap = specs[name], s.caps[name]
+        args = (rows3, spec, s._ptable, k, n_dev, cap)
+        r_bytes, r_ops, members = route_work(rows3, spec, k)
+        record(out, "map_pack", mp.map_pack_cuda, mp.map_pack_host, args,
+               r_bytes + nbytes(s._ptable) + 4 * n_dev
+               + n_dev * n_dev * cap * (rows3.shape[2] + 1) * 4,
+               r_ops + members, 10)
+
+        def staged():
+            dest, tagged = exm._route_relation(rows3, spec, k, True)
+            phys = exm._fold_dests(dest, s._ptable, True)
+            return exm._pack_buckets(phys, tagged, n_dev, cap, True)
+        t_scatter = time_ms(lambda: sp.scatter_pack_cuda(*args), 10)
+        t_staged = time_ms(staged, 5)
+        t_streams = device_ms(lambda: mp.map_pack_streams_cuda(*args[:5]), 5)
+        print(f"[library] {name}: map_pack {out['map_pack']['ms']:.4f} ms "
+              f"(device time of its streams kernel {t_streams:.4f} ms), "
+              f"scatter_pack {t_scatter:.4f} ms, staged route -> fold -> "
+              f"pack {t_staged:.4f} ms")
+    # The small kernels' event times sit near the host's per-call floor;
+    # their device times are printed beside them.
+    n = b_keys.shape[0]
+    for nb, dst in ((1 << 20, extra), (nb_tail, out)):
+        args = (b_keys, seed, nb)
+        record(dst, "hash_partition", hp.hash_partition_cuda,
+               hp.hash_partition_host, args, 8 * n + 4 * nb, 4 * n, 20)
+        print(f"[library] hash_partition nb={nb}: device "
+              f"{device_ms(lambda: hp.hash_partition_cuda(*args)):.4f} ms")
+    for label, dst in (("heavy", extra), ("random", extra), ("tail", out)):
+        probe, build = pairs[label]
+        n_p, n_b = probe.shape[0], build.shape[0]
+        io = 4 * (2 * n_p + n_b)
+        print(f"[library] {label} pair: {n_p} x {n_b}")
+        record(dst, "match_counts", bpr.match_counts_cuda,
+               bpr.match_counts_host, (probe, build), io, 2 * n_p * n_b, 20)
+        # first_match needs each probe's pairs up to its first match.
+        first = matched[label][1].long()
+        needed = int(torch.where(first >= 0, first + 1, n_b).sum())
+        record(dst, "first_match", bpr.first_match_cuda,
+               bpr.first_match_host, (probe, build), io, 2 * needed, 20)
+        print(f"[library] {label} pair: device match_counts "
+              f"{device_ms(lambda: bpr.match_counts_cuda(probe, build)):.4f}"
+              f" ms, first_match "
+              f"{device_ms(lambda: bpr.first_match_cuda(probe, build)):.4f} "
+              f"ms")
+    return out, launches
+
+
 def staged_cell(dev, cell):
     """Phase 3b: the full-size cell on the staged map + sort-merge reduce,
     held against phase 3's rows."""
@@ -670,6 +862,8 @@ def main() -> int:
 
     cell = full_cell(dev)
     results = kernel_checks(cell)
+    library, library_launches = library_checks(cell)
+    results.update(library)
     s = cell.pop("session")
     cell["caps"], cell["table"] = dict(s.caps), s.placement.table.copy()
     del s, cell["ex"]
@@ -679,7 +873,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     results.update(staged_kernel_checks(staged))
     path_launches = {FUSED_HASH: cell["launches"],
-                     STAGED_SORT: staged["launches"]}
+                     STAGED_SORT: staged["launches"],
+                     LIBRARY: library_launches}
     del staged
     torch.cuda.empty_cache()
     moderate_checks(dev)

@@ -16,7 +16,7 @@ import torch
 
 from . import _build
 from .ref import INVALID
-from .scatter_pack import stable_rank
+from .map_pack import stable_rank
 
 # Items one warp ranks per tile (csrc/bucket_pack.cu).
 TILE_ITEMS = 2048

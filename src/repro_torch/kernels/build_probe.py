@@ -1,23 +1,100 @@
-"""The sort-merge reduce's grouping pass: `segment_scan` and `run_lengths`.
+"""Build/probe primitives: the nested-loop `match_counts` and
+`first_match`, and the sort-merge reduce's grouping pass `segment_scan` /
+`run_lengths`.
 
-Keys are (B, n, w), sorted lexicographically within each batch row (one
-destination); runs never cross a batch row.  Row i starts a run when it is
-row 0 or any column differs from the row before.  segment_scan gives each
-row the dense id of its run (seg) and the run's first row (start);
-run_lengths adds the run's length.
+match_counts gives each probe key the number of equal build keys;
+first_match the index of the first equal build key, or -1.  Keys are 1-D
+and of any integer dtype, compared as int32 (the reference's cast); no
+side is padded, so every key value, -1 and -2 included, is data.
 
-`*_host` are the plain versions (cumsum and cummax); `*_cuda` launch
-csrc/build_probe.cu.  The reference's `match_counts` and `first_match`,
-in the same reference module, are not ported here.
+segment_scan keys are (B, n, w), sorted lexicographically within each
+batch row (one destination); runs never cross a batch row.  Row i starts a
+run when it is row 0 or any column differs from the row before.
+segment_scan gives each row the dense id of its run (seg) and the run's
+first row (start); run_lengths adds the run's length.
+
+`*_host` are the plain versions (chunked equality tiles; cumsum and
+cummax); `*_cuda` launch csrc/build_probe.cu.
 """
 from __future__ import annotations
 
 import torch
 
 from . import _build
+from .ref import int32_bits
 
 # Rows one block scans per tile (csrc/build_probe.cu SEG_TILE).
 SEG_TILE_ROWS = 2048
+# Elements of the plain versions' (probe chunk, n_b) equality tile: 256 MB
+# of bools at most.
+MATCH_TILE_ELEMS = 1 << 28
+
+
+def _match_keys(probe: torch.Tensor, build: torch.Tensor
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    if probe.dim() != 1 or build.dim() != 1:
+        raise ValueError(f"probe and build must be 1-D, got "
+                         f"{tuple(probe.shape)} and {tuple(build.shape)}")
+    return int32_bits(probe), int32_bits(build)
+
+
+def _probe_chunks(probe: torch.Tensor, build: torch.Tensor):
+    """(slice, (chunk, n_b) equality tile) over probe chunks, n_b ≥ 1."""
+    step = max(1, MATCH_TILE_ELEMS // build.shape[0])
+    for i in range(0, probe.shape[0], step):
+        yield slice(i, i + step), probe[i:i + step, None] == build[None, :]
+
+
+def match_counts_host(probe: torch.Tensor, build: torch.Tensor
+                      ) -> torch.Tensor:
+    """Plain version of `match_counts`: (n_p,) int32 counts."""
+    probe, build = _match_keys(probe, build)
+    out = torch.zeros(probe.shape[0], dtype=torch.int32, device=probe.device)
+    if build.shape[0]:
+        for rows, eq in _probe_chunks(probe, build):
+            out[rows] = eq.sum(1).to(torch.int32)
+    return out
+
+
+def first_match_host(probe: torch.Tensor, build: torch.Tensor
+                     ) -> torch.Tensor:
+    """Plain version of `first_match`: (n_p,) int32 index or -1."""
+    probe, build = _match_keys(probe, build)
+    out = torch.full((probe.shape[0],), -1, dtype=torch.int32,
+                     device=probe.device)
+    if build.shape[0]:
+        for rows, eq in _probe_chunks(probe, build):
+            first = eq.to(torch.uint8).argmax(1).to(torch.int32)
+            out[rows] = torch.where(eq.any(1), first, -1)
+    return out
+
+
+def _match_cuda(name: str, probe: torch.Tensor, build: torch.Tensor,
+                fill: int) -> torch.Tensor:
+    probe, build = _match_keys(probe, build)
+    probe = _build.as_i32(probe, "probe")
+    build = _build.as_i32(build, "build")
+    n_p, n_b = probe.shape[0], build.shape[0]
+    if n_b >= 2**31:
+        raise ValueError(f"build side of {n_b} keys: indices must fit int32")
+    out = torch.empty(n_p, dtype=torch.int32, device=probe.device)
+    if n_p == 0 or n_b == 0:
+        return out.fill_(fill)
+    _build.call(name, probe.data_ptr(), n_p, build.data_ptr(), n_b,
+                out.data_ptr(), _build.stream(probe))
+    return out
+
+
+def match_counts_cuda(probe: torch.Tensor, build: torch.Tensor
+                      ) -> torch.Tensor:
+    """Launch csrc/build_probe.cu's blocked nested loop (counts)."""
+    return _match_cuda("match_counts_launch", probe, build, 0)
+
+
+def first_match_cuda(probe: torch.Tensor, build: torch.Tensor
+                     ) -> torch.Tensor:
+    """Launch csrc/build_probe.cu's blocked nested loop (first index)."""
+    return _match_cuda("first_match_launch", probe, build, -1)
 
 
 def _scan_host(keys: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:

@@ -1,4 +1,5 @@
-// segment_scan / run_lengths: the grouping pass of the sort-merge reduce.
+// segment_scan / run_lengths (the grouping pass of the sort-merge reduce)
+// and match_counts / first_match (blocked nested-loop equality).
 //
 // Replaces the Pallas `_seg_scan_kernel` (src/repro/kernels/build_probe.py:69,
 // launched by `segment_scan` at :152/:167) and `run_lengths` (:190), which
@@ -130,4 +131,142 @@ extern "C" int segment_scan_launch(const int* keys, int B, long long n, int w,
   seg_finish_kernel<<<blocks_for(total, 256), 256, 0, s>>>(
       seg, first, runs, total, n, start, len);
   return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// match_counts / first_match
+// ---------------------------------------------------------------------------
+//
+// Replace the Pallas `_match_counts_kernel` and `_first_match_kernel`
+// (src/repro/kernels/build_probe.py:45 and :56, launched by `match_counts`
+// at :99/:112 and `first_match` at :127/:136).  probe (n_p,) and build
+// (n_b,) are int32; counts[i] = |{j : build[j] == probe[i]}|, first[i] =
+// the least such j, or -1.  The TPU kernels pad both sides to their blocks
+// (build with -1, probe with -2), so there a probe key of -1 also counts
+// the pads; nothing is padded here, and every key is data.
+//
+// Bound: 2 * n_p * n_b integer operations (a compare and an add or a
+// select per pair; first_match needs only the pairs up to each first
+// match); the bytes are the two key arrays and the output.  Each block
+// owns MATCH_PROBES probe keys, MATCH_PER_THREAD per thread in registers,
+// and walks its share of the build side in tiles of MATCH_TILE keys staged
+// in shared memory; each int4 read from a tile (a broadcast: every thread
+// reads the same address) serves 4 * MATCH_PER_THREAD compares.  The
+// TPU's grid runs the build blocks in order over one output tile; here the
+// build side splits over blockIdx.y so that enough blocks fill the card,
+// and the splits combine by atomics, which are exact for both: atomicAdd
+// of counts, atomicMin of indices as unsigned on an output filled with
+// 0xFFFFFFFF (-1 where nothing matches).  first_match's block stops when
+// every key it owns has a match: later indices cannot be smaller.
+#define MATCH_THREADS 256
+#define MATCH_PER_THREAD 4
+#define MATCH_PROBES (MATCH_THREADS * MATCH_PER_THREAD)
+#define MATCH_TILE 2048
+#define MATCH_TARGET_BLOCKS (132 * 4)
+
+template <bool kFirst>
+__device__ __forceinline__ void match_one(int key, int b, int j, int& acc) {
+  if constexpr (kFirst) {
+    if (acc < 0 && key == b) acc = j;
+  } else {
+    acc += key == b;
+  }
+}
+
+template <bool kFirst>
+static __global__ void match_kernel(const int* probe, long long n_p,
+                                    const int* build, long long n_b,
+                                    long long tiles_per_split, int* out) {
+  __shared__ __align__(16) int tile[MATCH_TILE];
+  int key[MATCH_PER_THREAD], acc[MATCH_PER_THREAD];
+  bool live[MATCH_PER_THREAD];
+  const long long p0 = (long long)blockIdx.x * MATCH_PROBES + threadIdx.x;
+#pragma unroll
+  for (int q = 0; q < MATCH_PER_THREAD; ++q) {
+    const long long i = p0 + (long long)q * MATCH_THREADS;
+    live[q] = i < n_p;
+    key[q] = live[q] ? probe[i] : 0;
+    acc[q] = kFirst ? -1 : 0;
+  }
+  const long long n_tiles = (n_b + MATCH_TILE - 1) / MATCH_TILE;
+  const long long t0 = (long long)blockIdx.y * tiles_per_split;
+  long long t1 = t0 + tiles_per_split;
+  if (t1 > n_tiles) t1 = n_tiles;
+  for (long long t = t0; t < t1; ++t) {
+    // The barrier also keeps the previous tile until every thread read it.
+    bool done = true;
+    if constexpr (kFirst) {
+#pragma unroll
+      for (int q = 0; q < MATCH_PER_THREAD; ++q)
+        done &= !live[q] || acc[q] >= 0;
+    } else {
+      done = false;
+    }
+    if (__syncthreads_and(done)) break;
+    const long long base = t * MATCH_TILE;
+    const int len = (int)(n_b - base < MATCH_TILE ? n_b - base : MATCH_TILE);
+    for (int i = threadIdx.x; i < len; i += MATCH_THREADS)
+      tile[i] = build[base + i];
+    __syncthreads();
+    int i = 0;
+    for (; i + 4 <= len; i += 4) {
+      const int4 b = *reinterpret_cast<const int4*>(&tile[i]);
+      const int j = (int)base + i;
+#pragma unroll
+      for (int q = 0; q < MATCH_PER_THREAD; ++q) {
+        match_one<kFirst>(key[q], b.x, j, acc[q]);
+        match_one<kFirst>(key[q], b.y, j + 1, acc[q]);
+        match_one<kFirst>(key[q], b.z, j + 2, acc[q]);
+        match_one<kFirst>(key[q], b.w, j + 3, acc[q]);
+      }
+    }
+    for (; i < len; ++i) {
+#pragma unroll
+      for (int q = 0; q < MATCH_PER_THREAD; ++q)
+        match_one<kFirst>(key[q], tile[i], (int)base + i, acc[q]);
+    }
+  }
+#pragma unroll
+  for (int q = 0; q < MATCH_PER_THREAD; ++q) {
+    if (!live[q]) continue;
+    int* o = out + p0 + (long long)q * MATCH_THREADS;
+    if constexpr (kFirst) {
+      if (acc[q] >= 0) atomicMin((unsigned*)o, (unsigned)acc[q]);
+    } else {
+      if (acc[q] > 0) atomicAdd(o, acc[q]);
+    }
+  }
+}
+
+template <bool kFirst>
+static int match_launch(const int* probe, long long n_p, const int* build,
+                        long long n_b, int* out, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  // counts start at 0; first indices at 0xFFFFFFFF (-1, the unsigned max).
+  cudaError_t err = cudaMemsetAsync(out, kFirst ? 0xFF : 0,
+                                    sizeof(int) * (size_t)n_p, s);
+  if (err != cudaSuccess) return (int)err;
+  const long long p_blocks = (n_p + MATCH_PROBES - 1) / MATCH_PROBES;
+  const long long n_tiles = (n_b + MATCH_TILE - 1) / MATCH_TILE;
+  long long splits = (MATCH_TARGET_BLOCKS + p_blocks - 1) / p_blocks;
+  if (splits > n_tiles) splits = n_tiles;
+  if (splits < 1) splits = 1;
+  const long long per_split = (n_tiles + splits - 1) / splits;
+  splits = (n_tiles + per_split - 1) / per_split;
+  const dim3 grid((unsigned)p_blocks, (unsigned)splits);
+  match_kernel<kFirst><<<grid, MATCH_THREADS, 0, s>>>(probe, n_p, build, n_b,
+                                                      per_split, out);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int match_counts_launch(const int* probe, long long n_p,
+                                   const int* build, long long n_b, int* out,
+                                   void* stream) {
+  return match_launch<false>(probe, n_p, build, n_b, out, stream);
+}
+
+extern "C" int first_match_launch(const int* probe, long long n_p,
+                                  const int* build, long long n_b, int* out,
+                                  void* stream) {
+  return match_launch<true>(probe, n_p, build, n_b, out, stream);
 }

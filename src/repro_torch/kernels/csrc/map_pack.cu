@@ -1,4 +1,5 @@
-// map_count: the prepare-time counting pass on the card.
+// map_count (the prepare-time counting pass) and map_pack (the fused map's
+// per-copy streams) on the card.
 //
 // Replaces the Pallas `_map_count_kernel` (src/repro/kernels/map_pack.py:192,
 // launched by `map_count` at :298/:317).  Every row goes through every
@@ -71,5 +72,49 @@ extern "C" int map_count_launch(const int* rows, long long n, int w,
   map_count_kernel<<<grid, MAP_COUNT_THREADS, smem, s>>>(
       rows, n, w, desc, k, rows_per_src, MAP_COUNT_ROWS_PER_BLOCK, use_shared,
       counts);
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// map_pack
+// ---------------------------------------------------------------------------
+//
+// Replaces the Pallas `_map_pack_kernel` (src/repro/kernels/map_pack.py:157,
+// launched by `map_pack` at :225/:245).  Per source shard, every (row, copy)
+// in row-major order is routed (route_copy) and folded through the (k,)
+// placement table: d = ptable[logical % k] for a member copy, the sentinel
+// n_dev otherwise; tag = the unwrapped logical cell, -1 on non-members; rank
+// = the copy's stable arrival rank within d (the sentinel bin included).
+// The three streams go to the planes of a (3, n_src, n_loc * F) array and
+// the (n_src, n_dev + 1) histogram to hist.  The buffer is assembled from
+// them outside the kernel (kernels/map_pack.py::_assemble_tagged, torch
+// ops, as XLA does it outside the Pallas call).
+//
+// Bound: reading the rows once and writing 12 bytes a copy.  The TPU
+// kernel carries its histogram across a grid that runs in order; here the
+// rank is scatter_pack's three stages on common.cuh's pack_tile_kernel:
+// per-tile counts, an exclusive scan over tiles per (source, device) whose
+// totals are hist, and the in-order re-walk that emits the streams.
+extern "C" int map_pack_launch(const int* rows, int n_src, long long n_loc,
+                               int w, const long long* desc, int F,
+                               const int* ptable, int k, int n_dev,
+                               long long tile_rows, long long n_tiles, int* th,
+                               int* hist, int* streams, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  const int nb = n_dev + 1;
+  const unsigned blocks =
+      blocks_for((long long)n_src * n_tiles, REPRO_WARPS_PER_BLOCK);
+  const size_t smem = sizeof(int) * (size_t)nb * REPRO_WARPS_PER_BLOCK;
+  pack_tile_kernel<true><<<blocks, PACK_TILE_THREADS, smem, s>>>(
+      rows, n_src, n_loc, w, desc, F, ptable, k, n_dev, 0, tile_rows, n_tiles,
+      th, 0, streams);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  if ((err = launch_scan_rows(th, (long long)n_src * nb, n_tiles, nb, nb,
+                              hist, s)) != cudaSuccess)
+    return (int)err;
+  pack_tile_kernel<true><<<blocks, PACK_TILE_THREADS, smem, s>>>(
+      rows, n_src, n_loc, w, desc, F, ptable, k, n_dev, 0, tile_rows, n_tiles,
+      th, 1, streams);
   return (int)cudaGetLastError();
 }

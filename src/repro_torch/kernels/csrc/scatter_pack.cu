@@ -14,7 +14,8 @@
 // in no order, so the rank is three stages:
 //   1. one warp per tile of rows counts its copies per device (shared
 //      per-warp counters, __match_any_sync aggregation), written bin-major
-//      to th[src, dev, tile] (pack_tile_kernel, rank_pass = 0);
+//      to th[src, dev, tile] (common.cuh's pack_tile_kernel, rank_pass = 0;
+//      map_pack shares it);
 //   2. an exclusive scan of th over tiles per (src, dev) gives each tile's
 //      base, the scan total is hist[src, dev];
 //   3. the warp walks its tile again in order: rank = base + earlier equal
@@ -33,67 +34,6 @@
 // (B, cap, wl + wr) output write.
 #include "common.cuh"
 
-#define PACK_TILE_THREADS (32 * REPRO_WARPS_PER_BLOCK)
-
-static __device__ __forceinline__ int pack_dest(const int* rows, int w,
-                                                const long long* desc, int F,
-                                                const int* ptable, int k,
-                                                int n_dev, long long c,
-                                                int* logical) {
-  const long long row = c / F;
-  const int j = (int)(c % F);
-  if (route_copy(rows + row * w, desc, j, logical))
-    return ptable[*logical % k];
-  return n_dev;
-}
-
-// Stage 1 (count) and stage 3 (rank and write) share one walk of the tile
-// (warp_tile_walk); `rank_pass` selects.  Counters live in shared memory and
-// start at 0 (count) or at the tile's scanned base (rank).
-static __global__ void pack_tile_kernel(const int* rows, int n_src,
-                                        long long n_loc, int w,
-                                        const long long* desc, int F,
-                                        const int* ptable, int k, int n_dev,
-                                        int cap, long long tile_rows,
-                                        long long n_tiles, int* th,
-                                        int rank_pass, int* buf) {
-  extern __shared__ int smem[];
-  const int nb = n_dev + 1;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const long long gw = (long long)blockIdx.x * REPRO_WARPS_PER_BLOCK + warp;
-  if (gw >= (long long)n_src * n_tiles) return;
-  const int src = (int)(gw / n_tiles);
-  const long long t = gw % n_tiles;
-  int* cnt = smem + warp * nb;
-  int* col = th + (long long)src * nb * n_tiles + t;  // th[src, d, t] = col[d * n_tiles]
-  for (int d = lane; d < nb; d += 32) cnt[d] = rank_pass ? col[d * n_tiles] : 0;
-  __syncwarp();
-  const int* srows = rows + (long long)src * n_loc * w;
-  int* sbuf = buf + (long long)src * n_dev * cap * (w + 1);
-  long long end_row = (t + 1) * tile_rows;
-  if (end_row > n_loc) end_row = n_loc;
-  int logical = 0;
-  auto bin = [&](long long c) {
-    return pack_dest(srows, w, desc, F, ptable, k, n_dev, c, &logical);
-  };
-  auto counter = [&](int d) -> int& { return cnt[d]; };
-  if (rank_pass) {
-    warp_tile_walk<true>(t * tile_rows * F, end_row * F, bin, counter,
-                         [&](long long c, int d, int rank) {
-      if (d < n_dev && rank < cap) {
-        const int* src_row = srows + (c / F) * w;
-        int* dst = sbuf + ((long long)d * cap + rank) * (w + 1);
-        for (int i = 0; i < w; ++i) dst[i] = src_row[i];
-        dst[w] = logical;
-      }
-    });
-  } else {
-    warp_tile_walk<false>(t * tile_rows * F, end_row * F, bin, counter,
-                          [](long long, int, int) {});
-    for (int d = lane; d < nb; d += 32) col[d * n_tiles] = cnt[d];
-  }
-}
-
 extern "C" int scatter_pack_launch(const int* rows, int n_src, long long n_loc,
                                    int w, const long long* desc, int F,
                                    const int* ptable, int k, int n_dev,
@@ -109,14 +49,14 @@ extern "C" int scatter_pack_launch(const int* rows, int n_src, long long n_loc,
   const long long n_warps = (long long)n_src * n_tiles;
   const unsigned blocks = blocks_for(n_warps, REPRO_WARPS_PER_BLOCK);
   const size_t smem = sizeof(int) * (size_t)nb * REPRO_WARPS_PER_BLOCK;
-  pack_tile_kernel<<<blocks, PACK_TILE_THREADS, smem, s>>>(
+  pack_tile_kernel<false><<<blocks, PACK_TILE_THREADS, smem, s>>>(
       rows, n_src, n_loc, w, desc, F, ptable, k, n_dev, cap, tile_rows,
       n_tiles, th, 0, buf);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   if ((err = launch_scan_rows(th, (long long)n_src * nb, n_tiles, nb, n_dev,
                               hist, s)) != cudaSuccess)
     return (int)err;
-  pack_tile_kernel<<<blocks, PACK_TILE_THREADS, smem, s>>>(
+  pack_tile_kernel<false><<<blocks, PACK_TILE_THREADS, smem, s>>>(
       rows, n_src, n_loc, w, desc, F, ptable, k, n_dev, cap, tile_rows,
       n_tiles, th, 1, buf);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;

@@ -23,7 +23,7 @@ import torch
 
 from . import _build
 from .ref import MASK32, MULT, u32
-from .scatter_pack import stable_rank
+from .map_pack import stable_rank
 
 MAX_BITS = 16             # default table-size cap (2^16 buckets)
 _SEED0 = 0x9E3779B1

@@ -1,4 +1,5 @@
-"""Routing recipes and the prepare-time counting pass (`map_count`).
+"""Routing recipes, the prepare-time counting pass (`map_count`) and the
+fused map phase's streams (`map_pack`).
 
 A relation's routing recipe is the `RouteSpec` nested tuple of
 core.executor: one entry per residual route,
@@ -12,6 +13,17 @@ descriptor the CUDA kernels walk (layout in csrc/common.cuh).
 `map_count` counts routed copies per (source shard, wrapped cell): rows
 [i·(n/n_src), (i+1)·(n/n_src)) are source i.  `map_count_host` is its plain
 version; `map_count_cuda` launches csrc/map_pack.cu.
+
+`map_pack` is the map phase per source shard (leading axis) in two steps:
+the kernel routes and folds every (row, copy) and emits three per-copy
+streams — d (the copy's device through the (k,) placement table, n_dev for
+non-members), tag (its unwrapped logical cell, -1 for non-members) and
+rank (its stable arrival rank within d) — plus the (n_dev + 1,) histogram;
+`_assemble_tagged` then gathers the original rows into the
+(n_src, n_dev, cap, w+1) buffer, ranks ≥ cap dropped and counted as
+overflow.  The buffer equals `scatter_pack`'s bit for bit.
+`route_streams` is the plain version of the streams (one stable sort);
+`map_pack_cuda` launches csrc/map_pack.cu and assembles with torch ops.
 """
 from __future__ import annotations
 
@@ -23,6 +35,11 @@ from . import _build
 from .ref import INVALID, mulshift
 
 RouteSpec = tuple
+
+# Copies one warp ranks per tile (the pack walk's count and rank passes).
+TILE_COPIES = 2048
+# Device bins one warp keeps in shared memory (8 warps a block, 48 KB).
+MAX_PACK_BINS = 1536
 
 
 def route_fanout(routes: RouteSpec) -> int:
@@ -125,3 +142,149 @@ def map_count_cuda(rows: torch.Tensor, routes: RouteSpec, k: int,
                 route_fanout(routes), k, n_src, max(n // n_src, 1),
                 counts.data_ptr(), _build.stream(rows))
     return counts
+
+
+def stable_rank(key: torch.Tensor, n_bins: int
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(rank, hist) of flat bucket ids in [0, n_bins): each element's
+    arrival rank within its bucket, via one stable sort."""
+    order = torch.argsort(key, stable=True)
+    sk = key[order]
+    pos = torch.arange(key.shape[0], device=key.device) \
+        - torch.searchsorted(sk, sk)
+    rank = torch.empty_like(pos).scatter_(0, order, pos)
+    return rank, torch.bincount(key, minlength=n_bins)
+
+
+def empty_pack(rows: torch.Tensor, n_dev: int, cap: int
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The pack of no copies: a -1 buffer and zero overflow per source."""
+    s, _, w = rows.shape
+    return (torch.full((s, n_dev, cap, w + 1), INVALID, dtype=torch.int32,
+                       device=rows.device),
+            torch.zeros(s, dtype=torch.int32, device=rows.device))
+
+
+def route_streams(rows: torch.Tensor, routes: RouteSpec,
+                  ptable: torch.Tensor, k: int, n_dev: int
+                  ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                             torch.Tensor]:
+    """Plain version of the map_pack kernel: rows (n_src, n_loc, w) ->
+    (tag, d, rank) (n_src, n_loc·F) and hist (n_src, n_dev + 1), int32."""
+    s, n, _ = rows.shape
+    logical, valid = _route_block(rows, routes, k)              # (s, n, F)
+    wrapped = torch.where(valid, logical % k, 0).long()
+    d = torch.where(valid, ptable.long()[wrapped], n_dev).reshape(s, -1)
+    nb = n_dev + 1
+    src = torch.arange(s, device=rows.device)[:, None]
+    rank, hist = stable_rank((src * nb + d).reshape(-1), s * nb)
+    return (logical.reshape(s, -1), d.to(torch.int32),
+            rank.reshape(s, -1).to(torch.int32),
+            hist.reshape(s, nb).to(torch.int32))
+
+
+def pack_slots(d: torch.Tensor, rank: torch.Tensor, n_dev: int, cap: int
+               ) -> torch.Tensor:
+    """Flat buffer slot d·cap + rank of each copy; n_dev·cap (one past the
+    buffer) for non-members and ranks ≥ cap."""
+    d, rank = d.long(), rank.long()
+    return torch.where((d < n_dev) & (rank < cap), d * cap + rank,
+                       n_dev * cap)
+
+
+def pack_overflow(hist: torch.Tensor, n_dev: int, cap: int) -> torch.Tensor:
+    """(n_src,) copies dropped: Σ_dev max(hist − cap, 0)."""
+    return torch.clamp(hist[:, :n_dev].long() - cap, min=0).sum(1).to(
+        torch.int32)
+
+
+def _assemble_tagged(rows: torch.Tensor, tag: torch.Tensor, d: torch.Tensor,
+                     rank: torch.Tensor, hist: torch.Tensor, n_dev: int,
+                     cap: int, fanout: int
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(buf (n_src, n_dev, cap, w+1), overflow (n_src,)) from the per-copy
+    streams.  The inverse permutation is scattered as copy indices into
+    n_dev·cap + 1 slots (the last, every dropped copy's, is cut off; empty
+    slots hold m = n_loc·F); the rows are then gathered once from the
+    original rows at copy // F (m // F = n_loc reads an appended -1 row),
+    with the tag appended as the last column."""
+    s, n, w = rows.shape
+    m, dev = n * fanout, rows.device
+    slot = pack_slots(d, rank, n_dev, cap)
+    copies = torch.arange(m, device=dev).expand(s, m)
+    inv = torch.full((s, n_dev * cap + 1), m, dtype=torch.int64, device=dev
+                     ).scatter_(1, slot, copies)[:, :n_dev * cap]
+    pad = torch.full((s, 1, w), INVALID, dtype=torch.int32, device=dev)
+    rows_pad = torch.cat([rows, pad], 1)
+    tag_pad = torch.cat([tag, pad[:, :, 0]], 1)
+    vals = torch.gather(rows_pad, 1,
+                        (inv // fanout)[..., None].expand(s, n_dev * cap, w))
+    buf = torch.cat([vals, torch.gather(tag_pad, 1, inv)[..., None]], -1)
+    return (buf.reshape(s, n_dev, cap, w + 1),
+            pack_overflow(hist, n_dev, cap))
+
+
+def map_pack_host(rows: torch.Tensor, routes: RouteSpec,
+                  ptable: torch.Tensor, k: int, n_dev: int, cap: int
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of `map_pack`: rows (n_src, n_loc, w) ->
+    (buf (n_src, n_dev, cap, w+1), overflow (n_src,))."""
+    fanout = route_fanout(routes)
+    if rows.shape[1] == 0 or fanout == 0:
+        return empty_pack(rows, n_dev, cap)
+    streams = route_streams(rows, routes, ptable, k, n_dev)
+    return _assemble_tagged(rows, *streams, n_dev, cap, fanout)
+
+
+def pack_scratch(rows: torch.Tensor, fanout: int, n_dev: int
+                 ) -> tuple[int, int, torch.Tensor]:
+    """(rows per tile, tiles per source, per-tile counts (n_src, n_dev + 1,
+    tiles)) of the pack walk (csrc/common.cuh::pack_tile_kernel)."""
+    if n_dev + 1 > MAX_PACK_BINS:
+        raise ValueError(f"the pack kernels take n_dev < {MAX_PACK_BINS}")
+    s, n, _ = rows.shape
+    tile_rows = max(1, TILE_COPIES // fanout)
+    n_tiles = -(-n // tile_rows)
+    th = torch.empty((s, n_dev + 1, n_tiles), dtype=torch.int32,
+                     device=rows.device)
+    return tile_rows, n_tiles, th
+
+
+def map_pack_streams_cuda(rows: torch.Tensor, routes: RouteSpec,
+                          ptable: torch.Tensor, k: int, n_dev: int
+                          ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                                     torch.Tensor]:
+    """Launch csrc/map_pack.cu's map_pack on rows (n_src, n_loc, w) int32
+    on the card: (tag, d, rank) (n_src, n_loc·F) and hist (n_src, n_dev+1)."""
+    rows = _build.as_i32(rows, "rows")
+    ptable = _build.as_i32(ptable, "ptable")
+    if rows.dim() != 3 or ptable.shape != (k,):
+        raise ValueError(f"map_pack: rows must be (n_src, n_loc, w) and "
+                         f"ptable ({k},), got {tuple(rows.shape)} and "
+                         f"{tuple(ptable.shape)}")
+    s, n, w = rows.shape
+    fanout = route_fanout(routes)
+    dev = rows.device
+    streams = torch.empty((3, s, n * fanout), dtype=torch.int32, device=dev)
+    hist = torch.zeros((s, n_dev + 1), dtype=torch.int32, device=dev)
+    if n * fanout == 0:
+        return streams[1], streams[0], streams[2], hist
+    tile_rows, n_tiles, th = pack_scratch(rows, fanout, n_dev)
+    desc = route_desc_tensor(routes, dev)
+    _build.call("map_pack_launch", rows.data_ptr(), s, n, w, desc.data_ptr(),
+                fanout, ptable.data_ptr(), k, n_dev, tile_rows, n_tiles,
+                th.data_ptr(), hist.data_ptr(), streams.data_ptr(),
+                _build.stream(rows))
+    d, tag, rank = streams
+    return tag, d, rank, hist
+
+
+def map_pack_cuda(rows: torch.Tensor, routes: RouteSpec,
+                  ptable: torch.Tensor, k: int, n_dev: int, cap: int
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The kernel's streams, assembled: (buf (n_src, n_dev, cap, w+1),
+    overflow (n_src,))."""
+    streams = map_pack_streams_cuda(rows, routes, ptable, k, n_dev)
+    if streams[0].shape[1] == 0:
+        return empty_pack(rows, n_dev, cap)
+    return _assemble_tagged(rows, *streams, n_dev, cap, route_fanout(routes))

@@ -1,10 +1,12 @@
 """Dispatch of the ported kernels, with launch counts.
 
-Nine kernels: the main path's `map_count`, `scatter_pack`, `join_hash`,
-`build_table` and `expand_rows`; the staged map's `route_cells`,
-`fold_cells` and `bucket_pack` (`fuse_map=False`); the sort-merge reduce's
-`segment_scan` (`hash_reduce=False`; `run_lengths` is the same kernel with
-run lengths, and counts under `segment_scan`).
+Thirteen kernels: the main path's `map_count`, `scatter_pack`,
+`join_hash`, `build_table` and `expand_rows`; the staged map's
+`route_cells`, `fold_cells` and `bucket_pack` (`fuse_map=False`); the
+sort-merge reduce's `segment_scan` (`hash_reduce=False`; `run_lengths` is
+the same kernel with run lengths, and counts under `segment_scan`); and
+the kernel library's `map_pack`, `hash_partition`, `match_counts` and
+`first_match`, which the executor does not call.
 
 A wrapper given CUDA tensors launches its hand-written kernel (raising
 `_build.KernelError` if the build or the launch fails); given CPU tensors it
@@ -23,6 +25,7 @@ import torch
 
 from . import bucket_pack as bp
 from . import build_probe as bpr
+from . import hash_partition as hp
 from . import join_probe as jp
 from . import map_pack as mp
 from . import route_cells as rc
@@ -129,3 +132,38 @@ def run_lengths(keys: torch.Tensor, *, use_kernels: bool = True
     if _on_card(keys, use_kernels):
         return bpr.run_lengths_cuda(keys)
     return bpr.run_lengths_host(keys)
+
+
+def map_pack(rows: torch.Tensor, routes, ptable: torch.Tensor, k: int,
+             n_dev: int, cap: int, *, use_kernels: bool = True
+             ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Map phase per source from per-copy streams: (buf (n_src, n_dev, cap,
+    w+1), overflow (n_src,)), equal to `scatter_pack`'s."""
+    if _on_card(rows, use_kernels):
+        return mp.map_pack_cuda(rows, routes, ptable, k, n_dev, cap)
+    return mp.map_pack_host(rows, routes, ptable, k, n_dev, cap)
+
+
+def hash_partition(keys: torch.Tensor, seed: int, nbuckets: int, *,
+                   use_kernels: bool = True
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(bucket ids (n,), histogram (nbuckets,)) of multiply-shift hashes."""
+    if _on_card(keys, use_kernels):
+        return hp.hash_partition_cuda(keys, seed, nbuckets)
+    return hp.hash_partition_host(keys, seed, nbuckets)
+
+
+def match_counts(probe: torch.Tensor, build: torch.Tensor, *,
+                 use_kernels: bool = True) -> torch.Tensor:
+    """(n_p,) number of equal build keys per probe key."""
+    if _on_card(probe, use_kernels):
+        return bpr.match_counts_cuda(probe, build)
+    return bpr.match_counts_host(probe, build)
+
+
+def first_match(probe: torch.Tensor, build: torch.Tensor, *,
+                use_kernels: bool = True) -> torch.Tensor:
+    """(n_p,) index of the first equal build key per probe key, or -1."""
+    if _on_card(probe, use_kernels):
+        return bpr.first_match_cuda(probe, build)
+    return bpr.first_match_host(probe, build)

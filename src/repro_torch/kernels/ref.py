@@ -24,11 +24,54 @@ def u32(x: torch.Tensor) -> torch.Tensor:
     return x.to(torch.int64) & MASK32
 
 
+def int32_bits(keys: torch.Tensor) -> torch.Tensor:
+    """Integer keys as int32 holding the bits of their uint32 cast (int16
+    sign-extends, int64 keeps its low 32 bits); other dtypes raise."""
+    if keys.dtype == torch.int32:
+        return keys
+    if keys.dtype.is_floating_point or keys.dtype.is_complex \
+            or keys.dtype == torch.bool:
+        raise TypeError(f"expected integer keys, got {keys.dtype}")
+    return (keys.to(torch.int64) & MASK32).to(torch.int32)
+
+
 def mulshift(v: torch.Tensor, seed: int, bits: int) -> torch.Tensor:
     """Top `bits` bits of (v · seed · MULT) over uint32, as int32 (bits ≥ 1)."""
     h = (u32(v) * seed) & MASK32
     h = (h * MULT) & MASK32
     return (h >> (32 - bits)).to(torch.int32)
+
+
+def hash_partition_ref(keys: torch.Tensor, seed: int, nbuckets: int
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Multiply-shift hash to power-of-two buckets + bucket histogram:
+    h(v) = top log2(nbuckets) bits of (v · seed · MULT) over uint32
+    (integer keys cast to uint32).  (ids (n,), histogram (nbuckets,))."""
+    assert nbuckets & (nbuckets - 1) == 0, "nbuckets must be a power of two"
+    if nbuckets == 1:
+        ids = torch.zeros(keys.shape, dtype=torch.int32, device=keys.device)
+    else:
+        ids = mulshift(keys, seed & MASK32, nbuckets.bit_length() - 1)
+    hist = torch.zeros(nbuckets, dtype=torch.int64, device=keys.device)
+    hist.index_add_(0, ids.reshape(-1).long(),
+                    torch.ones(ids.numel(), dtype=torch.int64,
+                               device=keys.device))
+    return ids, hist.to(torch.int32)
+
+
+def match_counts_ref(probe: torch.Tensor, build: torch.Tensor
+                     ) -> torch.Tensor:
+    """counts[i] = |{j : probe[i] == build[j]}| (int32 (n_probe,))."""
+    return (probe[:, None] == build[None, :]).sum(1).to(torch.int32)
+
+
+def first_match_ref(probe: torch.Tensor, build: torch.Tensor
+                    ) -> torch.Tensor:
+    """Index of the first matching build row per probe, or -1 (int32)."""
+    eq = probe[:, None] == build[None, :]
+    col = torch.arange(build.shape[0], device=probe.device)[None, :]
+    m = torch.where(eq, col, 2**31 - 1).min(1).values
+    return torch.where(m == 2**31 - 1, -1, m).to(torch.int32)
 
 
 def route_cells_ref(rows: torch.Tensor, recipe) -> torch.Tensor:

@@ -23,33 +23,10 @@ from __future__ import annotations
 import torch
 
 from . import _build
-from .map_pack import RouteSpec, _route_block, route_desc_tensor, route_fanout
+from .map_pack import (RouteSpec, empty_pack, pack_overflow, pack_scratch,
+                       pack_slots, route_desc_tensor, route_fanout,
+                       route_streams)
 from .ref import INVALID
-
-# Copies one warp ranks per tile (scatter_pack stage 1 and 3).
-TILE_COPIES = 2048
-# Device bins one warp keeps in shared memory (8 warps a block, 48 KB).
-MAX_PACK_BINS = 1536
-
-
-def _empty_pack(rows: torch.Tensor, n_dev: int, cap: int
-                ) -> tuple[torch.Tensor, torch.Tensor]:
-    s, _, w = rows.shape
-    return (torch.full((s, n_dev, cap, w + 1), INVALID, dtype=torch.int32,
-                       device=rows.device),
-            torch.zeros(s, dtype=torch.int32, device=rows.device))
-
-
-def stable_rank(key: torch.Tensor, n_bins: int
-                ) -> tuple[torch.Tensor, torch.Tensor]:
-    """(rank, hist) of flat bucket ids in [0, n_bins): each element's
-    arrival rank within its bucket, via one stable sort."""
-    order = torch.argsort(key, stable=True)
-    sk = key[order]
-    pos = torch.arange(key.shape[0], device=key.device) \
-        - torch.searchsorted(sk, sk)
-    rank = torch.empty_like(pos).scatter_(0, order, pos)
-    return rank, torch.bincount(key, minlength=n_bins)
 
 
 def scatter_pack_host(rows: torch.Tensor, routes: RouteSpec,
@@ -60,26 +37,18 @@ def scatter_pack_host(rows: torch.Tensor, routes: RouteSpec,
     s, n, w = rows.shape
     fanout = route_fanout(routes)
     if n == 0 or fanout == 0:
-        return _empty_pack(rows, n_dev, cap)
+        return empty_pack(rows, n_dev, cap)
     m = n * fanout
-    logical, valid = _route_block(rows, routes, k)              # (s, n, F)
-    wrapped = torch.where(valid, logical % k, 0).long()
-    d = torch.where(valid, ptable.long()[wrapped], n_dev).reshape(s, m)
-    nb = n_dev + 1
-    src = torch.arange(s, device=rows.device)[:, None]
-    rank, hist = stable_rank((src * nb + d).reshape(-1), s * nb)
-    rank = rank.reshape(s, m)
-    hist = hist.reshape(s, nb)[:, :n_dev]
-    overflow = torch.clamp(hist - cap, min=0).sum(1).to(torch.int32)
-    slot = torch.where((d < n_dev) & (rank < cap), d * cap + rank,
-                       n_dev * cap)
+    tag, d, rank, hist = route_streams(rows, routes, ptable, k, n_dev)
+    slot = pack_slots(d, rank, n_dev, cap)
     vals = torch.cat([rows[:, :, None, :].expand(s, n, fanout, w)
-                      .reshape(s, m, w),
-                      logical.reshape(s, m, 1)], -1)
+                      .reshape(s, m, w), tag[..., None]], -1)
     buf = torch.full((s, n_dev * cap + 1, w + 1), INVALID, dtype=torch.int32,
                      device=rows.device)
+    src = torch.arange(s, device=rows.device)[:, None]
     buf[src.expand(s, m), slot] = vals           # trash row n_dev·cap dropped
-    return buf[:, :n_dev * cap].reshape(s, n_dev, cap, w + 1), overflow
+    return (buf[:, :n_dev * cap].reshape(s, n_dev, cap, w + 1),
+            pack_overflow(hist, n_dev, cap))
 
 
 def scatter_pack_cuda(rows: torch.Tensor, routes: RouteSpec,
@@ -92,13 +61,9 @@ def scatter_pack_cuda(rows: torch.Tensor, routes: RouteSpec,
     s, n, w = rows.shape
     fanout = route_fanout(routes)
     if n == 0 or fanout == 0:
-        return _empty_pack(rows, n_dev, cap)
-    if n_dev + 1 > MAX_PACK_BINS:
-        raise ValueError(f"scatter_pack kernel takes n_dev < {MAX_PACK_BINS}")
-    tile_rows = max(1, TILE_COPIES // fanout)
-    n_tiles = -(-n // tile_rows)
+        return empty_pack(rows, n_dev, cap)
+    tile_rows, n_tiles, th = pack_scratch(rows, fanout, n_dev)
     dev = rows.device
-    th = torch.empty((s, n_dev + 1, n_tiles), dtype=torch.int32, device=dev)
     hist = torch.empty((s, n_dev), dtype=torch.int32, device=dev)
     buf = torch.empty((s, n_dev, cap, w + 1), dtype=torch.int32, device=dev)
     overflow = torch.empty(s, dtype=torch.int32, device=dev)

@@ -16,6 +16,7 @@ from repro_torch.core.executor import (ExecutorConfig, ShardedJoinExecutor,
 from repro_torch.data import chain_query, skewed_join_dataset
 from repro_torch.kernels import bucket_pack as bp
 from repro_torch.kernels import build_probe as bpr
+from repro_torch.kernels import hash_partition as hp
 from repro_torch.kernels import join_probe as jp
 from repro_torch.kernels import map_pack as mp
 from repro_torch.kernels import ops
@@ -196,6 +197,134 @@ def test_new_kernel_wrappers_reject_shapes_they_do_not_take(dev):
         bp.bucket_rank_cuda(rows[0], 4)                      # 1-D dest
     with pytest.raises(ValueError):
         bpr.segment_scan_cuda(rows)                          # 2-D keys
+    assert all(v == 0 for v in ops.LAUNCHES.values())
+
+
+@pytest.mark.parametrize("n,nb", [
+    (0, 8), (1, 1), (1, 2), (2047, 128), (2048, 128), (2049, 2),
+    (70000, 1 << 14), (70000, 1 << 15), (1 << 21, 128), (1 << 21, 1 << 20),
+    (300000, 1)])
+def test_hash_partition_kernel(dev, n, nb):
+    """Shared-memory counters up to 8,192 bins, device-memory atomics past
+    them; block edges at 2,048 keys; nb = 1 takes no shift."""
+    rng = np.random.default_rng(n + nb)
+    keys = torch.from_numpy(rng.integers(-2**31, 2**31, n, dtype=np.int64)
+                            .astype(np.int32)).to(dev)
+    for seed in (1, 0x9E3779B1):
+        got = ops.hash_partition(keys, seed, nb)
+        want = hp.hash_partition_host(keys, seed, nb)
+        _eq(got[0], want[0])
+        _eq(got[1], want[1])
+        assert int(got[1].sum()) == n
+
+
+def test_hash_partition_kernel_key_dtypes(dev):
+    """int16 keys sign-extend, uint32 and int64 keys keep their low 32
+    bits: the kernel sees the same bits as the plain version."""
+    rng = np.random.default_rng(3)
+    base = rng.integers(-2**40, 2**40, 5000, dtype=np.int64)
+    base[:4] = [-1, -2, 2**31, 2**32 - 1]
+    for keys in (torch.from_numpy(base.astype(np.int16)),
+                 torch.from_numpy(base.astype(np.uint32)),
+                 torch.from_numpy(base)):
+        keys = keys.to(dev)
+        for nb in (64, 1 << 16):
+            for got, want in zip(ops.hash_partition(keys, 0x85EBCA77, nb),
+                                 hp.hash_partition_host(keys, 0x85EBCA77, nb)):
+                _eq(got, want)
+
+
+def _match_case(rng, n_p, n_b, case):
+    if case == "all_equal":
+        return np.full(n_p, 7, np.int32), np.full(n_b, 7, np.int32)
+    if case == "all_distinct":
+        return (rng.permutation(n_p).astype(np.int32),
+                rng.permutation(n_b).astype(np.int32))
+    if case == "pads":                 # the padding values on both sides
+        probe = rng.integers(-2, 3, n_p).astype(np.int32)
+        return probe, rng.integers(-2, 3, n_b).astype(np.int32)
+    dom = max(n_b // 4, 2)
+    return (rng.integers(0, dom, n_p).astype(np.int32),
+            rng.integers(0, dom, n_b).astype(np.int32))
+
+
+@pytest.mark.parametrize("n_p,n_b,case", [
+    (0, 5, "random"), (5, 0, "random"), (1, 1, "random"), (1, 1, "pads"),
+    (1023, 2047, "random"), (1024, 2048, "random"), (1025, 2049, "pads"),
+    (3000, 70001, "random"), (16384, 16384, "random"), (16384, 4096, "pads"),
+    (1536, 768, "all_equal"), (5000, 6000, "all_distinct"),
+    (200, 300000, "random")])
+def test_match_kernels(dev, n_p, n_b, case):
+    """Probe blocks of 1,024 keys, build tiles of 2,048, the build side
+    split over blocks (atomics), first_match's early stop; -1 and -2 are
+    data on both sides."""
+    rng = np.random.default_rng(n_p + n_b)
+    probe, build = (torch.from_numpy(x).to(dev)
+                    for x in _match_case(rng, n_p, n_b, case))
+    _eq(ops.match_counts(probe, build), bpr.match_counts_host(probe, build))
+    _eq(ops.first_match(probe, build), bpr.first_match_host(probe, build))
+
+
+def _library_spec(k):
+    """The kernel library tests' recipe: a hashed route of fanout 2 with a
+    not-in constraint and a two-axis route with an eq constraint (one
+    share-1 route of fanout 1 at k = 1)."""
+    a, b = 0x9E3779B1, 0x85EBCA77
+    if k == 1:
+        return ((((0, a, 1, 1),), (0,), 0, (), ()),)
+    half, quarter = k // 2, max(k // 4, 1)
+    return ((((0, a, half, 1),), (0, half), 0, (), ((1, (7, 13)),)),
+            (((0, b, quarter, 1), (2, a, 2, quarter)), (0,), quarter,
+             ((1, 7),), ()))
+
+
+@pytest.mark.parametrize("k,n_dev,n_loc,cap", [
+    (1, 1, 1, 4), (8, 4, 700, 8), (256, 8, 5000, 40), (256, 8, 5000, 4096),
+    (8, 4, 0, 2), (256, 8, 100000, 20000)])
+def test_map_pack_kernel(dev, k, n_dev, n_loc, cap):
+    """Streams, buffer and overflow equal the plain version's and the
+    buffer equals scatter_pack's; small caps force overflow."""
+    rng = np.random.default_rng(k * n_loc + cap)
+    spec = _library_spec(k)
+    ptable = torch.from_numpy(rng.integers(0, n_dev, k).astype(np.int32))
+    ptable = ptable.to(dev)
+    rows = torch.from_numpy(_rows(rng, 3 * n_loc, 3, 50)).to(dev)
+    rows = rows.view(3, n_loc, 3)
+    if n_loc:
+        for got, want in zip(mp.map_pack_streams_cuda(rows, spec, ptable, k,
+                                                      n_dev),
+                             mp.route_streams(rows, spec, ptable, k, n_dev)):
+            _eq(got, want)
+    buf, over = ops.map_pack(rows, spec, ptable, k, n_dev, cap)
+    for want in (mp.map_pack_host(rows, spec, ptable, k, n_dev, cap),
+                 ops.scatter_pack(rows, spec, ptable, k, n_dev, cap)):
+        _eq(buf, want[0])
+        _eq(over, want[1])
+    if cap <= 40 and n_loc >= 700:
+        assert int(over.sum()) > 0
+
+
+def test_library_wrappers_reject_shapes_and_dtypes_they_do_not_take(dev):
+    ops.reset_launches()
+    keys = torch.zeros((4, 2), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError):
+        hp.hash_partition_cuda(keys, 1, 8)                   # 2-D keys
+    with pytest.raises(ValueError):
+        hp.hash_partition_cuda(keys[:, 0], 1, 12)            # not 2^b
+    with pytest.raises(TypeError):
+        hp.hash_partition_cuda(keys[:, 0].float(), 1, 8)     # float keys
+    with pytest.raises(ValueError):
+        bpr.match_counts_cuda(keys, keys[:, 0])              # 2-D probe
+    with pytest.raises(ValueError):
+        bpr.first_match_cuda(keys[:, 0], keys)               # 2-D build
+    with pytest.raises(TypeError):
+        bpr.match_counts_cuda(keys[:, 0].float(), keys[:, 0])
+    spec = _library_spec(8)
+    with pytest.raises(ValueError):
+        mp.map_pack_cuda(keys, spec, keys[:, 0], 8, 4, 4)    # 2-D rows
+    rows = torch.zeros((2, 4, 3), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError):
+        mp.map_pack_cuda(rows, spec, keys[:, 0], 8, 4, 4)    # (4,) table
     assert all(v == 0 for v in ops.LAUNCHES.values())
 
 

@@ -36,6 +36,8 @@ def test_port_imports_with_jax_and_repro_blocked():
         "import repro_torch.kernels.ref, repro_torch.kernels._build\n"
         "import repro_torch.kernels.route_cells, repro_torch.kernels.bucket_pack\n"
         "import repro_torch.kernels.build_probe\n"
+        "import repro_torch.kernels.hash_partition, repro_torch.kernels.map_pack\n"
+        "import repro_torch.kernels.scatter_pack, repro_torch.kernels.join_probe\n"
         "assert not any(m == 'jax' or m.startswith('jax.') or m == 'repro' "
         "or m.startswith('repro.') for m in sys.modules "
         "if sys.modules[m] is not None)\n"
