@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch + CUDA port's join paths on one NVIDIA GPU.
+"""Drive the PyTorch + CUDA port's join paths and its MoE serving path on
+one NVIDIA GPU.
 
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero; nothing is caught and carried on):
   1. the card's name and power limit (nvidia-smi);
-  2. build the thirteen CUDA kernels from src/repro_torch/kernels/csrc;
+  2. build the fourteen CUDA kernels from src/repro_torch/kernels/csrc;
   3. the full-size cell end to end on the kernels (fused map + hash
      reduce, the default `ExecutorConfig`): R(A,B) ⋈ S(B,C) with
      2^21 rows per relation, one heavy hitter B = 0 of 12,288 rows, a tail
@@ -41,7 +42,26 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      k ∈ {64, 256}, n_dev = 8, under all four arms (fused | staged map ×
      hash | sort-merge reduce), against the numpy reference join, with the
      exact launch counts of each run checked;
-  6. one JSON line of per-kernel results (each with the path its launches
+  7. the MoE serving path of the LM scaffold: mixtral-8x22b at its
+     published widths with its depth cut from 56 to 4 layers, bf16 weights
+     (about 40 GB) drawn from a seeded generator on the card, the join
+     phases' memory freed first.  Launch counts are zeroed just before 7a
+     and read just after 7b.
+     7a. `api.forward` and `build_prefill` on 4 prompts of 2,048 tokens
+         (chunked attention, capacity clamping): finite last-position
+         logits; the expert loads sum to B·S·K·L and are `torch.equal` to
+         the same call with `use_kernels=False`;
+     7b. a `ServingEngine` of 8 slots (max_seq 512) serves 24 seeded
+         requests (prompts 16-128 tokens, 16-64 new tokens): each completes
+         with its max_new_tokens, tokens_out is their sum, and
+         segment_histogram launched (model calls) x (layers) times; ticks,
+         median tick, decode tokens/s, prefill time, peak memory, the bound
+         of a tick and a profile of decode steps;
+     7c. segment_histogram against its plain version, bit for bit, on this
+         run's decode and prefill inputs (8 bins) and on 2^24 values at 384
+         bins and 2^22 at 2^16 bins, with kernel, device, plain, library
+         and bound times;
+  8. one JSON line of per-kernel results (each with the path its launches
      were counted on), then the last line {"ok": true, "device": {...}}.
 
 Exits non-zero without printing a result when no CUDA device is present or
@@ -49,6 +69,7 @@ when the repository's `src/repro_torch` is not beside this script.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -71,6 +92,7 @@ MODERATE = [  # (query name, rows per relation, domain, skew)
 ]
 FUSED_HASH, STAGED_SORT = "fused+hash", "staged+sort"
 LIBRARY = "library"
+MOE_SERVE = "moe_serve"
 # The config fields of each arm.
 ARMS = {FUSED_HASH: {}, "fused+sort": {"hash_reduce": False},
         "staged+hash": {"fuse_map": False}, STAGED_SORT: {"fuse_map": False,
@@ -104,7 +126,19 @@ KERNEL_SITES = {
                      "src/repro/kernels/build_probe.py:99", LIBRARY),
     "first_match": ("src/repro_torch/kernels/csrc/build_probe.cu",
                     "src/repro/kernels/build_probe.py:127", LIBRARY),
+    "segment_histogram": ("src/repro_torch/kernels/csrc/segment_histogram.cu",
+                          "src/repro/kernels/segment_histogram.py:36",
+                          MOE_SERVE),
 }
+# Phase 7: mixtral-8x22b at its published widths, depth cut to 4 layers;
+# weights bf16 from a seeded generator on the card.
+MOE = dict(arch="mixtral-8x22b", n_layers=4, seed=0, prefill_batch=4,
+           prefill_len=2048, prefill_reps=3, slots=8, max_seq=512,
+           n_requests=24, prompt_len=(16, 128), new_tokens=(16, 64),
+           profile_ticks=5)
+# Phase 7c's larger histograms: (values, bins) — kimi-k2's 384 experts, and
+# 2^16 bins (past the shared-memory arm).
+HIST_SHAPES = [(1 << 24, 384), (1 << 22, 1 << 16)]
 # The kernel library phase's random pair: the shape and key range the JAX
 # package's `kernel_throughput` table times match_counts at.
 RANDOM_PAIR = dict(n_keys=1 << 20, n_probe=1 << 14, n_build=1 << 12,
@@ -220,15 +254,17 @@ def out_capacity_from_fragments(frag_l, frag_r, lcols, rcols, quantize):
     return quantize(max(worst, 1))
 
 
-def profile_batch(session, top: int = 12) -> None:
-    """Where one warm run_batch spends device time: torch.profiler's
-    per-kernel sums, and the device-busy share of the batch's wall time."""
+def profile_calls(fn, label: str, calls: int = 1, top: int = 12,
+                  tag: str = "profile") -> None:
+    """Where `calls` warm calls of `fn` spend device time: torch.profiler's
+    per-kernel sums, and the device-busy share of their wall time."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        r = session.run_batch()
+        for _ in range(calls):
+            r = fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     del r
@@ -237,13 +273,13 @@ def profile_batch(session, top: int = 12) -> None:
               and "CUDA" in str(e.device_type)]
     busy_us = sum(e.self_device_time_total for e in events)
     if not events or busy_us <= 0:
-        print("[profile] device time not measured (no CUDA events)")
+        print(f"[{tag}] device time not measured (no CUDA events)")
         return
-    print(f"[profile] warm run_batch: wall {wall_us / 1e3:.2f} ms, device "
+    print(f"[{tag}] {label}: wall {wall_us / 1e3:.2f} ms, device "
           f"busy {busy_us / 1e3:.2f} ms ({100 * busy_us / wall_us:.1f} %), "
           f"idle share {100 * (1 - busy_us / wall_us):.1f} %")
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:top]:
-        print(f"[profile]   {e.self_device_time_total / 1e3:9.3f} ms "
+        print(f"[{tag}]   {e.self_device_time_total / 1e3:9.3f} ms "
               f"x{e.count:<4d} {e.key[:90]}")
 
 
@@ -380,7 +416,7 @@ def full_cell(dev):
 
     print(f"[cell] prepare {t_prepare * 1e3:.1f} ms")
     warm_batches(ex, s, "cell", exact)
-    profile_batch(s)
+    profile_calls(s.run_batch, "warm run_batch")
 
     # The same step on the plain versions, on the card.
     out_k, valid_k = res.tensors[0], res.tensors[1]
@@ -707,7 +743,7 @@ def staged_cell(dev, cell):
           f"{n_valid} valid rows; prepare {t_prepare * 1e3:.1f} ms; peak "
           f"allocated (measured, {FUSED_HASH} rows held) {peak / 1e9:.2f} GB")
     warm_batches(ex, s, "staged", exact)
-    profile_batch(s)
+    profile_calls(s.run_batch, "warm run_batch")
     return dict(ex=ex, session=s, launches=launches)
 
 
@@ -837,6 +873,200 @@ def moderate_checks(dev):
                       f"{ {kn: v for kn, v in launches.items() if v} }")
 
 
+def moe_serve(dev):
+    """Phase 7a + 7b: the MoE serving path of the LM scaffold at full width
+    (depth cut), through `api.forward`, `build_prefill` and the
+    `ServingEngine`.  Launch counts are zeroed just before 7a and read just
+    after 7b; the values each `segment_histogram` call gets are kept (one
+    per size) for phase 7c."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.kernels import ops
+    from repro_torch.models import api
+    from repro_torch.models.common import count_params
+    from repro_torch.serve import ServingEngine, build_prefill
+
+    full = ARCHS[MOE["arch"]]
+    cfg = dataclasses.replace(full, n_layers=MOE["n_layers"])
+    K, L, d, f = cfg.topk, cfg.n_layers, cfg.d_model, cfg.d_ff
+    print(f"[moe] {cfg.name}: d_model {d}, {cfg.n_heads} heads, "
+          f"{cfg.n_kv_heads} KV heads, head_dim {cfg.hd()}, d_ff {f}, vocab "
+          f"{cfg.vocab}, {cfg.n_experts} experts top-{K} on {cfg.n_slots()} "
+          f"slots, window {cfg.sliding_window}, attn_chunk "
+          f"{cfg.attn_chunk}, rope theta {cfg.rope_theta:g}; reduced: "
+          f"n_layers {full.n_layers} -> {L}")
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = api.init_model(cfg, torch.Generator(device=dev).manual_seed(
+        MOE["seed"]), device=dev)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    n_params = count_params(api.layout(cfg))
+    expert_bytes = L * 3 * cfg.n_slots() * d * f * 2
+    print(f"[moe] weights: {n_params} bf16 parameters = "
+          f"{n_params * 2 / 1e9:.2f} GB reckoned (experts "
+          f"{expert_bytes / L / 1e9:.2f} GB a layer), "
+          f"{(torch.cuda.memory_allocated() - base) / 1e9:.2f} GB allocated "
+          f"(measured), drawn from a seeded generator on the card in "
+          f"{t_init:.2f} s")
+
+    # Keep the first input of each size that the histogram is given.
+    captured = {}
+    launch_hist = ops.segment_histogram
+
+    def keep_input(values, n_bins, **kw):
+        captured.setdefault(values.numel(), values.detach().clone())
+        return launch_hist(values, n_bins, **kw)
+
+    rng = np.random.default_rng(MOE["seed"])
+    B, S = MOE["prefill_batch"], MOE["prefill_len"]
+    prompts = torch.from_numpy(rng.integers(0, cfg.vocab, (B, S)).astype(
+        np.int32)).to(dev)
+    lens = rng.integers(MOE["prompt_len"][0], MOE["prompt_len"][1] + 1,
+                        MOE["n_requests"])
+    news = rng.integers(MOE["new_tokens"][0], MOE["new_tokens"][1] + 1,
+                        MOE["n_requests"])
+    requests = [(rng.integers(0, cfg.vocab, n).tolist(), int(m))
+                for n, m in zip(lens, news)]
+
+    # The path: counts zeroed just before, read just after.
+    ops.segment_histogram = keep_input
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    model_calls = 0
+    # 7a. forward and prefill.
+    lg, aux = api.forward(model, cfg, {"tokens": prompts}, last_only=True)
+    model_calls += 1
+    load = aux["expert_load"]
+    check(int(load.sum()) == B * S * K * L,
+          f"expert_load sums to {int(load.sum())}, not B·S·K·L = "
+          f"{B * S * K * L}")
+    model.use_kernels = False
+    _, aux_plain = api.forward(model, cfg, {"tokens": prompts},
+                               last_only=True)
+    model.use_kernels = True
+    check(torch.equal(load, aux_plain["expert_load"]),
+          f"expert_load {load.tolist()} != plain "
+          f"{aux_plain['expert_load'].tolist()}")
+    check(bool(torch.isfinite(lg).all()), "forward logits not finite")
+    fns = build_prefill(cfg, device=dev)
+    prefill_s = []
+    for _ in range(MOE["prefill_reps"]):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        last = fns.prefill(model, {"tokens": prompts})
+        torch.cuda.synchronize()
+        prefill_s.append(time.perf_counter() - t0)
+        model_calls += 1
+    check(last.shape == (B, cfg.padded_vocab())
+          and bool(torch.isfinite(last).all()),
+          f"prefill logits {tuple(last.shape)} not finite or misshaped")
+    t_prefill = float(np.median(prefill_s))
+    print(f"[moe] 7a forward: expert_load {load.tolist()} sums to "
+          f"{int(load.sum())} = B·S·K·L and equals the plain version's "
+          f"(torch.equal); prefill of {B} x {S} tokens median "
+          f"{t_prefill * 1e3:.1f} ms of {len(prefill_s)} "
+          f"({', '.join(f'{t * 1e3:.1f}' for t in prefill_s)}), "
+          f"{B * S / t_prefill:.0f} prompt tokens/s; logits finite")
+
+    # 7b. serving.
+    eng = ServingEngine(cfg, MOE["slots"], MOE["max_seq"], model, device=dev)
+    reqs = [eng.submit(p, m) for p, m in requests]
+    tick_s = []
+    tick = eng._tick
+
+    def timed_tick():
+        t = time.perf_counter()
+        tick()                       # ends in the next tokens' copy to host
+        tick_s.append(time.perf_counter() - t)
+
+    eng._tick = timed_tick
+    t0 = time.perf_counter()
+    eng.run()
+    t_run = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    launches = dict(ops.LAUNCHES)
+    ops.segment_histogram = launch_hist
+    peak = torch.cuda.max_memory_allocated()
+    model_calls += eng.ticks
+
+    check(all(r.done and len(r.out) == m for r, (_, m) in zip(reqs, requests)),
+          "a request did not complete with its max_new_tokens")
+    want_out = sum(m for _, m in requests)
+    check(eng.tokens_out == want_out,
+          f"tokens_out {eng.tokens_out} != {want_out}")
+    want = dict.fromkeys(KERNEL_SITES, 0)
+    want["segment_histogram"] = model_calls * L
+    check(launches == want, f"moe_serve launches {launches}, expected {want}")
+    check(16 in captured and B * S * K in captured,
+          f"histogram inputs of sizes {sorted(captured)}")
+    tick_ms = float(np.median(tick_s)) * 1e3
+    print(f"[moe] 7b serving: {len(reqs)} requests (prompts "
+          f"{int(lens.min())}-{int(lens.max())}, new tokens "
+          f"{int(news.min())}-{int(news.max())}) on {MOE['slots']} slots, "
+          f"max_seq {MOE['max_seq']}: all complete, tokens_out "
+          f"{eng.tokens_out}; {eng.ticks} ticks, median tick {tick_ms:.2f} ms "
+          f"(p90 {np.percentile(tick_s, 90) * 1e3:.2f}, max "
+          f"{max(tick_s) * 1e3:.2f}); run {t_run:.2f} s, "
+          f"{eng.tokens_out / t_run:.1f} decode tokens/s; bound of a tick "
+          f"(reading every slot's expert weights once, "
+          f"{expert_bytes / 1e9:.2f} GB / {HBM_BYTES_PER_S / 1e12:.2f} TB/s) "
+          f"{expert_bytes / HBM_BYTES_PER_S * 1e3:.2f} ms")
+    print(f"[moe] segment_histogram launches {launches['segment_histogram']}"
+          f" = ({model_calls} model calls: 1 forward + "
+          f"{MOE['prefill_reps']} prefills + {eng.ticks} ticks) x {L} "
+          f"layers; the plain forward launched none; peak allocated "
+          f"(measured) {peak / 1e9:.2f} GB")
+
+    # Where a tick's time goes (not counted): the decode step alone.
+    toks = torch.from_numpy(eng.next_tok[:, None].copy())
+    pos = torch.from_numpy(np.minimum(eng.pos, MOE["max_seq"] - 1))
+    profile_calls(lambda: eng.fns.decode(model, eng.cache, toks, pos),
+                  f"{MOE['profile_ticks']} decode steps (B={MOE['slots']})",
+                  MOE["profile_ticks"], tag="moe")
+    del eng, model, lg, last
+    torch.cuda.empty_cache()
+    return dict(launches=launches, captured=captured, n_bins=cfg.n_experts)
+
+
+def histogram_checks(dev, serve):
+    """Phase 7c: segment_histogram against its plain version at this run's
+    shapes (decode, prefill) and two larger ones, with kernel (events),
+    device (profiler), plain, library and bound times."""
+    from repro_torch.kernels import segment_histogram as sh
+
+    n_bins = serve["n_bins"]
+    gen = torch.Generator(device=dev).manual_seed(1)
+    cases = [("decode", serve["captured"][16], n_bins),
+             ("prefill", serve["captured"][max(serve["captured"])], n_bins)]
+    for n, bins in HIST_SHAPES:
+        cases.append((f"2^{n.bit_length() - 1} values",
+                      torch.randint(-2, bins + 2, (n,), generator=gen,
+                                    device=dev, dtype=torch.int32), bins))
+    out, extra = {}, {}
+    for label, vals, bins in cases:
+        n = vals.numel()
+        n_valid = int(((vals >= 0) & (vals < bins)).sum())
+        print(f"[histogram] {label}: {n} values, {bins} bins")
+
+        def library(vals=vals, bins=bins):   # two calls: a mask, a bincount
+            return torch.bincount(vals[(vals >= 0) & (vals < bins)],
+                                  minlength=bins)
+
+        # Bytes: the values read once, the bins written once; operations:
+        # one compare per value and one add per value in range.
+        record(out if label == "prefill" else extra, "segment_histogram",
+               sh.segment_histogram_cuda, sh.segment_histogram_host,
+               (vals, bins), 4 * n + 4 * bins, n + n_valid, 20,
+               library=library)
+        print(f"[histogram] {label}: device "
+              f"{device_ms(lambda: sh.segment_histogram_cuda(vals, bins)):.4f}"
+              f" ms")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -845,6 +1075,7 @@ def main() -> int:
         print("chip_smoke: src/repro_torch not found beside chip_smoke.py",
               file=sys.stderr)
         return 1
+    t_start = time.perf_counter()
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels import _build, ops
 
@@ -878,6 +1109,15 @@ def main() -> int:
     del staged
     torch.cuda.empty_cache()
     moderate_checks(dev)
+    del cell
+    torch.cuda.empty_cache()
+    print(f"[moe] join phases freed: {torch.cuda.memory_allocated() / 1e9:.2f}"
+          f" GB still allocated")
+    t7 = time.perf_counter()
+    serve = moe_serve(dev)
+    results.update(histogram_checks(dev, serve))
+    path_launches[MOE_SERVE] = serve["launches"]
+    t_end = time.perf_counter()
 
     kernels = []
     for name in ops.KERNELS:
@@ -887,6 +1127,8 @@ def main() -> int:
                             launches=path_launches[path][name],
                             **results[name]))
     check(all(kn["launches"] > 0 for kn in kernels), "a kernel never launched")
+    print(f"[done] all phases passed in {t_end - t_start:.1f} s (phase 7 "
+          f"{t_end - t7:.1f} s)")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

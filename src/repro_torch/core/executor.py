@@ -231,12 +231,13 @@ def _check_placement_compat(placement: CellPlacement, k: int, n_dev: int
 
 
 def resolve_device(device=None) -> torch.device:
-    """The executor's device: the card unless the caller asks for the CPU.
-    Raises when the card is asked for (the default) and absent."""
+    """The device of the port's entry points (executor, models, serving):
+    the card unless the caller asks for the CPU.  Raises when the card is
+    asked for (the default) and absent."""
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise ExecutorError(
-            "no CUDA device: the executor runs on the GPU by default; pass "
+            "no CUDA device: the port runs on the GPU by default; pass "
             "device='cpu' to run the kernels' plain versions on the CPU")
     if dev.type not in ("cuda", "cpu"):
         raise ExecutorError(f"unsupported device {dev}")

@@ -1,2 +1,2 @@
-"""Main-path kernels: CUDA sources (`csrc/`), plain PyTorch versions, the
-dispatch (`ops`) and the build (`_build`)."""
+"""The fourteen kernels: CUDA sources (`csrc/`), plain PyTorch versions,
+the dispatch (`ops`) and the build (`_build`)."""

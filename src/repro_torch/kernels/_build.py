@@ -45,6 +45,7 @@ SIGNATURES = {
     "hash_partition_launch": [P, LL, LL, I, P, P, P],
     "match_counts_launch": [P, LL, P, LL, P, P],
     "first_match_launch": [P, LL, P, LL, P, P],
+    "segment_histogram_launch": [P, LL, I, P, P],
 }
 
 

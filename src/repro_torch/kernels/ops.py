@@ -1,12 +1,14 @@
 """Dispatch of the ported kernels, with launch counts.
 
-Thirteen kernels: the main path's `map_count`, `scatter_pack`,
-`join_hash`, `build_table` and `expand_rows`; the staged map's
-`route_cells`, `fold_cells` and `bucket_pack` (`fuse_map=False`); the
-sort-merge reduce's `segment_scan` (`hash_reduce=False`; `run_lengths` is
-the same kernel with run lengths, and counts under `segment_scan`); and
-the kernel library's `map_pack`, `hash_partition`, `match_counts` and
-`first_match`, which the executor does not call.
+Fourteen kernels, one for each TPU kernel of the reference package: the
+join main path's `map_count`, `scatter_pack`, `join_hash`, `build_table`
+and `expand_rows`; the staged map's `route_cells`, `fold_cells` and
+`bucket_pack` (`fuse_map=False`); the sort-merge reduce's `segment_scan`
+(`hash_reduce=False`; `run_lengths` is the same kernel with run lengths,
+and counts under `segment_scan`); the kernel library's `map_pack`,
+`hash_partition`, `match_counts` and `first_match`, which the executor
+does not call; and `segment_histogram`, the MoE layer's expert loads
+(`models/moe.py`).
 
 A wrapper given CUDA tensors launches its hand-written kernel (raising
 `_build.KernelError` if the build or the launch fails); given CPU tensors it
@@ -30,6 +32,7 @@ from . import join_probe as jp
 from . import map_pack as mp
 from . import route_cells as rc
 from . import scatter_pack as sp
+from . import segment_histogram as sh
 from ._build import LAUNCHES
 
 KERNELS = tuple(LAUNCHES)
@@ -167,3 +170,11 @@ def first_match(probe: torch.Tensor, build: torch.Tensor, *,
     if _on_card(probe, use_kernels):
         return bpr.first_match_cuda(probe, build)
     return bpr.first_match_host(probe, build)
+
+
+def segment_histogram(values: torch.Tensor, n_bins: int, *,
+                      use_kernels: bool = True) -> torch.Tensor:
+    """int32 (n_bins,) count of the (integer) values in [0, n_bins)."""
+    if _on_card(values, use_kernels):
+        return sh.segment_histogram_cuda(values, n_bins)
+    return sh.segment_histogram_host(values, n_bins)

@@ -59,6 +59,18 @@ def hash_partition_ref(keys: torch.Tensor, seed: int, nbuckets: int
     return ids, hist.to(torch.int32)
 
 
+def segment_histogram_ref(values: torch.Tensor, n_bins: int) -> torch.Tensor:
+    """Frequency histogram of int values in [0, n_bins) (int32 (n_bins,)).
+
+    The heavy-hitter counting pass: values outside the range are dropped.
+    """
+    valid = (values >= 0) & (values < n_bins)
+    clipped = values.clamp(0, n_bins - 1).long()
+    hist = torch.zeros(n_bins, dtype=torch.int32, device=values.device)
+    return hist.index_add_(0, clipped.reshape(-1),
+                           valid.reshape(-1).to(torch.int32))
+
+
 def match_counts_ref(probe: torch.Tensor, build: torch.Tensor
                      ) -> torch.Tensor:
     """counts[i] = |{j : probe[i] == build[j]}| (int32 (n_probe,))."""

@@ -22,6 +22,7 @@ from repro_torch.kernels import map_pack as mp
 from repro_torch.kernels import ops
 from repro_torch.kernels import route_cells as rc
 from repro_torch.kernels import scatter_pack as sp
+from repro_torch.kernels import segment_histogram as sh
 
 pytestmark = pytest.mark.cuda
 
@@ -368,3 +369,68 @@ def test_executor_on_card(dev, q, skew, k, fuse_map, hash_reduce):
         np.testing.assert_array_equal(kern[key], plain[key])
     np.testing.assert_array_equal(
         canonical(kern["rows"][kern["valid"]]), reference_join(q, data))
+
+
+@pytest.mark.parametrize("n", [1, 16, 2047, 2048, 2049, 16384, 300001])
+@pytest.mark.parametrize("n_bins", [1, 8, 384, 12288, 12289, 65536])
+def test_segment_histogram_kernel(dev, n, n_bins):
+    """int64 values in [-3, n_bins + 3) on both arms: shared counters up to
+    12,288 bins, device atomics past them."""
+    rng = np.random.default_rng(n + n_bins)
+    vals = torch.from_numpy(rng.integers(-3, n_bins + 3, n)).to(dev)
+    assert vals.dtype == torch.int64
+    ops.reset_launches()
+    got = ops.segment_histogram(vals, n_bins)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["segment_histogram"] == 1
+    _eq(got, sh.segment_histogram_host(vals, n_bins))
+    assert got.dtype == torch.int32
+
+
+def test_segment_histogram_kernel_edges(dev):
+    """Every value in one bin, all out of range, other integer dtypes, a
+    2-D input, and an empty one (zeros, no launch)."""
+    hot = torch.full((1 << 20,), 5, dtype=torch.int32, device=dev)
+    _eq(ops.segment_histogram(hot, 8), sh.segment_histogram_host(hot, 8))
+    out = torch.tensor([-1, 8, 9, -7] * 1000, dtype=torch.int32, device=dev)
+    assert not ops.segment_histogram(out, 8).any()
+    for dtype in (torch.int8, torch.int16, torch.uint8):
+        v = torch.arange(-5, 300, device=dev).to(dtype)
+        _eq(ops.segment_histogram(v, 128), sh.segment_histogram_host(v, 128))
+    v2 = torch.randint(-2, 20, (7, 9, 11), device=dev)
+    _eq(ops.segment_histogram(v2, 16), sh.segment_histogram_host(v2, 16))
+    ops.reset_launches()
+    empty = ops.segment_histogram(torch.empty(0, dtype=torch.int32,
+                                              device=dev), 8)
+    assert ops.LAUNCHES["segment_histogram"] == 0
+    _eq(empty, torch.zeros(8, dtype=torch.int32))
+
+
+def test_segment_histogram_wrapper_rejects_what_it_does_not_take(dev):
+    for bad in (torch.zeros(4, device=dev), torch.zeros(4, dtype=torch.bool,
+                                                        device=dev)):
+        with pytest.raises(TypeError):
+            ops.segment_histogram(bad, 8)
+    with pytest.raises(ValueError):
+        ops.segment_histogram(torch.arange(4, device=dev), 0)
+
+
+def test_reduced_moe_forward_on_card(dev):
+    """The reduced mixtral in bf16 on the card: expert loads with the kernel
+    equal those of the plain version, one launch per layer."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import api
+    cfg = ARCHS["mixtral-8x22b"].reduced()
+    model = api.init_model(cfg, torch.Generator(device=dev).manual_seed(0),
+                           device=dev)
+    toks = torch.randint(0, cfg.vocab, (3, 40), device=dev)
+    ops.reset_launches()
+    lg, aux = api.forward(model, cfg, {"tokens": toks})
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["segment_histogram"] == cfg.n_layers
+    model.use_kernels = False
+    lg_p, aux_p = api.forward(model, cfg, {"tokens": toks})
+    assert ops.LAUNCHES["segment_histogram"] == cfg.n_layers
+    assert torch.equal(aux["expert_load"], aux_p["expert_load"])
+    assert int(aux["expert_load"].sum()) == 3 * 40 * 2 * cfg.n_layers
+    assert torch.isfinite(lg).all() and torch.isfinite(lg_p).all()

@@ -38,6 +38,12 @@ def test_port_imports_with_jax_and_repro_blocked():
         "import repro_torch.kernels.build_probe\n"
         "import repro_torch.kernels.hash_partition, repro_torch.kernels.map_pack\n"
         "import repro_torch.kernels.scatter_pack, repro_torch.kernels.join_probe\n"
+        "import repro_torch.kernels.segment_histogram\n"
+        "import repro_torch.configs, repro_torch.core.moe_shares\n"
+        "import repro_torch.models.common, repro_torch.models.layers\n"
+        "import repro_torch.models.transformer, repro_torch.models.moe\n"
+        "import repro_torch.models.api, repro_torch.models.convert\n"
+        "import repro_torch.serve.serve_step, repro_torch.serve.engine\n"
         "assert not any(m == 'jax' or m.startswith('jax.') or m == 'repro' "
         "or m.startswith('repro.') for m in sys.modules "
         "if sys.modules[m] is not None)\n"
@@ -76,6 +82,42 @@ def test_default_device_is_cuda_and_raises_without_it(monkeypatch):
     with pytest.raises(ExecutorError):
         resolve_device()
     assert resolve_device("cpu").type == "cpu"
+
+
+def test_model_and_serving_entry_points_default_to_cuda(monkeypatch):
+    """init_params, init_model, init_cache, params_from_jax,
+    build_decode_step, build_prefill and ServingEngine raise without a card
+    unless given device="cpu"."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import api
+    from repro_torch.models.common import init_params
+    from repro_torch.models.convert import params_from_jax
+    from repro_torch.serve import (ServingEngine, build_decode_step,
+                                   build_prefill)
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = ARCHS["mixtral-8x22b"].reduced()
+    gen = torch.Generator()
+    tree = init_params(api.layout(cfg), gen, device="cpu")
+    model = api.build(cfg, tree)
+    numpy_tree = {"embed": {k: v.float().numpy()
+                            for k, v in tree["embed"].items()},
+                  "blocks": {part: {k: v.float().numpy()
+                                    for k, v in sub.items()}
+                             for part, sub in tree["blocks"].items()}}
+    calls = [
+        lambda **kw: init_params(api.layout(cfg), gen, **kw),
+        lambda **kw: api.init_model(cfg, gen, **kw),
+        lambda **kw: api.init_cache(cfg, 2, 8, **kw),
+        lambda **kw: params_from_jax(numpy_tree, cfg, **kw),
+        lambda **kw: build_decode_step(cfg, 2, 8, **kw),
+        lambda **kw: build_prefill(cfg, **kw),
+        lambda **kw: ServingEngine(cfg, 2, 8, model, **kw),
+    ]
+    for call in calls:
+        with pytest.raises(ExecutorError, match="CUDA"):
+            call()
+        assert call(device="cpu") is not None
 
 
 def test_unported_config_arms_raise():
