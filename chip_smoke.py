@@ -18,7 +18,12 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
   4. every kernel against its plain version on the card at the shapes of
      that run, bit for bit, with kernel, plain and bound times; the bound
      counts what this run's data needs (valid rows only, matched rows only
-     for the expansion) and is the larger of its bytes and operations times;
+     for the expansion) and is the larger of its bytes and operations times.
+     expand_rows is recorded as the main path calls it, with the final
+     step's columns (the step's column selection, -1 fill and attribute
+     order written by the kernel), and beside it with cols=None (the full
+     (B, cap, wl + wr) expansion of the reference kernel), each with its
+     own bound and its device time;
   4c. the kernel library (the executor does not call it) on that cell's
      data, launch counts zeroed just before and read just after: map_pack
      on R's and S's (8, 2^18, 2) shards, `torch.equal` to scatter_pack,
@@ -108,7 +113,7 @@ KERNEL_SITES = {
                   "src/repro/kernels/join_probe.py:195", FUSED_HASH),
     "build_table": ("src/repro_torch/kernels/csrc/join_probe.cu",
                     "src/repro/kernels/join_probe.py:234", FUSED_HASH),
-    "expand_rows": ("src/repro_torch/kernels/csrc/scatter_pack.cu",
+    "expand_rows": ("src/repro_torch/kernels/csrc/expand_rows.cu",
                     "src/repro/kernels/scatter_pack.py:246", FUSED_HASH),
     "route_cells": ("src/repro_torch/kernels/csrc/route_cells.cu",
                     "src/repro/kernels/route_cells.py:96", STAGED_SORT),
@@ -407,8 +412,7 @@ def full_cell(dev):
         "relations": sum(nbytes(a) for a in s._device_args),
         "send+recv buffers": sum(2 * n_dev * n_dev * caps[r.name]
                                  * (len(r.attrs) + 1) * 4 for r in q.relations),
-        "expanded rows": n_dev * cap_out * (2 * 3) * 4,
-        "output rows (x3 copies)": 3 * n_dev * cap_out * w_out * 4,
+        "output rows and valid flags": n_dev * cap_out * (w_out * 4 + 1),
     }
     print(f"[cell] caps {caps}; bytes the step holds (reckoned) "
           f"{held} = {sum(held.values()) / 1e9:.2f} GB; peak allocated "
@@ -471,7 +475,8 @@ def record(out, name, kern, plain, args, n_bytes, n_ops, iters,
 
 def kernel_checks(cell):
     """Phase 4: each kernel against its plain version at the cell's shapes."""
-    from repro_torch.core.executor import INVALID, exchange, shared_columns
+    from repro_torch.core.executor import (INVALID, exchange, shared_columns,
+                                           step_columns)
     from repro_torch.kernels import join_probe as jp
     from repro_torch.kernels import map_pack as mp
     from repro_torch.kernels import scatter_pack as sp
@@ -528,21 +533,41 @@ def kernel_checks(cell):
     cap_out = cell["cap_out"]
     del frags, bl, br, rank, hist, lk, rk
     torch.cuda.empty_cache()
-    # The expansion reads counts in full, lo and the left row of every row
-    # with matches, and the perm entries and right rows of matched windows;
-    # it writes the whole (B, cap, wl + wr) output and the valid flags.
-    # Operations: the scan of counts, and per slot a binary search over
-    # the n_l offsets and three adds.
+    # The expansion reads counts in full, lo and the used left columns of
+    # every row with matches, and the perm entries and used right columns
+    # of matched windows; it writes the whole (B, cap, n_cols) output and
+    # the valid flags.  Operations: the scan of counts, and per item of
+    # each destination's merge (its rows and its slots up to the total or
+    # cap) a compare and an add.  The main path's call takes the final
+    # step's columns; the full expansion (cols=None) is kept beside it.
     n_b, n_l, wl = acc.shape
     wr = right.shape[2]
     n_hit = int((counts > 0).sum())
     n_cov = covered_positions(counts, lo, right.shape[1])
-    search = max(n_l - 1, 1).bit_length()
-    record(out, "expand_rows", sp.expand_rows_cuda, sp.expand_rows_host,
-           (acc, right, counts, lo, perm, cap_out),
-           counts.numel() * 4 + n_hit * (wl + 1) * 4 + n_cov * (wr + 1) * 4
-           + n_b * cap_out * ((wl + wr) * 4 + 1),
-           n_b * n_l + n_b * cap_out * (search + 3), 4)
+    slots = int(torch.clamp(counts.sum(1, dtype=torch.int64), max=cap_out)
+                .sum())
+    n_ops = n_b * n_l + 2 * (n_b * n_l + slots)
+    q = cell["plan"].query
+    cols, _ = step_columns(list(q.relations[0].attrs) + ["__cell__"],
+                           list(q.relations[1].attrs) + ["__cell__"],
+                           q.attributes)
+    args = (acc, right, counts, lo, perm, cap_out)
+    full = {}
+    for dst, c in ((full, None), (out, tuple(cols))):
+        used = list(range(wl + wr)) if c is None else c
+        n_lc = len({x for x in used if x < wl})
+        n_rc = len({x for x in used if x >= wl})
+        record(dst, "expand_rows",
+               lambda *a, c=c: sp.expand_rows_cuda(*a, cols=c),
+               lambda *a, c=c: sp.expand_rows_host(*a, cols=c), args,
+               counts.numel() * 4 + n_hit * (n_lc + 1) * 4
+               + n_cov * (n_rc + 1) * 4 + n_b * cap_out * (len(used) * 4 + 1),
+               n_ops, 4)
+        dst["expand_rows"]["device_ms"] = device_ms(
+            lambda c=c: sp.expand_rows_cuda(*args, cols=c), 4)
+        print(f"[kernel] expand_rows cols={c}: device "
+              f"{dst['expand_rows']['device_ms']:.4f} ms")
+    out["expand_rows"]["full_expansion"] = full["expand_rows"]
     return out
 
 

@@ -323,6 +323,23 @@ def shared_columns(acc_attrs: list[str], right_attrs: list[str]
     return [l for l, _ in shared], [r for _, r in shared]
 
 
+def step_columns(acc_attrs: list[str], right_attrs: list[str],
+                 attributes=None) -> tuple[list[int], list[str]]:
+    """Output columns of one cascade step as indices into ``acc ++ right``
+    (acc's named attributes, the right side's new ones, `__cell__` last),
+    and the attributes they hold.  With the query's `attributes` (the last
+    step) the columns are those attributes in that order."""
+    wa = len(acc_attrs)
+    extra = [a for a in right_attrs if a not in acc_attrs]
+    cols = (list(range(wa - 1)) + [wa + right_attrs.index(a) for a in extra]
+            + [wa - 1])
+    attrs = acc_attrs[:-1] + extra + ["__cell__"]
+    if attributes is not None:
+        cols = [cols[attrs.index(a)] for a in attributes]
+        attrs = list(attributes)
+    return cols, attrs
+
+
 def _rows_at(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """x (B, n, w) gathered at row indices idx (B, m) -> (B, m, w)."""
     return torch.gather(x, 1, idx[..., None].expand(-1, -1, x.shape[2]))
@@ -397,14 +414,17 @@ def _local_join(frags: dict[str, torch.Tensor], query: JoinQuery,
     joins on the shared named attributes AND equal cell id (probed by hash
     or by sort-merge, `hash_reduce`), and expands to
     the static `cap_out` rows per destination in (left row, right arrival)
-    order.  Returns (rows (n_dst, cap_out, n_attrs), valid (n_dst, cap_out),
-    overflow (n_dst,) int64)."""
+    order.  The expansion writes the step's columns (acc's named attributes,
+    the new ones, the cell id; on the last step the query's attribute
+    order) and -1 in rows past the matches itself, in one pass.  Returns
+    (rows (n_dst, cap_out, n_attrs), valid (n_dst, cap_out), overflow
+    (n_dst,) int64)."""
     rels = list(query.relations)
     acc = frags[rels[0].name]
     acc_attrs = list(rels[0].attrs) + ["__cell__"]
     acc_valid = acc[..., -1] != INVALID
     overflow = torch.zeros(acc.shape[0], dtype=torch.int64, device=acc.device)
-    for rel in rels[1:]:
+    for step, rel in enumerate(rels[1:], 1):
         right = frags[rel.name]
         right_attrs = list(rel.attrs) + ["__cell__"]
         r_valid = right[..., -1] != INVALID
@@ -419,18 +439,15 @@ def _local_join(frags: dict[str, torch.Tensor], query: JoinQuery,
                                            use_kernels)
         n_match = counts.sum(1, dtype=torch.int64)
         overflow = overflow + torch.clamp(n_match - cap_out, min=0)
-        exp, valid_out = ops.expand_rows(acc, right, counts, lo, perm,
-                                         cap_out, use_kernels=use_kernels)
-        wa = acc.shape[-1]
-        extra_names = [a for a in rel.attrs if a not in acc_attrs]
-        extra_cols = [right_attrs.index(a) for a in extra_names]
-        # Column layout: acc named attrs, new named attrs, __cell__ last.
-        cols = list(range(wa - 1)) + [wa + c for c in extra_cols] + [wa - 1]
-        acc_valid = valid_out
-        acc = torch.where(acc_valid[..., None], exp[..., cols], INVALID)
-        acc_attrs = acc_attrs[:-1] + extra_names + ["__cell__"]
-    order = [acc_attrs.index(a) for a in query.attributes]
-    return acc[..., order], acc_valid, overflow
+        last = step == len(rels) - 1
+        cols, acc_attrs = step_columns(acc_attrs, right_attrs,
+                                       query.attributes if last else None)
+        acc, acc_valid = ops.expand_rows(acc, right, counts, lo, perm,
+                                         cap_out, cols=tuple(cols),
+                                         use_kernels=use_kernels)
+    if len(rels) == 1:
+        acc = acc[..., [acc_attrs.index(a) for a in query.attributes]]
+    return acc, acc_valid, overflow
 
 
 # ---------------------------------------------------------------------------

@@ -36,7 +36,8 @@ SIGNATURES = {
                             P],
     "join_hash_launch": [P, P, LL, I, I, P, P],
     "build_table_launch": [P, P, I, LL, I, I, LL, LL, P, P, P, P, P],
-    "expand_rows_launch": [P, P, P, P, P, I, LL, I, LL, I, LL, P, P, P, P, P],
+    "expand_rows_launch": [P, P, P, P, P, I, LL, I, LL, I, LL, P, I, P, I, I,
+                           LL, P, P, P, P, LL, P, P, P, P],
     "route_cells_launch": [P, LL, I, P, I, P, P],
     "fold_cells_launch": [P, LL, P, I, P, P],
     "bucket_pack_launch": [P, P, I, LL, I, I, I, LL, LL, P, P, P, P, P, P],

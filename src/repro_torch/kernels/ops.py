@@ -87,13 +87,15 @@ def build_table(keys: torch.Tensor, valid: torch.Tensor, n_bits: int, *,
 
 
 def expand_rows(left: torch.Tensor, right: torch.Tensor, counts: torch.Tensor,
-                lo: torch.Tensor, perm: torch.Tensor, cap: int, *,
+                lo: torch.Tensor, perm: torch.Tensor, cap: int, *, cols=None,
                 use_kernels: bool = True
                 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Prefix-sum expansion of a probe: (out (B, cap, wl+wr), valid)."""
+    """Prefix-sum expansion of a probe: (out (B, cap, wl+wr), valid); with
+    `cols` (indices into left ++ right), out (B, cap, len(cols)) holds those
+    columns of the valid rows and -1 elsewhere."""
     if _on_card(left, use_kernels):
-        return sp.expand_rows_cuda(left, right, counts, lo, perm, cap)
-    return sp.expand_rows_host(left, right, counts, lo, perm, cap)
+        return sp.expand_rows_cuda(left, right, counts, lo, perm, cap, cols)
+    return sp.expand_rows_host(left, right, counts, lo, perm, cap, cols)
 
 
 def route_cells(rows: torch.Tensor, recipe, *, use_kernels: bool = True

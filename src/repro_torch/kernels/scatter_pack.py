@@ -13,12 +13,17 @@ perm) into output rows: slot t holds
 ``left[li] ++ right[perm[lo[li] + t − off[li]]]`` with off the exclusive
 prefix sum of counts and li the left row whose window covers t (clipped);
 valid = t < Σ counts.  Slots past the total hold the clipped formula's rows,
-as the reference's do.
+as the reference's do.  With ``cols`` (indices into the ``left ++ right``
+columns) the output is ``where(valid, full[..., cols], -1)``: the join
+step's column selection and -1 fill, written in the same pass.
 
 `*_host` are the plain versions (stable sort / searchsorted + gathers);
-`*_cuda` launch csrc/scatter_pack.cu.
+`scatter_pack_cuda` launches csrc/scatter_pack.cu, `expand_rows_cuda`
+csrc/expand_rows.cu.
 """
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -75,25 +80,48 @@ def scatter_pack_cuda(rows: torch.Tensor, routes: RouteSpec,
     return buf, overflow
 
 
-def _empty_expand(left: torch.Tensor, right: torch.Tensor, cap: int
+# Merge items (left rows + output slots) per block of the expansion and
+# entries per block of its scan of counts; at most EXPAND_MAX_COLS output
+# columns (csrc/expand_rows.cu).
+EXPAND_TILE = 2048
+SCAN_TILE = 2048
+EXPAND_MAX_COLS = 16
+
+
+def _check_cols(cols, width: int) -> tuple[int, ...] | None:
+    """`cols` as a tuple of column indices into ``left ++ right``, or None."""
+    if cols is None:
+        return None
+    cols = tuple(int(c) for c in cols)
+    if not 1 <= len(cols) <= EXPAND_MAX_COLS or \
+            any(not 0 <= c < width for c in cols):
+        raise ValueError(f"cols {cols}: 1 to {EXPAND_MAX_COLS} indices into "
+                         f"the {width} columns of left ++ right")
+    return cols
+
+
+def _empty_expand(left: torch.Tensor, right: torch.Tensor, cap: int, cols
                   ) -> tuple[torch.Tensor, torch.Tensor]:
     b = left.shape[0]
-    return (torch.full((b, cap, left.shape[2] + right.shape[2]), INVALID,
-                       dtype=torch.int32, device=left.device),
+    width = left.shape[2] + right.shape[2] if cols is None else len(cols)
+    return (torch.full((b, cap, width), INVALID, dtype=torch.int32,
+                       device=left.device),
             torch.zeros((b, cap), dtype=torch.bool, device=left.device))
 
 
 def expand_rows_host(left: torch.Tensor, right: torch.Tensor,
                      counts: torch.Tensor, lo: torch.Tensor,
-                     perm: torch.Tensor, cap: int
+                     perm: torch.Tensor, cap: int, cols=None
                      ) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain version of `expand_rows`: batched searchsorted + gathers.
     left (B, n_l, wl), right (B, n_r, wr), counts/lo (B, n_l), perm (B, n_r)
-    -> (out (B, cap, wl + wr), valid (B, cap))."""
+    -> (out (B, cap, wl + wr), valid (B, cap)); with `cols`, out is
+    ``where(valid, full[..., cols], -1)`` of that full expansion."""
     b, n_l, wl = left.shape
     n_r, wr = right.shape[1], right.shape[2]
+    cols = _check_cols(cols, wl + wr)
     if n_l == 0 or n_r == 0:
-        return _empty_expand(left, right, cap)
+        return _empty_expand(left, right, cap, cols)
     counts = counts.long()
     off = torch.cumsum(counts, 1) - counts
     t = torch.arange(cap, device=left.device).expand(b, cap).contiguous()
@@ -104,15 +132,20 @@ def expand_rows_host(left: torch.Tensor, right: torch.Tensor,
     out = torch.cat([torch.gather(left, 1, li[..., None].expand(b, cap, wl)),
                      torch.gather(right, 1, ri[..., None].expand(b, cap, wr))],
                     -1)
-    return out, t < counts.sum(1, keepdim=True)
+    valid = t < counts.sum(1, keepdim=True)
+    if cols is None:
+        return out, valid
+    return torch.where(valid[..., None], out[..., list(cols)], INVALID), valid
 
 
 def expand_rows_cuda(left: torch.Tensor, right: torch.Tensor,
                      counts: torch.Tensor, lo: torch.Tensor,
-                     perm: torch.Tensor, cap: int
+                     perm: torch.Tensor, cap: int, cols=None
                      ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Launch csrc/scatter_pack.cu's expansion (scan of counts, then one
-    thread per output slot)."""
+    """Launch csrc/expand_rows.cu: tiled scan of counts, pre-permute of the
+    right columns that the output takes, merge-path partition, one block
+    per merge tile writing its span of output columns, then the slots past
+    the total."""
     left = _build.as_i32(left, "left")
     right = _build.as_i32(right, "right")
     counts = _build.as_i32(counts, "counts")
@@ -120,15 +153,30 @@ def expand_rows_cuda(left: torch.Tensor, right: torch.Tensor,
     perm = _build.as_i32(perm, "perm")
     b, n_l, wl = left.shape
     n_r, wr = right.shape[1], right.shape[2]
+    cols = _check_cols(cols, wl + wr)
     if n_l == 0 or n_r == 0:
-        return _empty_expand(left, right, cap)
+        return _empty_expand(left, right, cap, cols)
+    cmap = tuple(range(wl + wr)) if cols is None else cols
+    rcols = sorted({c - wl for c in cmap if c >= wl})
+    code = [c if c < wl else wl + rcols.index(c - wl) for c in cmap]
+    c_code = (ctypes.c_int * len(code))(*code)
+    c_rcols = (ctypes.c_int * max(len(rcols), 1))(*rcols)
+    n_scan = -(-n_l // SCAN_TILE)
+    n_tiles = max(1, -(-(n_l + cap) // EXPAND_TILE))
     dev = left.device
-    off = torch.empty((b, n_l), dtype=torch.int32, device=dev)
-    total = torch.empty(b, dtype=torch.int32, device=dev)
-    out = torch.empty((b, cap, wl + wr), dtype=torch.int32, device=dev)
+    i32 = dict(dtype=torch.int32, device=dev)
+    tsum = torch.empty((b, n_scan), **i32)
+    off = torch.empty((b, n_l), **i32)
+    total = torch.empty(b, **i32)
+    rsel = torch.empty((b, n_r, len(rcols)), **i32)
+    splits = torch.empty((b, n_tiles + 1), dtype=torch.int64, device=dev)
+    out = torch.empty((b, cap, len(cmap)), **i32)
     valid = torch.empty((b, cap), dtype=torch.bool, device=dev)
     _build.call("expand_rows_launch", left.data_ptr(), right.data_ptr(),
                 counts.data_ptr(), lo.data_ptr(), perm.data_ptr(), b, n_l, wl,
-                n_r, wr, cap, off.data_ptr(), total.data_ptr(),
-                out.data_ptr(), valid.data_ptr(), _build.stream(left))
+                n_r, wr, cap, ctypes.addressof(c_code), len(code),
+                ctypes.addressof(c_rcols), len(rcols), int(cols is not None),
+                n_scan, tsum.data_ptr(), off.data_ptr(), total.data_ptr(),
+                rsel.data_ptr(), n_tiles, splits.data_ptr(), out.data_ptr(),
+                valid.data_ptr(), _build.stream(left))
     return out, valid

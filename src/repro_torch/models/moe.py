@@ -59,6 +59,16 @@ def build_plan(cfg, loads: np.ndarray | None = None) -> MoEDispatchPlan:
     return plan_dispatch(loads, cfg.n_slots())
 
 
+def top_experts(gates: torch.Tensor, k: int
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(weights, int32 expert ids) of the k largest gates of each row, in
+    descending order with ties to the lower expert index, as
+    `jax.lax.top_k`'s.  A stable descending sort gives that order;
+    `torch.topk` documents none (on the CPU it gives the higher index)."""
+    w, i = torch.sort(gates, dim=-1, descending=True, stable=True)
+    return w[..., :k], i[..., :k].to(torch.int32)
+
+
 def moe_ffn(p, cfg, plan: MoEDispatchPlan, x: torch.Tensor, *,
             use_kernels: bool = True) -> tuple[torch.Tensor, dict]:
     """x (B,S,d) -> (x + y (B,S,d), {'aux_loss': (), 'expert_load': (E,)
@@ -74,12 +84,10 @@ def moe_ffn(p, cfg, plan: MoEDispatchPlan, x: torch.Tensor, *,
     dev = x.device
     h = L.rmsnorm(x, p["norm"])                                   # (B,S,d)
 
-    # Router (fp32 for stable softmax); topk's ties go to the lower index,
-    # as jax.lax.top_k's do.
+    # Router (fp32 for stable softmax).
     logits = h.float() @ p["router"].float()
     gates = torch.softmax(logits, dim=-1)                         # (B,S,E)
-    weights, eidx = torch.topk(gates, K, dim=-1, sorted=True)     # (B,S,K)
-    eidx = eidx.to(torch.int32)
+    weights, eidx = top_experts(gates, K)                         # (B,S,K)
     weights = weights / torch.clamp(weights.sum(-1, keepdim=True), min=1e-9)
 
     # Aux load-balancing loss (switch-style) + the on-card load histogram.

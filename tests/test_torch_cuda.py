@@ -23,6 +23,9 @@ from repro_torch.kernels import ops
 from repro_torch.kernels import route_cells as rc
 from repro_torch.kernels import scatter_pack as sp
 from repro_torch.kernels import segment_histogram as sh
+from test_torch_kernels_expand import (EXPAND_CASES, composed_cols,
+                                       expand_inputs, random_probe)
+from test_torch_kernels_expand import rows as expand_rows_of
 
 pytestmark = pytest.mark.cuda
 
@@ -117,6 +120,78 @@ def test_expand_rows_kernel(dev, b, n_l, n_r, cap):
     want = sp.expand_rows_host(left, right, counts, lo, perm, cap)
     _eq(got[0], want[0])
     _eq(got[1], want[1])
+
+
+def _expand_eq(dev, args, cols):
+    """One launch per call; the kernel equal to the plain version."""
+    args = tuple(a.to(dev) if torch.is_tensor(a) else a for a in args)
+    ops.reset_launches()
+    got = ops.expand_rows(*args, cols=cols)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["expand_rows"] == 1
+    want = sp.expand_rows_host(*args, cols=cols)
+    _eq(got[0], want[0])
+    _eq(got[1], want[1])
+
+
+@pytest.mark.parametrize("name", list(EXPAND_CASES))
+def test_expand_rows_fused_kernel(dev, name):
+    """The CPU test's cases (tests/test_torch_kernels_expand.py), with
+    their column map and with none."""
+    args = expand_inputs(name)
+    _expand_eq(dev, args, composed_cols(name))
+    _expand_eq(dev, args, None)
+
+
+def _probe_args(rng, b, n_l, n_r, cap, wl=3, wr=3):
+    counts, lo, perm = random_probe(rng, b, n_l, n_r)
+    return tuple(torch.from_numpy(x) for x in (
+        expand_rows_of(rng, b, n_l, wl), expand_rows_of(rng, b, n_r, wr),
+        counts, lo, perm)) + (cap,)
+
+
+@pytest.mark.parametrize("n_cols", range(1, 8))
+def test_expand_rows_fused_kernel_column_counts(dev, n_cols):
+    """1 to 7 output columns (repeats allowed), B = 8, a cap that is no
+    multiple of the 2,048-item tile, some destinations past it."""
+    rng = np.random.default_rng(n_cols)
+    args = _probe_args(rng, 8, 3000, 2500, 4099)
+    cols = tuple(int(c) for c in rng.integers(0, 6, n_cols))
+    _expand_eq(dev, args, cols)
+    _expand_eq(dev, args, None)
+
+
+def test_expand_rows_fused_kernel_long_window(dev):
+    """One left row's window spans more than 10 tiles (30,000 slots)."""
+    rng = np.random.default_rng(11)
+    n_l, n_r = 50, 30000
+    counts = np.zeros((2, n_l), np.int32)
+    lo = np.zeros((2, n_l), np.int32)
+    counts[:, 7] = n_r
+    counts[:, 9], lo[:, 9] = 100, 5
+    perm = np.stack([rng.permutation(n_r) for _ in range(2)]).astype(np.int32)
+    for cap in (30103, 25000):
+        args = tuple(torch.from_numpy(x) for x in (
+            expand_rows_of(rng, 2, n_l, 2), expand_rows_of(rng, 2, n_r, 3),
+            counts, lo, perm)) + (cap,)
+        _expand_eq(dev, args, (4, 0, 0, 3))
+        _expand_eq(dev, args, None)
+
+
+def test_expand_rows_fused_kernel_zero_count_rows(dev):
+    """2^20 zero-count left rows around a few matches."""
+    rng = np.random.default_rng(12)
+    n_l, n_r = 1 << 20, 64
+    counts = np.zeros((2, n_l), np.int32)
+    lo = rng.integers(0, n_r, (2, n_l)).astype(np.int32)
+    for i in (0, 4097, 300001, n_l - 1):
+        counts[:, i], lo[:, i] = 5, 10
+    perm = np.stack([rng.permutation(n_r) for _ in range(2)]).astype(np.int32)
+    args = tuple(torch.from_numpy(x) for x in (
+        expand_rows_of(rng, 2, n_l, 3), expand_rows_of(rng, 2, n_r, 3),
+        counts, lo, perm)) + (37,)
+    _expand_eq(dev, args, (0, 1, 4))
+    _expand_eq(dev, args, None)
 
 
 @pytest.mark.parametrize("n,recipe", [
@@ -434,3 +509,74 @@ def test_reduced_moe_forward_on_card(dev):
     assert torch.equal(aux["expert_load"], aux_p["expert_load"])
     assert int(aux["expert_load"].sum()) == 3 * 40 * 2 * cfg.n_layers
     assert torch.isfinite(lg).all() and torch.isfinite(lg_p).all()
+
+
+def _f32_mixtral(dev, zero_router=False, **changes):
+    """(cfg, CPU model, card model) of the reduced mixtral in float32 with
+    the same weights on both devices."""
+    import dataclasses
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import api
+    from repro_torch.models.common import init_params
+    cfg = dataclasses.replace(ARCHS["mixtral-8x22b"].reduced(), **changes)
+    tree = init_params(api.layout(cfg), torch.Generator().manual_seed(0),
+                       device="cpu", dtype=torch.float32)
+    if zero_router:
+        tree["blocks"]["moe"]["router"].zero_()
+
+    def to_card(t):
+        return t.to(dev) if torch.is_tensor(t) else {k: to_card(v)
+                                                     for k, v in t.items()}
+    return cfg, api.build(cfg, tree), api.build(cfg, to_card(tree))
+
+
+@pytest.mark.parametrize("zero_router", [False, True],
+                         ids=["random_router", "zeroed_router"])
+def test_reduced_moe_f32_on_card_equals_its_cpu_run(dev, zero_router):
+    """Float32 on the card against the port's CPU run (which the CPU tests
+    hold equal to JAX): expert loads, dropped tokens and greedy tokens.  A
+    zeroed router ties every gate: the card must pick experts 0 and 1."""
+    from repro_torch.models import api, moe
+    cfg, cpu, card = _f32_mixtral(dev, zero_router)
+    toks = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab, (3, 40)))
+    lg, aux = api.forward(cpu, cfg, {"tokens": toks})
+    lg_c, aux_c = api.forward(card, cfg, {"tokens": toks.to(dev)})
+    _eq(aux_c["expert_load"], aux["expert_load"])
+    _eq(lg_c.argmax(-1), lg.argmax(-1))
+    x = torch.from_numpy(np.random.default_rng(2).standard_normal(
+        (2, 64, cfg.d_model)).astype(np.float32))
+    plan = moe.build_plan(cfg)
+    _, st = moe.moe_ffn(cpu.blocks[0].moe, cfg, plan, x)
+    _, st_c = moe.moe_ffn(card.blocks[0].moe, cfg, plan, x.to(dev))
+    _eq(st_c["expert_load"], st["expert_load"])
+    assert int(st_c["dropped_tokens"]) == int(st["dropped_tokens"])
+    if zero_router:
+        assert st_c["expert_load"][:2].tolist() == [128, 128]
+        assert int(aux_c["expert_load"][2:].sum()) == 0
+
+
+def test_reduced_moe_f32_decode_across_a_window_on_card(dev):
+    """Prefill 3 tokens, then 6 greedy decode steps past a sliding window of
+    4 on the card: the same greedy tokens as the CPU run."""
+    from repro_torch.models import api
+    cfg, cpu, card = _f32_mixtral(dev, sliding_window=4)
+    B, S, Smax = 2, 3, 12
+    toks = torch.from_numpy(np.random.default_rng(2).integers(
+        0, cfg.vocab, (B, S)).astype(np.int32))
+    cache = api.init_cache(cfg, B, Smax, torch.float32, device="cpu")
+    cache_c = api.init_cache(cfg, B, Smax, torch.float32, device=dev)
+    lg, cache = api.prefill(cpu, cfg, {"tokens": toks}, cache)
+    lg_c, cache_c = api.prefill(card, cfg, {"tokens": toks.to(dev)}, cache_c)
+    nxt = lg[:, -1].argmax(-1).to(torch.int32)
+    _eq(lg_c[:, -1].argmax(-1).to(torch.int32), nxt)
+    for step in range(6):
+        pos = torch.full((B,), S + step, dtype=torch.int32)
+        lg, cache = api.decode_step(cpu, cfg, cache, {"tokens": nxt[:, None]},
+                                    pos)
+        lg_c, cache_c = api.decode_step(card, cfg, cache_c,
+                                        {"tokens": nxt[:, None].to(dev)},
+                                        pos.to(dev))
+        nxt = lg[:, -1].argmax(-1).to(torch.int32)
+        _eq(lg_c[:, -1].argmax(-1).to(torch.int32), nxt)
+    assert S + 5 >= cfg.sliding_window + 4

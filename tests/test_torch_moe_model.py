@@ -269,12 +269,56 @@ def test_moe_ffn(carried, skew):
     # The slots: the same expert ids route to the same slots.
     h = L.rmsnorm(torch.from_numpy(x), tp["norm"])
     gates = torch.softmax(h @ tp["router"], dim=-1)
-    eidx = torch.topk(gates, cfg.topk, dim=-1).indices.to(torch.int32)
+    _, eidx = moe.top_experts(gates, cfg.topk)
     jeidx = _jax_route({"blocks": {"moe": jax.tree.map(lambda a: a[None],
                                                        jp)}}, 0, x, jcfg)
     np.testing.assert_array_equal(eidx.numpy(), jeidx)
     pos_ids = np.broadcast_to(np.arange(S, dtype=np.int32)[None, :, None],
                               (B, S, cfg.topk)).reshape(-1)
+    from repro.core.moe_shares import route_tokens as jroute
+    np.testing.assert_array_equal(
+        route_tokens(plan, eidx.reshape(-1), torch.from_numpy(pos_ids.copy())
+                     ).numpy(),
+        np.asarray(jroute(jplan, jnp.asarray(jeidx.reshape(-1)),
+                          jnp.asarray(pos_ids))))
+
+
+@pytest.mark.parametrize("ties", ["zeroed_router", "two_equal_columns"])
+def test_moe_ffn_router_ties_go_to_the_lower_expert(carried, ties):
+    """Tied gates pick the lower expert index, as jax.lax.top_k does: a
+    zeroed router ties every gate (all tokens to experts 0 and 1); two
+    equal router columns (experts 2 and 5) tie only those gates."""
+    jparams, _, cfg = carried
+    jcfg, _ = _cfgs()
+    x = _rand(np.random.default_rng(0), 2, 64, 128)
+    jp = jax.tree.map(lambda a: np.array(a[0]), jparams["blocks"]["moe"])
+    if ties == "zeroed_router":
+        jp["router"][:] = 0
+    else:
+        jp["router"][:, 5] = jp["router"][:, 2]
+    jp = jax.tree.map(jnp.asarray, jp)
+    tp = moe.MoEFFN(cfg, {k: torch.from_numpy(np.asarray(v))
+                          for k, v in jp.items()})
+    plan, jplan = moe.build_plan(cfg), jmoe.build_plan(jcfg)
+    want_y, want = jmoe.moe_ffn(jp, jcfg, jplan, jnp.asarray(x))
+    got_y, got = tp(torch.from_numpy(x), plan)
+    np.testing.assert_array_equal(got["expert_load"].numpy(),
+                                  np.asarray(want["expert_load"]))
+    assert int(got["dropped_tokens"]) == int(want["dropped_tokens"])
+    _close(got_y, want_y, MODULE_TOL)
+    h = L.rmsnorm(torch.from_numpy(x), tp["norm"])
+    _, eidx = moe.top_experts(torch.softmax(h @ tp["router"], dim=-1),
+                              cfg.topk)
+    jeidx = _jax_route({"blocks": {"moe": jax.tree.map(lambda a: a[None],
+                                                       jp)}}, 0, x, jcfg)
+    np.testing.assert_array_equal(eidx.numpy(), jeidx)
+    if ties == "zeroed_router":
+        assert (jeidx == np.array([0, 1])).all()
+    else:
+        has2, has5 = (jeidx == 2).any(-1), (jeidx == 5).any(-1)
+        assert not (has5 & ~has2).any() and (has2 & ~has5).any()
+    pos_ids = np.broadcast_to(np.arange(64, dtype=np.int32)[None, :, None],
+                              (2, 64, cfg.topk)).reshape(-1)
     from repro.core.moe_shares import route_tokens as jroute
     np.testing.assert_array_equal(
         route_tokens(plan, eidx.reshape(-1), torch.from_numpy(pos_ids.copy())
