@@ -23,7 +23,9 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      step's columns (the step's column selection, -1 fill and attribute
      order written by the kernel), and beside it with cols=None (the full
      (B, cap, wl + wr) expansion of the reference kernel), each with its
-     own bound and its device time;
+     own bound and its device time; build_table is recorded with its
+     device time, and beside it on the cell's right side with every valid
+     row given one heavy-hitter row's keys (one bucket a destination);
   4c. the kernel library (the executor does not call it) on that cell's
      data, launch counts zeroed just before and read just after: map_pack
      on R's and S's (8, 2^18, 2) shards, `torch.equal` to scatter_pack,
@@ -135,6 +137,9 @@ KERNEL_SITES = {
                           "src/repro/kernels/segment_histogram.py:36",
                           MOE_SERVE),
 }
+# The CUDA kernels of build_table (csrc/join_probe.cu), named in the fused +
+# hash profile wherever they rank.
+BUILD_KERNELS = ("digit_tile_kernel", "tile_carry_kernel")
 # Phase 7: mixtral-8x22b at its published widths, depth cut to 4 layers;
 # weights bf16 from a seeded generator on the card.
 MOE = dict(arch="mixtral-8x22b", n_layers=4, seed=0, prefill_batch=4,
@@ -260,9 +265,10 @@ def out_capacity_from_fragments(frag_l, frag_r, lcols, rcols, quantize):
 
 
 def profile_calls(fn, label: str, calls: int = 1, top: int = 12,
-                  tag: str = "profile") -> None:
+                  tag: str = "profile", named: tuple[str, ...] = ()) -> None:
     """Where `calls` warm calls of `fn` spend device time: torch.profiler's
-    per-kernel sums, and the device-busy share of their wall time."""
+    per-kernel sums, and the device-busy share of their wall time; then
+    every kernel whose name holds one of `named`, in the top or not."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -286,6 +292,10 @@ def profile_calls(fn, label: str, calls: int = 1, top: int = 12,
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:top]:
         print(f"[{tag}]   {e.self_device_time_total / 1e3:9.3f} ms "
               f"x{e.count:<4d} {e.key[:90]}")
+    for e in events:
+        if any(name in e.key for name in named):
+            print(f"[{tag}]   named: {e.self_device_time_total / 1e3:9.3f} ms "
+                  f"x{e.count:<4d} {e.key[:90]}")
 
 
 def expected_launches(ex, fields) -> dict[str, int]:
@@ -420,7 +430,7 @@ def full_cell(dev):
 
     print(f"[cell] prepare {t_prepare * 1e3:.1f} ms")
     warm_batches(ex, s, "cell", exact)
-    profile_calls(s.run_batch, "warm run_batch")
+    profile_calls(s.run_batch, "warm run_batch", named=BUILD_KERNELS)
 
     # The same step on the plain versions, on the card.
     out_k, valid_k = res.tensors[0], res.tensors[1]
@@ -524,11 +534,28 @@ def kernel_checks(cell):
     (bl,) = record(out, "join_hash", jp.join_hash_cuda, jp.join_hash_host,
                    (lk, lv, bits), lv.numel() + n_lv * w_key * 4
                    + lv.numel() * 4, n_lv * (2 * w_key + 1), 20)
+    build_bytes = (rv.numel() + n_rv * w_key * 4 + 2 * rv.numel() * 4
+                   + n_dev * (1 << bits) * 4)
+    build_ops = n_rv * (2 * w_key + 1) + rv.numel()
     br, rank, hist = record(out, "build_table", jp.build_table_cuda,
-                            jp.build_table_host, (rk, rv, bits),
-                            rv.numel() + n_rv * w_key * 4
-                            + 2 * rv.numel() * 4 + n_dev * (1 << bits) * 4,
-                            n_rv * (2 * w_key + 1) + rv.numel(), 10)
+                            jp.build_table_host, (rk, rv, bits), build_bytes,
+                            build_ops, 10)
+    # The heavy hitter's shape: every valid row of a destination carries
+    # the keys of one B = 0 row, so all of them land in one bucket.  Same
+    # bytes and operations as the cell's input.
+    hh_rows = rv & (rk[..., 0] == 0)
+    check(bool(hh_rows.any()), "build_table: no heavy-hitter row on the right")
+    rk_one = torch.where(rv[..., None], rk[hh_rows][0], rk).contiguous()
+    one = {}
+    record(one, "build_table", jp.build_table_cuda, jp.build_table_host,
+           (rk_one, rv, bits), build_bytes, build_ops, 10)
+    for dst, keys, label in ((out, rk, "cell"), (one, rk_one, "one bucket")):
+        dst["build_table"]["device_ms"] = device_ms(
+            lambda keys=keys: jp.build_table_cuda(keys, rv, bits), 10)
+        print(f"[kernel] build_table {label}: device "
+              f"{dst['build_table']['device_ms']:.4f} ms")
+    out["build_table"]["one_bucket"] = one["build_table"]
+    del rk_one, one, hh_rows
     counts, lo, perm = jp.probe_tables(lk, bl, rk, br, rank, hist, bits)
     cap_out = cell["cap_out"]
     del frags, bl, br, rank, hist, lk, rk

@@ -58,7 +58,7 @@ __device__ __forceinline__ unsigned lanemask_lt() {
   return m;
 }
 
-// The stable-rank tile walk of scatter_pack, build_table and bucket_pack.
+// The stable-rank tile walk of scatter_pack, map_pack and bucket_pack.
 // One warp walks items [i0, i1) of its tile in order, 32 at a time, with
 // one counter per bin (`counter(d)` is a reference to bin d's).  bin(i) is
 // item i's bin, or -1 for an item that counts nowhere.  Count pass

@@ -21,7 +21,7 @@
 //   3. the warp walks its tile again in order: rank = base + earlier equal
 //      lanes (__popc(match & lanemask_lt)), counters advance per chunk
 //      (pack_tile_kernel, rank_pass = 1).  Both walks are common.cuh's
-//      warp_tile_walk, shared with build_table and bucket_pack.
+//      warp_tile_walk, shared with map_pack and bucket_pack.
 // Ranks are exactly the reference's, so overflow drops the same copies.
 #include "common.cuh"
 

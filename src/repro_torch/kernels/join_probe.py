@@ -14,8 +14,12 @@ land in the sentinel bucket P = 2^n_bits.
 
 `join_hash_host` / `build_table_host` are the plain versions (int64 masked
 arithmetic, one stable sort for the rank); `*_cuda` launch
-csrc/join_probe.cu.  `probe_tables` / `_chain_probe` are torch ops on every
-device, as the reference leaves them to XLA.
+csrc/join_probe.cu.  The CUDA build ranks the buckets digit by digit, low
+digit first (digits of at most MAX_DIGIT_BITS bits, counters in shared
+memory, tiles of RANK_TILE_ROWS rows), so its scratch grows with B·n and
+not with the table size; it takes 1 ≤ n_bits ≤ MAX_BUILD_BITS.
+`probe_tables` / `_chain_probe` are torch ops on every device, as the
+reference leaves them to XLA.
 """
 from __future__ import annotations
 
@@ -28,10 +32,13 @@ from .map_pack import stable_rank
 MAX_BITS = 16             # default table-size cap (2^16 buckets)
 _SEED0 = 0x9E3779B1
 _SEED_STEP = 0x85EBCA77
-# build_table keeps per-tile bucket histograms in device memory: at most
-# this many int32 words, and tiles of at least BUILD_TILE_ROWS rows.
-TILE_HIST_WORDS = 1 << 26
-BUILD_TILE_ROWS = 1024
+# The CUDA build: rows a block ranks (csrc/join_probe.cu's DIGIT_TILE;
+# 2,048 blocks at 8 x 2^20 rows), the widest digit (2^10 + 1 counters a
+# warp in shared memory) and the widest table (three digits; P + 1 stays
+# an int32).
+RANK_TILE_ROWS = 4096
+MAX_DIGIT_BITS = 10
+MAX_BUILD_BITS = 30
 
 
 def col_seeds(w: int) -> tuple[int, ...]:
@@ -87,20 +94,29 @@ def join_hash_cuda(keys: torch.Tensor, valid: torch.Tensor, n_bits: int
     return out
 
 
-def build_tiles(b: int, n: int, n_bits: int) -> tuple[int, int]:
-    """(tile_rows, n_tiles) of the build's per-tile histograms: tiles of at
-    least BUILD_TILE_ROWS rows, (B, P+1, n_tiles) within TILE_HIST_WORDS."""
-    if n == 0:
-        return 1, 1
-    max_tiles = max(1, TILE_HIST_WORDS // (max(b, 1) * ((1 << n_bits) + 1)))
-    n_tiles = max(1, min(-(-n // BUILD_TILE_ROWS), max_tiles))
-    tile_rows = -(-n // n_tiles)
-    return tile_rows, -(-n // tile_rows)
+def build_digits(n_bits: int) -> tuple[int, int]:
+    """(digit passes, bits of every digit but the top one) of the CUDA
+    build: as few passes of at most MAX_DIGIT_BITS bits as cover n_bits,
+    split evenly.  Raises `KernelError` outside 1..MAX_BUILD_BITS."""
+    if not 1 <= n_bits <= MAX_BUILD_BITS:
+        raise _build.KernelError(
+            f"build_table: n_bits {n_bits} outside the CUDA build's range "
+            f"1..{MAX_BUILD_BITS}")
+    passes = -(-n_bits // MAX_DIGIT_BITS)
+    return passes, -(-n_bits // passes)
 
 
 def build_table_cuda(keys: torch.Tensor, valid: torch.Tensor, n_bits: int
                      ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Launch csrc/join_probe.cu's build (tile counts, scan, tile ranks)."""
+    """Launch csrc/join_probe.cu's build: per digit pass, a block counts
+    its tile's digits in shared memory, scans run over tiles and digits,
+    and the block ranks its tile (one digit) or writes its (bucket, row)
+    pairs in stable digit order; the last of two or more digits sorts each
+    tile by bucket in shared memory and writes ranks and histogram, with a
+    carry over tiles for buckets that began in earlier tiles.  Scratch:
+    (B, 2^digit + 1, tiles) counts and two (B, n) buffers a digit but the
+    last (at most four)."""
+    passes, digit_bits = build_digits(n_bits)
     keys = _build.as_i32(keys, "keys")
     valid = _build.as_bool(valid, "valid")
     b, n, w = keys.shape
@@ -109,15 +125,26 @@ def build_table_cuda(keys: torch.Tensor, valid: torch.Tensor, n_bits: int
     if b * n == 0:
         z = torch.empty((b, n), dtype=torch.int32, device=dev)
         return z, z.clone(), torch.zeros((b, p), dtype=torch.int32, device=dev)
-    tile_rows, n_tiles = build_tiles(b, n, n_bits)
-    th = torch.empty((b, p + 1, n_tiles), dtype=torch.int32, device=dev)
+    if n > (1 << 31) - RANK_TILE_ROWS:
+        raise _build.KernelError(f"build_table: {n} rows a batch, past int32")
+    n_tiles = -(-n // RANK_TILE_ROWS)
+    nb = (1 << digit_bits) + 1              # the most bins a digit has
+    th = torch.empty(b * nb * n_tiles, dtype=torch.int32, device=dev)
+    tot = torch.empty(b * nb, dtype=torch.int32, device=dev)
+    # (key, row) pairs after every digit but the last: none for one digit,
+    # one pair for two digits, a ping-pong pair of them for three.
+    n_pairs = 2 * min(passes - 1, 2)
+    pairs = torch.empty((n_pairs, b, n), dtype=torch.int32, device=dev)
+    pair_ptrs = [x.data_ptr() for x in pairs] + [0] * (4 - n_pairs)
     bkt = torch.empty((b, n), dtype=torch.int32, device=dev)
     rank = torch.empty((b, n), dtype=torch.int32, device=dev)
-    hist = torch.empty((b, p), dtype=torch.int32, device=dev)
+    tab = torch.empty((b, p + 1), dtype=torch.int32, device=dev)
     _build.call("build_table_launch", keys.data_ptr(), valid.data_ptr(), b, n,
-                w, n_bits, tile_rows, n_tiles, th.data_ptr(), bkt.data_ptr(),
-                rank.data_ptr(), hist.data_ptr(), _build.stream(keys))
-    return bkt, rank, hist
+                w, n_bits, digit_bits, n_tiles, th.data_ptr(),
+                tot.data_ptr(), *pair_ptrs,
+                bkt.data_ptr(), rank.data_ptr(), tab.data_ptr(),
+                _build.stream(keys))
+    return bkt, rank, tab[:, :p]
 
 
 # ---------------------------------------------------------------------------

@@ -23,6 +23,7 @@ from repro_torch.kernels import ops
 from repro_torch.kernels import route_cells as rc
 from repro_torch.kernels import scatter_pack as sp
 from repro_torch.kernels import segment_histogram as sh
+from repro_torch.kernels._build import KernelError
 from test_torch_kernels_expand import (EXPAND_CASES, composed_cols,
                                        expand_inputs, random_probe)
 from test_torch_kernels_expand import rows as expand_rows_of
@@ -88,13 +89,52 @@ def test_scatter_pack_kernel(dev, k, n_loc, cap):
         _eq(over, over_h)
 
 
-@pytest.mark.parametrize("b,n,w,bits", [(1, 0, 2, 4), (3, 1000, 2, 1),
-                                        (8, 5000, 3, 5), (2, 70000, 2, 16)])
-def test_hash_and_build_kernels(dev, b, n, w, bits):
+def _build_case(b, n, w, bits, recipe="few", id_=None):
+    return pytest.param(b, n, w, bits, recipe, id=id_ or
+                        f"{b}-{n}-{w}-{bits}-{recipe}")
+
+
+@pytest.mark.parametrize("b,n,w,bits,recipe", [
+    _build_case(1, 0, 2, 4, id_="1-0-2-4"),
+    _build_case(3, 1000, 2, 1, id_="3-1000-2-1"),
+    _build_case(8, 5000, 3, 5, id_="8-5000-3-5"),
+    _build_case(2, 70000, 2, 16, id_="2-70000-2-16"),
+    # build_table's digit passes (digits of at most 10 bits): one digit
+    # (8, 9, 10 bits), just over one (11), the cell's 16, two full digits
+    # (20), three digits (21, and 30, the widest)
+    _build_case(4, 3000, 2, 8, "wide"), _build_case(4, 3000, 2, 9, "wide"),
+    _build_case(4, 3000, 2, 10, "wide"), _build_case(4, 3000, 2, 11, "wide"),
+    _build_case(2, 70000, 2, 16, "wide"), _build_case(2, 50000, 2, 20, "wide"),
+    _build_case(2, 9000, 2, 21, "wide"), _build_case(1, 5000, 2, 30, "wide"),
+    # the heavy hitter's shape: every valid row in one bucket, > 65,536 rows
+    _build_case(2, 70000, 2, 16, "one_bucket"),
+    _build_case(2, 70000, 2, 8, "one_bucket"),
+    # only the sentinel
+    _build_case(3, 5000, 2, 16, "invalid"), _build_case(3, 5000, 2, 8, "invalid"),
+    # n = 1, n no multiple of the 2,048-row tile, B = 8 with w = 3
+    _build_case(3, 1, 2, 16, "wide"), _build_case(3, 1, 2, 6, "wide"),
+    _build_case(2, 4097, 2, 12, "wide"), _build_case(8, 20000, 3, 16, "wide"),
+    # the full-size cell's scale: 8 destinations of 2^20 rows at 16 bits
+    _build_case(8, 1 << 20, 2, 16, "wide"),
+    # past the CUDA build's 30 bits: KernelError
+    _build_case(2, 100, 2, 31, "wide")])
+def test_hash_and_build_kernels(dev, b, n, w, bits, recipe):
+    """join_hash and build_table against their plain versions; keys "few"
+    (31 values a column, 20 % invalid), "wide" (30-bit values),
+    "one_bucket" (every row one key) or "invalid" (no valid row)."""
     rng = np.random.default_rng(n + bits)
-    keys = torch.from_numpy(rng.integers(-1, 30, size=(b, n, w))
-                            .astype(np.int32)).to(dev)
-    valid = torch.from_numpy(rng.random((b, n)) > 0.2).to(dev)
+    high = 1 << 30 if recipe == "wide" else 30
+    k = rng.integers(-1, high, size=(b, n, w)).astype(np.int32)
+    v = rng.random((b, n)) > 0.2
+    if recipe == "one_bucket":
+        k[:] = k[0, 0]
+    if recipe == "invalid":
+        v[:] = False
+    keys, valid = torch.from_numpy(k).to(dev), torch.from_numpy(v).to(dev)
+    if bits > jp.MAX_BUILD_BITS:
+        with pytest.raises(KernelError, match="n_bits 31"):
+            ops.build_table(keys, valid, bits)
+        return
     _eq(ops.join_hash(keys, valid, bits), jp.join_hash_host(keys, valid, bits))
     for got, want in zip(ops.build_table(keys, valid, bits),
                          jp.build_table_host(keys, valid, bits)):

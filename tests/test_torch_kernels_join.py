@@ -17,6 +17,7 @@ from repro.kernels import ref as jref
 from repro.kernels import scatter_pack as jsp
 from repro_torch.kernels import join_probe as tjp
 from repro_torch.kernels import ref as tref
+from repro_torch.kernels._build import KernelError
 from repro_torch.kernels import scatter_pack as tsp
 
 
@@ -30,12 +31,27 @@ def _keys(rng, b, n, w, domain, invalid_frac=0.2):
     return keys, valid
 
 
-@pytest.mark.parametrize("n,w,bits", [(0, 2, 3), (37, 1, 1), (200, 2, 2),
-                                      (300, 3, 7), (500, 2, 12)])
-def test_join_hash_and_build_table_match_jax(n, w, bits):
+def _case(n, w, bits, recipe="few", id_=None):
+    return pytest.param(n, w, bits, recipe,
+                        id=id_ or f"{n}-{w}-{bits}-{recipe}")
+
+
+@pytest.mark.parametrize("n,w,bits,recipe", [
+    _case(0, 2, 3, id_="0-2-3"), _case(37, 1, 1, id_="37-1-1"),
+    _case(200, 2, 2, id_="200-2-2"), _case(300, 3, 7, id_="300-3-7"),
+    _case(500, 2, 12, id_="500-2-12"),
+    # the shapes the card tests give the CUDA build: every valid row in one
+    # bucket (the heavy hitter's), and only the sentinel
+    _case(300, 2, 7, "one_bucket"), _case(500, 2, 12, "one_bucket"),
+    _case(300, 3, 7, "invalid"), _case(500, 2, 12, "invalid")])
+def test_join_hash_and_build_table_match_jax(n, w, bits, recipe):
     rng = np.random.default_rng(n + bits)
     keys, valid = _keys(rng, 2, n, w, 30)
     valid[1, : n // 3] = False
+    if recipe == "one_bucket":
+        keys[:] = keys[0, 0]
+    if recipe == "invalid":
+        valid[:] = False
     tk, tv = torch.from_numpy(keys), torch.from_numpy(valid)
     t_hash = tjp.join_hash_host(tk, tv, bits)
     t_bkt, t_rank, t_hist = tjp.build_table_host(tk, tv, bits)
@@ -51,6 +67,22 @@ def test_join_hash_and_build_table_match_jax(n, w, bits):
         for got, want in zip((t_bkt[b], t_rank[b], t_hist[b]),
                              tref.build_table_ref(tk[b], tv[b], bits)):
             np.testing.assert_array_equal(got.numpy(), want.numpy())
+
+
+@pytest.mark.parametrize("n_bits", [1, 8, 10, 11, 16, 20, 21, 30])
+def test_build_digits_cover_the_bucket_in_fewest_passes(n_bits):
+    """The CUDA build's digit plan: as few digits of at most MAX_DIGIT_BITS
+    bits as cover n_bits, the top digit keeping 1 to digit_bits of them."""
+    passes, digit_bits = tjp.build_digits(n_bits)
+    assert passes == -(-n_bits // tjp.MAX_DIGIT_BITS)
+    assert 1 <= digit_bits <= tjp.MAX_DIGIT_BITS
+    assert 1 <= n_bits - (passes - 1) * digit_bits <= digit_bits
+
+
+@pytest.mark.parametrize("n_bits", [0, 31])
+def test_build_digits_refuse_bits_past_the_range(n_bits):
+    with pytest.raises(KernelError, match=f"n_bits {n_bits}"):
+        tjp.build_digits(n_bits)
 
 
 @pytest.mark.parametrize("multi_pass", [False, True])
