@@ -15,6 +15,8 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      and read just after.  Requires zero overflow, the exact join size
      Σ_v c_R(v)·c_S(v), rows equal to the same step on the plain versions
      (`use_kernels=False`) on the card, and no new step on a second batch;
+     a profile of a warm batch that must name build_table's and
+     scatter_pack's kernels;
   4. every kernel against its plain version on the card at the shapes of
      that run, bit for bit, with kernel, plain and bound times; the bound
      counts what this run's data needs (valid rows only, matched rows only
@@ -26,6 +28,10 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      own bound and its device time; build_table is recorded with its
      device time, and beside it on the cell's right side with every valid
      row given one heavy-hitter row's keys (one bucket a destination);
+     scatter_pack is recorded on R (the entry) and S with their device
+     times (each of its kernels' share printed), and on R with every
+     member copy on one device (a placement table of zeros) at a cap that
+     holds them all and at the cell's cap, which must overflow;
   4c. the kernel library (the executor does not call it) on that cell's
      data, launch counts zeroed just before and read just after: map_pack
      on R's and S's (8, 2^18, 2) shards, `torch.equal` to scatter_pack,
@@ -137,9 +143,12 @@ KERNEL_SITES = {
                           "src/repro/kernels/segment_histogram.py:36",
                           MOE_SERVE),
 }
-# The CUDA kernels of build_table (csrc/join_probe.cu), named in the fused +
-# hash profile wherever they rank.
+# The CUDA kernels of build_table (csrc/join_probe.cu) and scatter_pack
+# (csrc/scatter_pack.cu), named in the fused + hash profile wherever they
+# rank; each must appear there.
 BUILD_KERNELS = ("digit_tile_kernel", "tile_carry_kernel")
+SCATTER_KERNELS = ("scatter_count_kernel", "scatter_rank_kernel",
+                   "scatter_fill_kernel")
 # Phase 7: mixtral-8x22b at its published widths, depth cut to 4 layers;
 # weights bf16 from a seeded generator on the card.
 MOE = dict(arch="mixtral-8x22b", n_layers=4, seed=0, prefill_batch=4,
@@ -228,22 +237,35 @@ def time_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters: int = 20) -> float:
+def device_ms(fn, iters: int = 20, split: str = "") -> float:
     """Device time per call of `fn`: torch.profiler's sum of the CUDA
     kernels and memsets of `iters` calls after one warm-up.  Unlike
     `time_ms` it does not count the card waiting for the host, which sets
-    the floor of a call that takes microseconds on the card."""
+    the floor of a call that takes microseconds on the card.  With `split`
+    (a label), each kernel's device time per call is printed too.  A trace
+    that holds no device event (the profiler can drop one) is taken again,
+    up to three times in all, and then fails."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    busy_us = sum(e.self_device_time_total for e in prof.key_averages()
-                  if "CUDA" in str(getattr(e, "device_type", "")))
-    return busy_us / 1e3 / iters
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if "CUDA" in str(getattr(e, "device_type", ""))
+                  and e.self_device_time_total > 0]
+        if events:
+            break
+    check(bool(events), "device_ms: three traces held no device event")
+    if split:
+        for e in sorted(events, key=lambda e: -e.self_device_time_total):
+            per_call = e.self_device_time_total / 1e3 / iters
+            print(f"[kernel] {split}: {per_call:.4f} ms a call, "
+                  f"{e.key[:70]}")
+    return sum(e.self_device_time_total for e in events) / 1e3 / iters
 
 
 def out_capacity_from_fragments(frag_l, frag_r, lcols, rcols, quantize):
@@ -265,10 +287,12 @@ def out_capacity_from_fragments(frag_l, frag_r, lcols, rcols, quantize):
 
 
 def profile_calls(fn, label: str, calls: int = 1, top: int = 12,
-                  tag: str = "profile", named: tuple[str, ...] = ()) -> None:
+                  tag: str = "profile", named: tuple[str, ...] = ()
+                  ) -> set[str]:
     """Where `calls` warm calls of `fn` spend device time: torch.profiler's
     per-kernel sums, and the device-busy share of their wall time; then
-    every kernel whose name holds one of `named`, in the top or not."""
+    every kernel whose name holds one of `named`, in the top or not.
+    Returns the names of `named` that some kernel's name holds."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -285,17 +309,21 @@ def profile_calls(fn, label: str, calls: int = 1, top: int = 12,
     busy_us = sum(e.self_device_time_total for e in events)
     if not events or busy_us <= 0:
         print(f"[{tag}] device time not measured (no CUDA events)")
-        return
+        return set()
     print(f"[{tag}] {label}: wall {wall_us / 1e3:.2f} ms, device "
           f"busy {busy_us / 1e3:.2f} ms ({100 * busy_us / wall_us:.1f} %), "
           f"idle share {100 * (1 - busy_us / wall_us):.1f} %")
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:top]:
         print(f"[{tag}]   {e.self_device_time_total / 1e3:9.3f} ms "
               f"x{e.count:<4d} {e.key[:90]}")
+    found = set()
     for e in events:
-        if any(name in e.key for name in named):
+        hits = {name for name in named if name in e.key}
+        if hits:
+            found |= hits
             print(f"[{tag}]   named: {e.self_device_time_total / 1e3:9.3f} ms "
                   f"x{e.count:<4d} {e.key[:90]}")
+    return found
 
 
 def expected_launches(ex, fields) -> dict[str, int]:
@@ -430,7 +458,11 @@ def full_cell(dev):
 
     print(f"[cell] prepare {t_prepare * 1e3:.1f} ms")
     warm_batches(ex, s, "cell", exact)
-    profile_calls(s.run_batch, "warm run_batch", named=BUILD_KERNELS)
+    named = profile_calls(s.run_batch, "warm run_batch",
+                          named=BUILD_KERNELS + SCATTER_KERNELS)
+    check(named == set(BUILD_KERNELS + SCATTER_KERNELS),
+          f"kernels missing from the warm batch's profile: "
+          f"{set(BUILD_KERNELS + SCATTER_KERNELS) - named}")
 
     # The same step on the plain versions, on the card.
     out_k, valid_k = res.tensors[0], res.tensors[1]
@@ -506,18 +538,47 @@ def kernel_checks(cell):
         record(out, "map_count", mp.map_count_cuda, mp.map_count_host,
                (rows, spec, k, n_dev), r_bytes + n_dev * k * 4,
                r_ops + members, 10)
-    frags = {}
+    # scatter_pack's entry is R's, with S's and R's on one device (every
+    # member copy through a placement table of zeros, at a cap that holds
+    # them all and at the cell's cap, which overflows) beside it; each with
+    # its device time.
+    frags, packs = {}, {}
+
+    def pack(label, rows3, spec, ptable, cap):
+        r_bytes, r_ops, members = route_work(rows3, spec, k)
+        dst = {}
+        buf, over = record(dst, "scatter_pack", sp.scatter_pack_cuda,
+                           sp.scatter_pack_host,
+                           (rows3, spec, ptable, k, n_dev, cap),
+                           r_bytes + nbytes(ptable) + 4 * n_dev
+                           + n_dev * n_dev * cap * (rows3.shape[2] + 1) * 4,
+                           r_ops + members, 10)
+        rec = packs[label] = dst["scatter_pack"]
+        rec["device_ms"] = device_ms(lambda: sp.scatter_pack_cuda(
+            rows3, spec, ptable, k, n_dev, cap), 10,
+            split=f"scatter_pack {label}")
+        print(f"[kernel] scatter_pack {label}: device {rec['device_ms']:.4f} "
+              f"ms, cap {cap}, overflow {int(over.sum())}")
+        return buf, over
+
     for name, rows, spec in (("S", rows_s, spec_s), ("R", rows_r, spec_r)):
         rows3 = rows.view(n_dev, -1, rows.shape[1])
-        cap = s.caps[name]
-        r_bytes, r_ops, members = route_work(rows, spec, k)
-        buf, _ = record(out, "scatter_pack", sp.scatter_pack_cuda,
-                        sp.scatter_pack_host,
-                        (rows3, spec, s._ptable, k, n_dev, cap),
-                        r_bytes + nbytes(s._ptable) + 4 * n_dev
-                        + n_dev * n_dev * cap * (rows.shape[1] + 1) * 4,
-                        r_ops + members, 10)
+        buf, _ = pack(name, rows3, spec, s._ptable, s.caps[name])
         frags[name] = exchange(buf)
+    rows3 = rows_r.view(n_dev, -1, rows_r.shape[1])
+    zeros = torch.zeros_like(s._ptable)
+    per_src = int(mp._route_block(rows3, spec_r, k)[1].sum((1, 2)).max())
+    check(per_src > s.caps["R"], "scatter_pack: the cell's cap holds R's "
+          "copies on one device")
+    _, over = pack("R one device, cap fits", rows3, spec_r, zeros, per_src)
+    check(int(over.sum()) == 0, "scatter_pack one device: overflow at a cap "
+          "that fits")
+    _, over = pack("R one device, cap overflows", rows3, spec_r, zeros,
+                   s.caps["R"])
+    check(int(over.sum()) > 0, "scatter_pack one device: no overflow")
+    out["scatter_pack"] = dict(packs["R"], S=packs["S"], one_device={
+        "fits": packs["R one device, cap fits"],
+        "overflow": packs["R one device, cap overflows"]})
     acc, right = frags["R"], frags["S"]
     lcols, rcols = shared_columns(["A", "B", "__cell__"],
                                   ["B", "C", "__cell__"])

@@ -32,8 +32,8 @@ P, LL, I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 # argtypes of every C entry point (pointers and the stream as c_void_p).
 SIGNATURES = {
     "map_count_launch": [P, LL, I, P, I, I, I, LL, P, P],
-    "scatter_pack_launch": [P, I, LL, I, P, I, P, I, I, I, LL, LL, P, P, P, P,
-                            P],
+    "scatter_pack_launch": [P, I, LL, I, P, I, I, P, I, I, I, I, LL, P, P, P,
+                            P, P],
     "join_hash_launch": [P, P, LL, I, I, P, P],
     "build_table_launch": [P, P, I, I, I, I, I, I, P, P, P, P, P, P, P, P, P,
                            P],

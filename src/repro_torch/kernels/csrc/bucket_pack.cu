@@ -10,7 +10,7 @@
 // filled with -1 by one memset, and overflow[b] = sum_d max(hist - cap, 0).
 //
 // The TPU kernel carries its histogram across a grid that runs in order;
-// CUDA blocks do not, so the rank is scatter_pack's three stages: one warp
+// CUDA blocks do not, so the rank takes three stages: one warp
 // per tile counts its bins in th[b, d, tile] (common.cuh's warp_tile_walk,
 // counters in device memory so any k fits), an exclusive scan over tiles
 // per (b, d) gives each tile's base (the totals are hist), and the warp

@@ -58,7 +58,8 @@ __device__ __forceinline__ unsigned lanemask_lt() {
   return m;
 }
 
-// The stable-rank tile walk of scatter_pack, map_pack and bucket_pack.
+// The stable-rank walk of map_pack's and bucket_pack's tiles and of
+// scatter_pack's staged windows.
 // One warp walks items [i0, i1) of its tile in order, 32 at a time, with
 // one counter per bin (`counter(d)` is a reference to bin d's).  bin(i) is
 // item i's bin, or -1 for an item that counts nowhere.  Count pass
@@ -88,85 +89,6 @@ __device__ __forceinline__ void warp_tile_walk(long long i0, long long i1,
       if (leader) counter(d) += __popc(same);
     }
     __syncwarp();
-  }
-}
-
-// The map's pack walk, shared by scatter_pack and map_pack.
-#define PACK_TILE_THREADS (32 * REPRO_WARPS_PER_BLOCK)
-
-// Device of copy c (row c / F, copy c % F) of one source's rows: the
-// placement table's entry for a member copy's wrapped cell, else the
-// sentinel n_dev.  *logical gets the unwrapped cell, -1 on non-members.
-static __device__ __forceinline__ int pack_dest(const int* rows, int w,
-                                                const long long* desc, int F,
-                                                const int* ptable, int k,
-                                                int n_dev, long long c,
-                                                int* logical) {
-  const long long row = c / F;
-  const int j = (int)(c % F);
-  if (route_copy(rows + row * w, desc, j, logical))
-    return ptable[*logical % k];
-  *logical = -1;
-  return n_dev;
-}
-
-// One warp per (source, tile of tile_rows rows) walks the tile's copies in
-// (row, copy) order.  Count pass (rank_pass = 0): per-device copies of the
-// tile, written bin-major to th[src, d, tile] (n_dev + 1 bins, the last
-// the non-members').  Rank pass: counters start at the tile's scanned base
-// in th, and every copy gets its stable rank within its device.  Then
-// kStreams false (scatter_pack) writes `row ++ logical` at
-// out[src, d, rank] of a (n_src, n_dev, cap, w + 1) buffer when d < n_dev
-// and rank < cap; kStreams true (map_pack) writes, for every copy g of
-// source src, the three planes of a (3, n_src, n_loc * F) array: d,
-// logical and rank.  Counters live in shared memory (n_dev + 1 per warp).
-template <bool kStreams>
-static __global__ void pack_tile_kernel(const int* rows, int n_src,
-                                        long long n_loc, int w,
-                                        const long long* desc, int F,
-                                        const int* ptable, int k, int n_dev,
-                                        int cap, long long tile_rows,
-                                        long long n_tiles, int* th,
-                                        int rank_pass, int* out) {
-  extern __shared__ int smem[];
-  const int nb = n_dev + 1;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const long long gw = (long long)blockIdx.x * REPRO_WARPS_PER_BLOCK + warp;
-  if (gw >= (long long)n_src * n_tiles) return;
-  const int src = (int)(gw / n_tiles);
-  const long long t = gw % n_tiles;
-  int* cnt = smem + warp * nb;
-  int* col = th + (long long)src * nb * n_tiles + t;  // th[src, d, t] = col[d * n_tiles]
-  for (int d = lane; d < nb; d += 32) cnt[d] = rank_pass ? col[d * n_tiles] : 0;
-  __syncwarp();
-  const int* srows = rows + (long long)src * n_loc * w;
-  long long end_row = (t + 1) * tile_rows;
-  if (end_row > n_loc) end_row = n_loc;
-  int logical = 0;
-  auto bin = [&](long long c) {
-    return pack_dest(srows, w, desc, F, ptable, k, n_dev, c, &logical);
-  };
-  auto counter = [&](int d) -> int& { return cnt[d]; };
-  if (rank_pass) {
-    warp_tile_walk<true>(t * tile_rows * F, end_row * F, bin, counter,
-                         [&](long long c, int d, int rank) {
-      if constexpr (kStreams) {
-        const long long plane = (long long)n_src * n_loc * F;
-        int* o = out + (long long)src * n_loc * F + c;
-        o[0] = d;
-        o[plane] = logical;
-        o[2 * plane] = rank;
-      } else if (d < n_dev && rank < cap) {
-        const int* src_row = srows + (c / F) * w;
-        int* dst = out + (((long long)src * n_dev + d) * cap + rank) * (w + 1);
-        for (int i = 0; i < w; ++i) dst[i] = src_row[i];
-        dst[w] = logical;
-      }
-    });
-  } else {
-    warp_tile_walk<false>(t * tile_rows * F, end_row * F, bin, counter,
-                          [](long long, int, int) {});
-    for (int d = lane; d < nb; d += 32) col[d * n_tiles] = cnt[d];
   }
 }
 

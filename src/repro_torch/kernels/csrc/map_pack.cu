@@ -92,9 +92,78 @@ extern "C" int map_count_launch(const int* rows, long long n, int w,
 //
 // Bound: reading the rows once and writing 12 bytes a copy.  The TPU
 // kernel carries its histogram across a grid that runs in order; here the
-// rank is scatter_pack's three stages on common.cuh's pack_tile_kernel:
-// per-tile counts, an exclusive scan over tiles per (source, device) whose
-// totals are hist, and the in-order re-walk that emits the streams.
+// rank takes three stages on pack_tile_kernel below: per-tile counts, an
+// exclusive scan over tiles per (source, device) whose totals are hist, and
+// the in-order re-walk that emits the streams.
+
+#define PACK_TILE_THREADS (32 * REPRO_WARPS_PER_BLOCK)
+
+// Device of copy c (row c / F, copy c % F) of one source's rows: the
+// placement table's entry for a member copy's wrapped cell, else the
+// sentinel n_dev.  *logical gets the unwrapped cell, -1 on non-members.
+static __device__ __forceinline__ int pack_dest(const int* rows, int w,
+                                                const long long* desc, int F,
+                                                const int* ptable, int k,
+                                                int n_dev, long long c,
+                                                int* logical) {
+  const long long row = c / F;
+  const int j = (int)(c % F);
+  if (route_copy(rows + row * w, desc, j, logical))
+    return ptable[*logical % k];
+  *logical = -1;
+  return n_dev;
+}
+
+// One warp per (source, tile of tile_rows rows) walks the tile's copies in
+// (row, copy) order.  Count pass (rank_pass = 0): per-device copies of the
+// tile, written bin-major to th[src, d, tile] (n_dev + 1 bins, the last
+// the non-members').  Rank pass: counters start at the tile's scanned base
+// in th, and every copy gets its stable rank within its device; for every
+// copy g of source src it writes the three planes of a (3, n_src, n_loc * F)
+// array: d, logical and rank.  Counters live in shared memory (n_dev + 1
+// per warp).
+static __global__ void pack_tile_kernel(const int* rows, int n_src,
+                                        long long n_loc, int w,
+                                        const long long* desc, int F,
+                                        const int* ptable, int k, int n_dev,
+                                        long long tile_rows,
+                                        long long n_tiles, int* th,
+                                        int rank_pass, int* out) {
+  extern __shared__ int smem[];
+  const int nb = n_dev + 1;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const long long gw = (long long)blockIdx.x * REPRO_WARPS_PER_BLOCK + warp;
+  if (gw >= (long long)n_src * n_tiles) return;
+  const int src = (int)(gw / n_tiles);
+  const long long t = gw % n_tiles;
+  int* cnt = smem + warp * nb;
+  int* col = th + (long long)src * nb * n_tiles + t;  // th[src, d, t] = col[d * n_tiles]
+  for (int d = lane; d < nb; d += 32) cnt[d] = rank_pass ? col[d * n_tiles] : 0;
+  __syncwarp();
+  const int* srows = rows + (long long)src * n_loc * w;
+  long long end_row = (t + 1) * tile_rows;
+  if (end_row > n_loc) end_row = n_loc;
+  int logical = 0;
+  auto bin = [&](long long c) {
+    return pack_dest(srows, w, desc, F, ptable, k, n_dev, c, &logical);
+  };
+  auto counter = [&](int d) -> int& { return cnt[d]; };
+  if (rank_pass) {
+    warp_tile_walk<true>(t * tile_rows * F, end_row * F, bin, counter,
+                         [&](long long c, int d, int rank) {
+      const long long plane = (long long)n_src * n_loc * F;
+      int* o = out + (long long)src * n_loc * F + c;
+      o[0] = d;
+      o[plane] = logical;
+      o[2 * plane] = rank;
+    });
+  } else {
+    warp_tile_walk<false>(t * tile_rows * F, end_row * F, bin, counter,
+                          [](long long, int, int) {});
+    for (int d = lane; d < nb; d += 32) col[d * n_tiles] = cnt[d];
+  }
+}
+
 extern "C" int map_pack_launch(const int* rows, int n_src, long long n_loc,
                                int w, const long long* desc, int F,
                                const int* ptable, int k, int n_dev,
@@ -105,16 +174,16 @@ extern "C" int map_pack_launch(const int* rows, int n_src, long long n_loc,
   const unsigned blocks =
       blocks_for((long long)n_src * n_tiles, REPRO_WARPS_PER_BLOCK);
   const size_t smem = sizeof(int) * (size_t)nb * REPRO_WARPS_PER_BLOCK;
-  pack_tile_kernel<true><<<blocks, PACK_TILE_THREADS, smem, s>>>(
-      rows, n_src, n_loc, w, desc, F, ptable, k, n_dev, 0, tile_rows, n_tiles,
+  pack_tile_kernel<<<blocks, PACK_TILE_THREADS, smem, s>>>(
+      rows, n_src, n_loc, w, desc, F, ptable, k, n_dev, tile_rows, n_tiles,
       th, 0, streams);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   if ((err = launch_scan_rows(th, (long long)n_src * nb, n_tiles, nb, nb,
                               hist, s)) != cudaSuccess)
     return (int)err;
-  pack_tile_kernel<true><<<blocks, PACK_TILE_THREADS, smem, s>>>(
-      rows, n_src, n_loc, w, desc, F, ptable, k, n_dev, 0, tile_rows, n_tiles,
+  pack_tile_kernel<<<blocks, PACK_TILE_THREADS, smem, s>>>(
+      rows, n_src, n_loc, w, desc, F, ptable, k, n_dev, tile_rows, n_tiles,
       th, 1, streams);
   return (int)cudaGetLastError();
 }

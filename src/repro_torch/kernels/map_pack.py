@@ -239,9 +239,9 @@ def map_pack_host(rows: torch.Tensor, routes: RouteSpec,
 def pack_scratch(rows: torch.Tensor, fanout: int, n_dev: int
                  ) -> tuple[int, int, torch.Tensor]:
     """(rows per tile, tiles per source, per-tile counts (n_src, n_dev + 1,
-    tiles)) of the pack walk (csrc/common.cuh::pack_tile_kernel)."""
+    tiles)) of map_pack's walk (csrc/map_pack.cu::pack_tile_kernel)."""
     if n_dev + 1 > MAX_PACK_BINS:
-        raise ValueError(f"the pack kernels take n_dev < {MAX_PACK_BINS}")
+        raise ValueError(f"map_pack takes n_dev < {MAX_PACK_BINS}")
     s, n, _ = rows.shape
     tile_rows = max(1, TILE_COPIES // fanout)
     n_tiles = -(-n // tile_rows)

@@ -19,18 +19,20 @@ step's column selection and -1 fill, written in the same pass.
 
 `*_host` are the plain versions (stable sort / searchsorted + gathers);
 `scatter_pack_cuda` launches csrc/scatter_pack.cu, `expand_rows_cuda`
-csrc/expand_rows.cu.
+csrc/expand_rows.cu.  The scatter_pack kernel works on member copies only:
+it routes each row once, ranks the member copies of a tile in shared
+memory and writes each device's records as one contiguous run.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from . import _build
-from .map_pack import (RouteSpec, empty_pack, pack_overflow, pack_scratch,
-                       pack_slots, route_desc_tensor, route_fanout,
-                       route_streams)
+from .map_pack import (MAX_PACK_BINS, RouteSpec, empty_pack, pack_overflow,
+                       pack_slots, route_desc, route_fanout, route_streams)
 from .ref import INVALID
 
 
@@ -56,27 +58,71 @@ def scatter_pack_host(rows: torch.Tensor, routes: RouteSpec,
             pack_overflow(hist, n_dev, cap))
 
 
+# csrc/scatter_pack.cu's SCATTER_TILE_ROWS and SCATTER_ROW_WORDS: a tile
+# holds at most 1,024 rows, and at most 8,192 row words unless one row is
+# wider.
+SCATTER_TILE_ROWS = 1024
+SCATTER_ROW_WORDS = 8192
+
+
+def scatter_tile_rows(w: int) -> int:
+    """Rows per tile of csrc/scatter_pack.cu for rows of w words: as many
+    as fit the kernels' shared-memory copy of the tile, at least one."""
+    return max(1, min(SCATTER_TILE_ROWS, SCATTER_ROW_WORDS // max(w, 1)))
+
+
+@functools.lru_cache(maxsize=256)
+def scatter_desc_tensor(routes: RouteSpec, device: torch.device
+                        ) -> torch.Tensor:
+    """The int32 descriptor of csrc/scatter_pack.cu, uploaded once per
+    (recipe, device): `route_desc`'s words wrapped to int32 (what the
+    routing truncates them to), then each route's first copy (n_routes + 1
+    words)."""
+    first = [0]
+    for _, reps, _, _, _ in routes:
+        first.append(first[-1] + len(reps))
+    words = [(x + (1 << 31)) % (1 << 32) - (1 << 31)
+             for x in route_desc(routes) + first]
+    return torch.tensor(words, dtype=torch.int32, device=device)
+
+
+def scatter_scratch(rows: torch.Tensor, n_dev: int
+                    ) -> tuple[int, int, torch.Tensor]:
+    """(rows per tile, tiles per source, per-tile member copies per device
+    (n_src, n_dev, tiles)) of csrc/scatter_pack.cu; n_dev < MAX_PACK_BINS."""
+    if n_dev + 1 > MAX_PACK_BINS:
+        raise ValueError(f"scatter_pack takes n_dev < {MAX_PACK_BINS}")
+    s, n, w = rows.shape
+    tile_rows = scatter_tile_rows(w)
+    n_tiles = -(-n // tile_rows)
+    return tile_rows, n_tiles, torch.empty((s, n_dev, n_tiles),
+                                           dtype=torch.int32,
+                                           device=rows.device)
+
+
 def scatter_pack_cuda(rows: torch.Tensor, routes: RouteSpec,
                       ptable: torch.Tensor, k: int, n_dev: int, cap: int
                       ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Launch csrc/scatter_pack.cu (fill, tile histograms, scan, rank and
-    write, overflow) for rows (n_src, n_loc, w) int32 on the card."""
+    """Launch csrc/scatter_pack.cu (member counts per tile, scan, rank and
+    write, -1 fill, overflow) for rows (n_src, n_loc, w) int32 on the
+    card."""
     rows = _build.as_i32(rows, "rows")
     ptable = _build.as_i32(ptable, "ptable")
     s, n, w = rows.shape
     fanout = route_fanout(routes)
     if n == 0 or fanout == 0:
         return empty_pack(rows, n_dev, cap)
-    tile_rows, n_tiles, th = pack_scratch(rows, fanout, n_dev)
+    tile_rows, n_tiles, th = scatter_scratch(rows, n_dev)
     dev = rows.device
     hist = torch.empty((s, n_dev), dtype=torch.int32, device=dev)
     buf = torch.empty((s, n_dev, cap, w + 1), dtype=torch.int32, device=dev)
     overflow = torch.empty(s, dtype=torch.int32, device=dev)
-    desc = route_desc_tensor(routes, dev)
+    desc = scatter_desc_tensor(routes, dev)
     _build.call("scatter_pack_launch", rows.data_ptr(), s, n, w,
-                desc.data_ptr(), fanout, ptable.data_ptr(), k, n_dev, cap,
-                tile_rows, n_tiles, th.data_ptr(), hist.data_ptr(),
-                buf.data_ptr(), overflow.data_ptr(), _build.stream(rows))
+                desc.data_ptr(), desc.numel(), len(routes), ptable.data_ptr(),
+                k, n_dev, cap, tile_rows, n_tiles, th.data_ptr(),
+                hist.data_ptr(), buf.data_ptr(), overflow.data_ptr(),
+                _build.stream(rows))
     return buf, overflow
 
 

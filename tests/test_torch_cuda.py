@@ -74,19 +74,91 @@ def test_map_count_kernel(dev, k, n, make_specs):
         _eq(got, mp.map_count_host(rows, routes, k, 8))
 
 
-@pytest.mark.parametrize("k,n_loc,cap", [(8, 1, 4), (64, 700, 8),
-                                         (256, 5000, 4096), (8, 0, 2)])
-def test_scatter_pack_kernel(dev, k, n_loc, cap):
-    rng = np.random.default_rng(k * n_loc + cap)
-    specs = _specs(k)
-    ptable = torch.from_numpy(rng.integers(0, 8, k).astype(np.int32)).to(dev)
-    for routes in specs.values():
-        rows = torch.from_numpy(_rows(rng, 8 * n_loc, 2, 50)).to(dev)
-        rows = rows.view(8, n_loc, 2)
-        buf, over = ops.scatter_pack(rows, routes, ptable, k, 8, cap)
-        buf_h, over_h = sp.scatter_pack_host(rows, routes, ptable, k, 8, cap)
+def _cell_routes(k=256):
+    """The full-size cell's two route shapes on R(A, B): a 1-rep tail route
+    hashed on B at share 128 for B not in {0}, and a 16-rep heavy-hitter
+    route for B = 0 hashed on A at share 8."""
+    tail = (((1, 0x9E3779B1, 128, 1),), (0,), 0, (), ((1, (0,)),))
+    heavy = (((0, 0x85EBCA6B, 8, 16),), tuple(range(16)), 128, ((1, 0),), ())
+    return (tail, heavy)
+
+
+def _scatter_case(case, rng):
+    """(rows (n_src, n_loc, w), the route specs to pack them by, ptable, k,
+    n_dev, cap) of a scatter_pack card case."""
+    if case.startswith("specs"):     # the planner's routes, 8 devices
+        k, n_loc, cap = (int(x) for x in case.split("-")[1:])
+        rows = _rows(rng, 8 * n_loc, 2, 50).reshape(8, n_loc, 2)
+        return rows, list(_specs(k).values()), rng.integers(0, 8, k), k, 8, cap
+    if case.startswith("one-device"):
+        # Every member copy folded to device 0; the small cap drops the
+        # same copies as the plain version.
+        cap = {"one-device-fits": 4096, "one-device-overflow": 50}[case]
+        rows = _rows(rng, 8 * 700, 2, 50).reshape(8, 700, 2)
+        return rows, [_specs(64)["R"]], np.zeros(64, np.int64), 64, 8, cap
+    if case.startswith("eq-reps"):
+        # An eq-only route of n_reps reps beside a hashed one: fanout above
+        # 32, and (5000 reps) one row's member copies past a window of 2,048
+        # with a descriptor past the kernels' shared-memory copy.
+        n_reps = int(case.split("-")[2])
+        routes = (((), tuple(range(n_reps)), 3, ((1, 7),), ()),
+                  (((0, 0x9E3779B1, 16, 1),), (0, 1), 0, (), ((1, (7,)),)))
+        rows = _rows(rng, 3 * 300, 2, 12).reshape(3, 300, 2)
+        return rows, [routes], rng.integers(0, 5, 64), 64, 5, 20000
+    if case.startswith("w"):
+        # w = 5; w = 9 and 300, tiles of 910 and 27 rows; w = 9000, a tile
+        # of one row wider than 8,192 words.
+        w = int(case[1:])
+        n_loc, cap = {5: (3000, 700), 9: (3000, 700), 300: (400, 100),
+                      9000: (30, 40)}[w]
+        routes = _synthetic_specs(32)["T"]
+        rows = _rows(rng, 4 * n_loc, w, 50).reshape(4, n_loc, w)
+        return rows, [routes], rng.integers(0, 8, 32), 32, 8, cap
+    if case == "max-devices":
+        n_dev = mp.MAX_PACK_BINS - 1
+        rows = _rows(rng, 2 * 9000, 2, 5000).reshape(2, 9000, 2)
+        return (rows, [_synthetic_specs(4096)["T"]],
+                rng.integers(0, n_dev, 4096), 4096, n_dev, 8)
+    if case == "all-padding":
+        rows = np.full((8, 3000, 2), -1, np.int32)
+        return rows, [_specs(64)["R"]], rng.integers(0, 8, 64), 64, 8, 16
+    if case == "cell-routes":
+        # 8 x 2^18 rows of R(A, B): 1 in 171 rows the heavy hitter B = 0
+        # (12,288 of 2^21 at the cell), the rest a tail of 2^20 values.
+        n = 8 << 18
+        rows = np.stack([rng.integers(0, 1 << 20, n),
+                         rng.integers(1, 1 << 20, n)], 1).astype(np.int32)
+        rows[rng.random(n) < 12288 / (1 << 21), 1] = 0
+        return (rows.reshape(8, 1 << 18, 2), [_cell_routes()],
+                rng.integers(0, 8, 256), 256, 8, 1 << 16)
+    raise ValueError(case)
+
+
+@pytest.mark.parametrize("case", [
+    "specs-8-1-4", "specs-64-700-8", "specs-256-5000-4096", "specs-8-0-2",
+    "specs-256-2049-300", "one-device-fits", "one-device-overflow",
+    "eq-reps-40", "eq-reps-5000", "w5", "w9", "w300", "w9000",
+    "max-devices", "all-padding", "cell-routes"])
+def test_scatter_pack_kernel(dev, case):
+    """Buffer and overflow equal the plain version's, at the edges of the
+    kernel's tiles and windows: n_loc of 1, 0 and no multiple of the
+    1,024-row tile; every copy on one device with and without overflow;
+    fanout above 32 and one row's member copies past a 2,048-copy window;
+    w = 5, and w of 9, 300 and 9,000 (tiles shrunk to fit shared memory);
+    the most devices; only padding rows; the cell's route shapes at its
+    size."""
+    rng = np.random.default_rng(sum(map(ord, case)))
+    rows, specs, ptable, k, n_dev, cap = _scatter_case(case, rng)
+    rows = torch.from_numpy(rows).to(dev)
+    ptable = torch.from_numpy(ptable.astype(np.int32)).to(dev)
+    for routes in specs:
+        buf, over = ops.scatter_pack(rows, routes, ptable, k, n_dev, cap)
+        buf_h, over_h = sp.scatter_pack_host(rows, routes, ptable, k, n_dev,
+                                             cap)
         _eq(buf, buf_h)
         _eq(over, over_h)
+    if case.endswith("overflow") or case == "eq-reps-5000":
+        assert int(over.sum()) > 0
 
 
 def _build_case(b, n, w, bits, recipe="few", id_=None):

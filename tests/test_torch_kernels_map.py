@@ -157,3 +157,39 @@ def test_route_desc_layout():
     rec0 = desc[desc[2 + 2 * fanout]:]
     assert rec0[:3] == [1, 0, 2]                 # 1 hashed, 0 eq, 2 not-in
     assert rec0[3:7] == [0, SEED_A, 2, 1]        # share 4 -> 2 bits
+
+
+@pytest.mark.parametrize("routes", [
+    _synthetic_routes(8),
+    # A route with no reps between two that have some.
+    ((((0, SEED_A, 4, 1),), (0, 4), 0, (), ()),
+     (((0, SEED_B, 2, 1),), (), 8, (), ()),
+     (((1, SEED_B, 2, 1),), (0, 1, 2), 9, ((0, 3),), ())),
+], ids=["synthetic", "empty-route"])
+def test_scatter_desc_words(routes):
+    """The CUDA scatter_pack's descriptor: route_desc's words as the int32
+    the kernel truncates them to (seeds past 2^31 wrap), then each route's
+    first copy and the fanout."""
+    desc = tmp.route_desc(routes)
+    words = tsp.scatter_desc_tensor(routes, torch.device("cpu"))
+    assert words.dtype == torch.int32
+    assert len(words) == len(desc) + len(routes) + 1
+    assert [w % (1 << 32) for w in words[:len(desc)].tolist()] == \
+        [d % (1 << 32) for d in desc]
+    first = words[len(desc):].tolist()
+    reps = [len(r[1]) for r in routes]
+    assert first == [sum(reps[:i]) for i in range(len(routes) + 1)]
+    assert first[-1] == tmp.route_fanout(routes)
+    # The copies of route r are [first[r], first[r + 1]) in route_desc.
+    for r in range(len(routes)):
+        assert all(desc[2 + 2 * j] == r for j in range(first[r], first[r + 1]))
+
+
+@pytest.mark.parametrize("w,want", [(1, 1024), (2, 1024), (8, 1024),
+                                    (9, 910), (300, 27), (8192, 1),
+                                    (9000, 1)])
+def test_scatter_tile_rows(w, want):
+    """The CUDA scatter_pack's tile: 1,024 rows, fewer where their words
+    would pass the kernels' 8,192-word shared-memory copy, one at least."""
+    assert tsp.scatter_tile_rows(w) == want
+    assert want == 1 or want * w <= tsp.SCATTER_ROW_WORDS
