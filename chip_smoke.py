@@ -46,11 +46,14 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      (`fuse_map=False, hash_reduce=False`), counts zeroed just before its
      `prepare` + first `run_batch` and read just after: zero overflow, the
      exact join size, rows `torch.equal` to phase 3's, no new step on a
-     second batch, the warm batch time and a profile;
+     second batch, the warm batch time and a profile that must name
+     segment_scan's kernels;
   4b. the staged arm's kernels (route_cells, fold_cells, bucket_pack,
      segment_scan / run_lengths) against their plain versions at the
      shapes of that run, bit for bit, with kernel, plain, bound and (where
-     one PyTorch call computes the function) library times;
+     one PyTorch call computes the function) library times; segment_scan
+     and run_lengths also with their device time and each of their
+     kernels' share;
   5. the paper's running example and a 4-way chain at a few thousand rows,
      k ∈ {64, 256}, n_dev = 8, under all four arms (fused | staged map ×
      hash | sort-merge reduce), against the numpy reference join, with the
@@ -149,6 +152,9 @@ KERNEL_SITES = {
 BUILD_KERNELS = ("digit_tile_kernel", "tile_carry_kernel")
 SCATTER_KERNELS = ("scatter_count_kernel", "scatter_rank_kernel",
                    "scatter_fill_kernel")
+# The CUDA kernels of segment_scan / run_lengths (csrc/build_probe.cu),
+# each of which must appear in the staged + sort profile.
+SCAN_KERNELS = ("seg_scan_kernel", "seg_tail_kernel")
 # Phase 7: mixtral-8x22b at its published widths, depth cut to 4 layers;
 # weights bf16 from a seeded generator on the card.
 MOE = dict(arch="mixtral-8x22b", n_layers=4, seed=0, prefill_batch=4,
@@ -238,13 +244,15 @@ def time_ms(fn, iters: int) -> float:
 
 
 def device_ms(fn, iters: int = 20, split: str = "") -> float:
-    """Device time per call of `fn`: torch.profiler's sum of the CUDA
-    kernels and memsets of `iters` calls after one warm-up.  Unlike
-    `time_ms` it does not count the card waiting for the host, which sets
-    the floor of a call that takes microseconds on the card.  With `split`
-    (a label), each kernel's device time per call is printed too.  A trace
-    that holds no device event (the profiler can drop one) is taken again,
-    up to three times in all, and then fails."""
+    """Device time per call of `fn`: from torch.profiler's trace of
+    `iters` calls after one warm-up, the sum over its CUDA kernels and
+    memsets of each one's mean time times its launches per call (its count
+    over `iters`, rounded: the profiler can drop a few events, most often
+    the last call's).  Unlike `time_ms` it does not count the card waiting
+    for the host, which sets the floor of a call that takes microseconds on
+    the card.  With `split` (a label), each kernel's device time per call
+    is printed too.  A trace that holds no device event is taken again, up
+    to three times in all, and then fails."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -260,12 +268,12 @@ def device_ms(fn, iters: int = 20, split: str = "") -> float:
         if events:
             break
     check(bool(events), "device_ms: three traces held no device event")
+    per_call = {e.key: e.self_device_time_total / 1e3 / e.count
+                * max(1, round(e.count / iters)) for e in events}
     if split:
-        for e in sorted(events, key=lambda e: -e.self_device_time_total):
-            per_call = e.self_device_time_total / 1e3 / iters
-            print(f"[kernel] {split}: {per_call:.4f} ms a call, "
-                  f"{e.key[:70]}")
-    return sum(e.self_device_time_total for e in events) / 1e3 / iters
+        for key, ms in sorted(per_call.items(), key=lambda kv: -kv[1]):
+            print(f"[kernel] {split}: {ms:.4f} ms a call, {key[:70]}")
+    return sum(per_call.values())
 
 
 def out_capacity_from_fragments(frag_l, frag_r, lcols, rcols, quantize):
@@ -291,21 +299,27 @@ def profile_calls(fn, label: str, calls: int = 1, top: int = 12,
                   ) -> set[str]:
     """Where `calls` warm calls of `fn` spend device time: torch.profiler's
     per-kernel sums, and the device-busy share of their wall time; then
-    every kernel whose name holds one of `named`, in the top or not.
+    every kernel whose name holds one of `named`, in the top or not.  A
+    trace that holds no device event, or misses a kernel of `named` (the
+    profiler can drop events), is taken again, up to three times in all.
     Returns the names of `named` that some kernel's name holds."""
     from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(calls):
-            r = fn()
+    for _ in range(3):
         torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    del r
-    events = [e for e in prof.key_averages()
-              if getattr(e, "device_type", None) is not None
-              and "CUDA" in str(e.device_type)]
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                r = fn()
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        del r
+        events = [e for e in prof.key_averages()
+                  if getattr(e, "device_type", None) is not None
+                  and "CUDA" in str(e.device_type)]
+        if events and all(any(name in e.key for e in events)
+                          for name in named):
+            break
     busy_us = sum(e.self_device_time_total for e in events)
     if not events or busy_us <= 0:
         print(f"[{tag}] device time not measured (no CUDA events)")
@@ -856,7 +870,10 @@ def staged_cell(dev, cell):
           f"{n_valid} valid rows; prepare {t_prepare * 1e3:.1f} ms; peak "
           f"allocated (measured, {FUSED_HASH} rows held) {peak / 1e9:.2f} GB")
     warm_batches(ex, s, "staged", exact)
-    profile_calls(s.run_batch, "warm run_batch")
+    named = profile_calls(s.run_batch, "warm run_batch", named=SCAN_KERNELS)
+    check(named == set(SCAN_KERNELS),
+          f"kernels missing from the {STAGED_SORT} warm batch's profile: "
+          f"{set(SCAN_KERNELS) - named}")
     return dict(ex=ex, session=s, launches=launches)
 
 
@@ -939,6 +956,13 @@ def staged_kernel_checks(cell):
            (sg_r,), b * n_r * 4 + 3 * b * n_r * 4, 2 * b * n_r, 10,
            library=lambda: torch.unique_consecutive(
                sg_r.reshape(-1), return_inverse=True, return_counts=True))
+    for dst, name, fn, args in (
+            (out, "segment_scan", bpr.segment_scan_cuda, (keys,)),
+            (extra, "run_lengths", bpr.run_lengths_cuda, (sg_r,))):
+        dst[name]["device_ms"] = device_ms(lambda: fn(*args), 10, split=name)
+        print(f"[kernel] {name}: device {dst[name]['device_ms']:.4f} ms "
+              f"(bound {dst[name]['bound_ms']:.4f} ms)")
+    out["segment_scan"]["run_lengths"] = extra["run_lengths"]
     return out
 
 

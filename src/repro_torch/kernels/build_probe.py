@@ -14,7 +14,12 @@ segment_scan gives each row the dense id of its run (seg) and the run's
 first row (start); run_lengths adds the run's length.
 
 `*_host` are the plain versions (chunked equality tiles; cumsum and
-cummax); `*_cuda` launch csrc/build_probe.cu.
+cummax); `*_cuda` launch csrc/build_probe.cu.  The scan is one pass over
+the keys: each block takes a tile of `seg_tile_rows(w)` rows, flags its
+run starts from shared memory, and carries (run starts so far, last run
+start) from the earlier tiles by a decoupled look-back over one status
+word a tile; run_lengths adds a short kernel for each tile's trailing run.
+Its scratch is (B, tiles), none of it (B, n).
 """
 from __future__ import annotations
 
@@ -23,8 +28,13 @@ import torch
 from . import _build
 from .ref import int32_bits
 
-# Rows one block scans per tile (csrc/build_probe.cu SEG_TILE).
+# The scan's tile: SEG_TILE_ROWS rows, halved while their words pass
+# SEG_TILE_WORDS, down to SEG_MIN_TILE_ROWS (one round of 32 rows for each
+# of the block's 8 warps).  csrc/build_probe.cu takes the count as an
+# argument and refuses one it cannot run.
 SEG_TILE_ROWS = 2048
+SEG_MIN_TILE_ROWS = 256
+SEG_TILE_WORDS = 8192
 # Elements of the plain versions' (probe chunk, n_b) equality tile: 256 MB
 # of bools at most.
 MATCH_TILE_ELEMS = 1 << 28
@@ -132,23 +142,37 @@ def run_lengths_host(keys: torch.Tensor
             length.to(torch.int32))
 
 
+def seg_tile_rows(w: int) -> int:
+    """Rows of a scan tile for keys of w columns."""
+    rows = SEG_TILE_ROWS
+    while rows > SEG_MIN_TILE_ROWS and rows * w > SEG_TILE_WORDS:
+        rows //= 2
+    return rows
+
+
 def _scan_cuda(keys: torch.Tensor, with_length: bool) -> tuple:
     keys = _build.as_i32(keys, "keys")
     if keys.dim() != 3:
         raise ValueError(f"segment_scan: keys must be (B, n, w), got "
                          f"{keys.shape}")
     b, n, w = keys.shape
+    if n >= 2**31:
+        raise ValueError(f"segment_scan: {n} rows a batch row; row indices "
+                         f"must fit int32")
     dev = keys.device
     outs = tuple(torch.empty((b, n), dtype=torch.int32, device=dev)
                  for _ in range(3 if with_length else 2))
     if b * n == 0:
         return outs
-    n_tiles = -(-n // SEG_TILE_ROWS)
-    cnt = torch.empty((b, n_tiles), dtype=torch.int32, device=dev)
-    runs = torch.empty(b, dtype=torch.int32, device=dev)
-    first = torch.empty((b, n), dtype=torch.int32, device=dev)
-    _build.call("segment_scan_launch", keys.data_ptr(), b, n, w, n_tiles,
-                cnt.data_ptr(), runs.data_ptr(), first.data_ptr(),
+    tile_rows = seg_tile_rows(w)
+    n_tiles = -(-n // tile_rows)
+    # One status word a tile, and the tile ticket after them.
+    status = torch.empty(b * n_tiles + 1, dtype=torch.int64, device=dev)
+    first = (torch.empty((b, n_tiles), dtype=torch.int32, device=dev)
+             if with_length else None)
+    _build.call("segment_scan_launch", keys.data_ptr(), b, n, w, tile_rows,
+                n_tiles, status.data_ptr(),
+                first.data_ptr() if with_length else None,
                 outs[0].data_ptr(), outs[1].data_ptr(),
                 outs[2].data_ptr() if with_length else None,
                 _build.stream(keys))

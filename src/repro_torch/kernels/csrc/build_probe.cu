@@ -9,127 +9,297 @@
 // seg[b, i] is the number of runs started at or before i, minus one;
 // start[b, i] the first row of i's run; len[b, i] its length.
 //
-// The TPU kernel carries (segment count, run start) across a grid that
-// runs in order.  Here the carry crosses blocks in stages:
-//   1. one block per (tile of SEG_TILE rows, b) counts its run starts
-//      (seg_tile_kernel, pass 0) -> cnt[b, tile];
-//   2. an exclusive scan of cnt over tiles per b (scan_rows); the totals
-//      are the runs per b;
-//   3. the block scans its flags again from the tile's base: seg, and
-//      first[b, seg] = i at every run start (seg_tile_kernel, pass 1);
-//   4. start = first[seg]; len = (the next run's first row, or n) - start
-//      (seg_finish_kernel): the run's end comes from the next start, not
-//      from a second, reversed scan.
-// Bound: reading the keys once (each row is compared with the one before,
-// which the neighbouring thread reads too) and writing seg, start (and len).
+// Bound: reading the keys once and writing seg and start (and len).  The
+// TPU kernel carries (run starts so far, last run start) across a grid that
+// runs in order; here one pass over the keys carries it across tiles by a
+// decoupled look-back:
+//   1. seg_scan_kernel: a block takes the next tile of `tile_rows` rows
+//      from an atomic ticket (so every earlier tile's block has started),
+//      copies the tile's words and the row before it into shared memory,
+//      consecutive threads on consecutive words, 16 bytes a load where the
+//      address allows (a tile too wide for SEG_SMEM_BYTES is read in
+//      place), and flags each row that differs from the row before it.
+//      Warp v owns the tile's v-th eighth, 32 consecutive rows a round: one
+//      ballot a round gives each row its count, last start and next start
+//      within the warp, and the eight warps' aggregates in shared memory
+//      give them within the tile.
+//   2. The block publishes its aggregate (run starts, last start) as one
+//      64-bit status word (2 flag bits, 31 bits of count, 31 of start + 1);
+//      its first warp then reads back over the earlier tiles' words, 32 at
+//      a time, until it meets an inclusive prefix, and publishes its own.
+//      The carry's operator is (c1, r1) + (c2, r2) = (c1 + c2, r2 >= 0 ?
+//      r2 : r1).  seg = the carried count + the row's count in the tile - 1;
+//      start = the row's last start in the tile, else the carried start.
+//   3. run_lengths: a row whose run ends inside its tile gets len in step
+//      1's pass.  Each tile also publishes its first run start, and
+//      seg_tail_kernel, in the same call, gives the rows of each tile's
+//      trailing run the first start of the later tiles (or n) as their end;
+//      for keys all equal that is every row, one more write of len.
+// Scratch is (B, tiles): the status words, the ticket and the first starts.
+// segment_scan leaves out step 3 and the first starts.
 #include "common.cuh"
 
 #define SEG_THREADS 256
-#define SEG_ITEMS 8
-#define SEG_TILE (SEG_THREADS * SEG_ITEMS)
+#define SEG_WARPS (SEG_THREADS / 32)
+// A warp's rows in a tile are at most SEG_MAX_ROUNDS rounds of 32: a tile
+// holds a multiple of SEG_THREADS rows, at most SEG_THREADS *
+// SEG_MAX_ROUNDS (build_probe.py::seg_tile_rows chooses it from w).
+#define SEG_MAX_ROUNDS 8
+// Shared memory that may stage a tile's words; a tile that needs more is
+// compared in place in device memory.
+#define SEG_SMEM_BYTES (40 * 1024)
+#define SEG_TAIL_THREADS 128
+#define SEG_AGGREGATE 1ull
+#define SEG_PREFIX 2ull
 
-static __device__ __forceinline__ bool starts_run(const int* keys, long long i,
-                                                  int w) {
-  if (i == 0) return true;
-  const int* a = keys + i * w;
+static __device__ __forceinline__ unsigned long long seg_word(
+    unsigned long long flag, int count, int start) {
+  return (flag << 62) | ((unsigned long long)count << 31) |
+         (unsigned long long)(start + 1);
+}
+
+static __device__ __forceinline__ int seg_count(unsigned long long v) {
+  return (int)((v >> 31) & 0x7fffffffull);
+}
+
+static __device__ __forceinline__ int seg_start(unsigned long long v) {
+  return (int)(v & 0x7fffffffull) - 1;
+}
+
+static __device__ __forceinline__ unsigned long long seg_load(
+    const unsigned long long* p) {
+  return *(const volatile unsigned long long*)p;
+}
+
+// Whether the row at `row` (w words) differs from the row before it.
+static __device__ __forceinline__ bool seg_differs(const int* row, int w) {
   for (int c = 0; c < w; ++c)
-    if (a[c] != a[c - w]) return true;
+    if (row[c] != row[c - w]) return true;
   return false;
 }
 
-// Exclusive sum of v over the block; *total gets the block's sum.
-static __device__ __forceinline__ int block_exclusive_sum(int v, int* total) {
-  __shared__ int warp_sums[32];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int n_warps = blockDim.x >> 5;
-  int x = v;
-#pragma unroll
-  for (int o = 1; o < 32; o <<= 1) {
-    const int y = __shfl_up_sync(REPRO_FULL_MASK, x, o);
-    if (lane >= o) x += y;
-  }
-  if (lane == 31) warp_sums[warp] = x;
+template <bool kLength>
+static __global__ void __launch_bounds__(SEG_THREADS)
+seg_scan_kernel(const int* keys, long long n, int w, int tile_rows,
+                long long n_tiles, bool staged, unsigned long long* status,
+                int* tile_first, int* seg, int* start, int* len) {
+  extern __shared__ __align__(16) int smem[];
+  __shared__ long long s_ticket;
+  __shared__ int s_cnt[SEG_WARPS], s_first[SEG_WARPS], s_last[SEG_WARPS];
+  __shared__ int s_carry[2];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  // The ticket is the word after the (B, n_tiles) status words.
+  if (tid == 0) s_ticket = (long long)atomicAdd(status + gridDim.x, 1ull);
   __syncthreads();
+  const long long b = s_ticket / n_tiles, T = s_ticket % n_tiles;
+  const long long r0 = T * tile_rows;
+  const int n_rows = (int)(n - r0 < tile_rows ? n - r0 : tile_rows);
+  const int* g = keys + (b * n + r0) * w;          // row r0
+  const int* rows = g;
+  if (staged) {
+    // Word k of the tile (k in [-w, n_rows * w), -w the row before it) goes
+    // to smem[sh + w + k], sh chosen so that 16-byte aligned words of g
+    // land on 16-byte aligned shared words.
+    const int sh = (int)((((unsigned long long)(uintptr_t)g >> 2) -
+                          (unsigned long long)w) & 3ull);
+    int* dst = smem + sh + w;
+    const int k_lo = r0 > 0 ? -w : 0, k_hi = n_rows * w;
+    int v_lo = k_lo + ((4 - ((sh + w + k_lo) & 3)) & 3);
+    int v_hi = k_hi - ((sh + w + k_hi) & 3);
+    if (v_lo > v_hi) v_lo = v_hi = k_hi;
+    for (int k = k_lo + tid; k < v_lo; k += SEG_THREADS) dst[k] = g[k];
+#pragma unroll 4
+    for (int k = v_lo + 4 * tid; k < v_hi; k += 4 * SEG_THREADS)
+      *reinterpret_cast<int4*>(dst + k) =
+          *reinterpret_cast<const int4*>(g + k);
+    for (int k = v_hi + tid; k < k_hi; k += SEG_THREADS) dst[k] = g[k];
+    rows = dst;
+    __syncthreads();
+  }
+
+  // Run starts, one ballot per round of 32 consecutive rows.
+  const int rpw = tile_rows / SEG_WARPS, rounds = rpw / 32;
+  const int w0 = warp * rpw;                        // the warp's first row
+  const unsigned le = lanemask_lt() | (1u << lane);
+  unsigned ball[SEG_MAX_ROUNDS];
+  int wc = 0, wf = -1, wl = -1;
+#pragma unroll
+  for (int j = 0; j < SEG_MAX_ROUNDS; ++j) {
+    ball[j] = 0;
+    if (j < rounds) {
+      const int li = w0 + j * 32 + lane;
+      const bool f = li < n_rows &&
+                     (r0 + li == 0 || seg_differs(rows + (long long)li * w, w));
+      ball[j] = __ballot_sync(REPRO_FULL_MASK, f);
+      if (ball[j]) {
+        wc += __popc(ball[j]);
+        if (wf < 0) wf = w0 + j * 32 + __ffs(ball[j]) - 1;
+        wl = w0 + j * 32 + 31 - __clz(ball[j]);
+      }
+    }
+  }
+  if (lane == 0) {
+    s_cnt[warp] = wc;
+    s_first[warp] = wf;
+    s_last[warp] = wl;
+  }
+  __syncthreads();
+
+  // The tile's aggregate, published; then the look-back for its carry.
   if (warp == 0) {
-    int ws = lane < n_warps ? warp_sums[lane] : 0;
-#pragma unroll
-    for (int o = 1; o < 32; o <<= 1) {
-      const int y = __shfl_up_sync(REPRO_FULL_MASK, ws, o);
-      if (lane >= o) ws += y;
+    const bool mine = lane < SEG_WARPS;
+    const int count = __reduce_add_sync(REPRO_FULL_MASK, mine ? s_cnt[lane] : 0);
+    const unsigned fmin = __reduce_min_sync(
+        REPRO_FULL_MASK, mine ? (unsigned)s_first[lane] : 0xffffffffu);
+    const int lmax = __reduce_max_sync(REPRO_FULL_MASK,
+                                       mine ? s_last[lane] : -1);
+    const int last = lmax < 0 ? -1 : (int)r0 + lmax;
+    unsigned long long* st = status + b * n_tiles;
+    if (lane == 0) {
+      if (kLength)
+        tile_first[b * n_tiles + T] =
+            fmin == 0xffffffffu ? -1 : (int)r0 + (int)fmin;
+      *(volatile unsigned long long*)(st + T) =
+          seg_word(T == 0 ? SEG_PREFIX : SEG_AGGREGATE, count, last);
     }
-    if (lane < n_warps) warp_sums[lane] = ws;
+    int ecnt = 0, est = -1;
+    for (long long pos = T - 1; pos >= 0; pos -= 32) {
+      // Lane l reads tile pos - l; a lane before tile 0 reads an empty
+      // prefix.  Only the tiles up to the nearest prefix count.
+      const long long j = pos - lane;
+      unsigned long long v = j >= 0 ? seg_load(st + j)
+                                    : seg_word(SEG_PREFIX, 0, -1);
+      while (!__all_sync(REPRO_FULL_MASK, (v >> 62) != 0))
+        if ((v >> 62) == 0) v = seg_load(st + j);
+      const unsigned p = __ballot_sync(REPRO_FULL_MASK, (v >> 62) == SEG_PREFIX);
+      const bool inc = lane <= (p ? __ffs(p) - 1 : 31);
+      ecnt += __reduce_add_sync(REPRO_FULL_MASK, inc ? seg_count(v) : 0);
+      const int sv = inc ? seg_start(v) : -1;
+      const unsigned has = __ballot_sync(REPRO_FULL_MASK, sv >= 0);
+      if (est < 0 && has) est = __shfl_sync(REPRO_FULL_MASK, sv, __ffs(has) - 1);
+      if (p) break;
+    }
+    if (lane == 0) {
+      if (T > 0)
+        *(volatile unsigned long long*)(st + T) =
+            seg_word(SEG_PREFIX, ecnt + count, last >= 0 ? last : est);
+      s_carry[0] = ecnt;
+      s_carry[1] = est;
+    }
   }
   __syncthreads();
-  *total = warp_sums[n_warps - 1];
-  return (warp > 0 ? warp_sums[warp - 1] : 0) + x - v;
-}
 
-static __global__ void seg_tile_kernel(const int* keys, long long n, int w,
-                                       long long n_tiles, int* cnt, int pass,
-                                       int* seg, int* first) {
-  const long long b = blockIdx.y, t = blockIdx.x;
-  const int* bk = keys + b * n * w;
-  const long long i0 = t * SEG_TILE + (long long)threadIdx.x * SEG_ITEMS;
-  unsigned flags = 0;
-  int f = 0;
-#pragma unroll
-  for (int j = 0; j < SEG_ITEMS; ++j) {
-    const long long i = i0 + j;
-    if (i < n && starts_run(bk, i, w)) {
-      flags |= 1u << j;
-      ++f;
+  // The carry into the warp's rows, and the first start after them.
+  int cnt = s_carry[0], run = s_carry[1], after = -1;
+  for (int v = 0; v < SEG_WARPS; ++v) {
+    if (v < warp) {
+      cnt += s_cnt[v];
+      if (s_last[v] >= 0) run = (int)r0 + s_last[v];
+    } else if (v > warp && after < 0 && s_first[v] >= 0) {
+      after = (int)r0 + s_first[v];
     }
   }
-  int total;
-  const int excl = block_exclusive_sum(f, &total);
-  if (pass == 0) {
-    if (threadIdx.x == 0) cnt[b * n_tiles + t] = total;
-    return;
+  // nxt[j]: the first start after round j within the tile, or -1 (the
+  // tile's trailing run, written by seg_tail_kernel).
+  int nxt[SEG_MAX_ROUNDS];
+  if (kLength) {
+#pragma unroll
+    for (int j = SEG_MAX_ROUNDS - 1; j >= 0; --j) {
+      nxt[j] = after;
+      if (ball[j]) after = (int)r0 + w0 + j * 32 + __ffs(ball[j]) - 1;
+    }
   }
-  int s = cnt[b * n_tiles + t] + excl - 1;
-  for (int j = 0; j < SEG_ITEMS; ++j) {
-    const long long i = i0 + j;
-    if (i >= n) break;
-    if ((flags >> j) & 1u) first[b * n + ++s] = (int)i;
-    seg[b * n + i] = s;
+  const long long out0 = b * n + r0;
+#pragma unroll
+  for (int j = 0; j < SEG_MAX_ROUNDS; ++j) {
+    if (j < rounds) {
+      const int base = (int)r0 + w0 + j * 32;
+      const int li = w0 + j * 32 + lane;
+      const unsigned m = ball[j] & le;
+      const int s_i = m ? base + 31 - __clz(m) : run;
+      if (li < n_rows) {
+        seg[out0 + li] = cnt + __popc(m) - 1;
+        start[out0 + li] = s_i;
+        if (kLength) {
+          const unsigned a = ball[j] & ~le;
+          const int e = a ? base + __ffs(a) - 1 : nxt[j];
+          if (e >= 0) len[out0 + li] = e - s_i;
+        }
+      }
+      cnt += __popc(ball[j]);
+      if (ball[j]) run = base + 31 - __clz(ball[j]);
+    }
   }
 }
 
-static __global__ void seg_finish_kernel(const int* seg, const int* first,
-                                         const int* runs, long long total,
-                                         long long n, int* start, int* len) {
-  const long long g = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (g >= total) return;
-  const long long b = g / n;
-  const int s = seg[g];
-  const int st = first[b * n + s];
-  start[g] = st;
-  if (len != nullptr) {
-    const int nxt = s + 1 < runs[b] ? first[b * n + s + 1] : (int)n;
-    len[g] = nxt - st;
+// One block a tile: its trailing run [max(last start, r0), tile end) ends
+// at the first run start of the later tiles of its batch row, else at n.
+static __global__ void __launch_bounds__(SEG_TAIL_THREADS)
+seg_tail_kernel(long long n, int tile_rows, long long n_tiles,
+                const unsigned long long* status, const int* tile_first,
+                int* len) {
+  __shared__ unsigned s_min[SEG_TAIL_THREADS / 32];
+  const long long b = blockIdx.x / n_tiles, T = blockIdx.x % n_tiles;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int s = seg_start(status[blockIdx.x]);
+  const int* tf = tile_first + b * n_tiles;
+  unsigned end = (unsigned)n;
+  for (long long j0 = T + 1; j0 < n_tiles; j0 += SEG_TAIL_THREADS) {
+    const long long j = j0 + tid;
+    // -1 (no start) reads as the largest unsigned.
+    const unsigned f = j < n_tiles ? (unsigned)tf[j] : 0xffffffffu;
+    const unsigned m = __reduce_min_sync(REPRO_FULL_MASK, f);
+    if (lane == 0) s_min[warp] = m;
+    __syncthreads();
+    unsigned blk = s_min[0];
+    for (int v = 1; v < SEG_TAIL_THREADS / 32; ++v)
+      blk = s_min[v] < blk ? s_min[v] : blk;
+    __syncthreads();
+    if (blk != 0xffffffffu) {
+      end = blk;
+      break;
+    }
   }
+  const long long r0 = T * tile_rows;
+  const long long r1 = r0 + tile_rows < n ? r0 + tile_rows : n;
+  int* out = len + b * n;
+  for (long long i = (s > r0 ? s : r0) + tid; i < r1; i += SEG_TAIL_THREADS)
+    out[i] = (int)end - s;
 }
 
-// len == nullptr: segment_scan only.  cnt (B, n_tiles), runs (B,) and
-// first (B, n) are scratch.
+// status: B * n_tiles + 1 words (the last is the tile ticket), cleared
+// here; tile_first: B * n_tiles ints.  len == nullptr: segment_scan only
+// (tile_first unused).  tile_rows is a multiple of SEG_THREADS up to
+// SEG_THREADS * SEG_MAX_ROUNDS, n_tiles = ceil(n / tile_rows), n < 2^31.
 extern "C" int segment_scan_launch(const int* keys, int B, long long n, int w,
-                                   long long n_tiles, int* cnt, int* runs,
-                                   int* first, int* seg, int* start, int* len,
+                                   int tile_rows, long long n_tiles,
+                                   unsigned long long* status, int* tile_first,
+                                   int* seg, int* start, int* len,
                                    void* stream) {
+  if (tile_rows <= 0 || tile_rows % SEG_THREADS != 0 ||
+      tile_rows > SEG_THREADS * SEG_MAX_ROUNDS || w < 0 || n <= 0 ||
+      n >= (1LL << 31) || n_tiles != (n + tile_rows - 1) / tile_rows)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  const dim3 grid((unsigned)n_tiles, (unsigned)B);
-  seg_tile_kernel<<<grid, SEG_THREADS, 0, s>>>(keys, n, w, n_tiles, cnt, 0,
-                                               seg, first);
-  cudaError_t err = cudaGetLastError();
+  const long long total = (long long)B * n_tiles;
+  cudaError_t err = cudaMemsetAsync(
+      status, 0, sizeof(unsigned long long) * (size_t)(total + 1), s);
   if (err != cudaSuccess) return (int)err;
-  if ((err = launch_scan_rows(cnt, B, n_tiles, 1, 1, runs, s)) != cudaSuccess)
-    return (int)err;
-  seg_tile_kernel<<<grid, SEG_THREADS, 0, s>>>(keys, n, w, n_tiles, cnt, 1,
-                                               seg, first);
+  const size_t smem = sizeof(int) * ((size_t)(tile_rows + 1) * w + 3);
+  const bool staged = smem <= SEG_SMEM_BYTES;
+  const size_t dyn = staged ? smem : 0;
+  if (len == nullptr) {
+    seg_scan_kernel<false><<<(unsigned)total, SEG_THREADS, dyn, s>>>(
+        keys, n, w, tile_rows, n_tiles, staged, status, tile_first, seg,
+        start, len);
+    return (int)cudaGetLastError();
+  }
+  seg_scan_kernel<true><<<(unsigned)total, SEG_THREADS, dyn, s>>>(
+      keys, n, w, tile_rows, n_tiles, staged, status, tile_first, seg, start,
+      len);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  const long long total = (long long)B * n;
-  seg_finish_kernel<<<blocks_for(total, 256), 256, 0, s>>>(
-      seg, first, runs, total, n, start, len);
+  seg_tail_kernel<<<(unsigned)total, SEG_TAIL_THREADS, 0, s>>>(
+      n, tile_rows, n_tiles, status, tile_first, len);
   return (int)cudaGetLastError();
 }
 

@@ -349,18 +349,51 @@ def test_bucket_rank_and_pack_kernels(dev, b, m, k, cap):
         _eq(got, want)
 
 
+def _tile_edge_keys(b, n, w):
+    """Runs that start at a scan tile's first row, runs of one row at a
+    tile's first and last rows, and every third tile without a run start."""
+    tile = bpr.seg_tile_rows(w)
+    cuts = np.zeros(n, np.int32)
+    for e in range(tile, n, tile):
+        if (e // tile) % 3 != 2:
+            cuts[[e - 1, e, min(e + 1, n - 1)]] = 1
+    ids = np.cumsum(cuts, dtype=np.int32)
+    return np.ascontiguousarray(np.broadcast_to(ids[None, :, None], (b, n, w)))
+
+
 @pytest.mark.parametrize("b,n,w,case", [
     (1, 0, 2, "random"), (2, 1, 1, "random"), (3, 2047, 2, "random"),
     (3, 2049, 3, "random"), (8, 100000, 1, "random"), (2, 70000, 2, "long"),
-    (2, 5000, 2, "all_equal"), (2, 5000, 2, "all_distinct")])
+    (2, 5000, 2, "all_equal"), (2, 5000, 2, "all_distinct"),
+    # One run across every tile of a 2^22-row batch row: every row's
+    # length comes from the trailing-run kernel.
+    (1, 1 << 22, 2, "all_equal"),
+    # Runs at tiles' edges, at w = 1, 2, 4 and at widths that shrink the
+    # tile (9: 512 rows; 33: 256 rows in shared memory; 40: 256 rows read
+    # in place).
+    (2, 5 * 2048 + 3, 1, "tile_edges"), (2, 5 * 2048 + 3, 2, "tile_edges"),
+    (2, 9000, 4, "tile_edges"), (2, 5000, 9, "tile_edges"),
+    (2, 3000, 33, "tile_edges"), (2, 3000, 40, "tile_edges"),
+    # More tiles than the card holds blocks at once: the look-back under
+    # contention.
+    (8, (1 << 20) + 1, 2, "random"), (8, (1 << 20) + 1, 1, "long"),
+    (3, 50000, 4, "random"), (2, 20000, 9, "long"), (2, 9000, 33, "random"),
+    (2, 9000, 40, "long"),
+    # Keys holding -2, -3 and INT32_MIN.
+    (4, 70000, 2, "sentinels"), (2, 70001, 1, "sentinels")])
 def test_segment_scan_kernel(dev, b, n, w, case):
-    """Runs that cross the kernel's 2048-row tiles, ragged last tiles."""
+    """Runs that cross the kernel's tiles, ragged last tiles."""
     rng = np.random.default_rng(n + w)
     if case == "all_equal":
         keys = np.zeros((b, n, w), np.int32)
     elif case == "all_distinct":
         keys = np.tile(np.arange(n * w, dtype=np.int32).reshape(1, n, w),
                        (b, 1, 1))
+    elif case == "tile_edges":
+        keys = _tile_edge_keys(b, n, w)
+    elif case == "sentinels":
+        vals = np.array([-2**31, -3, -2, 0, 7], np.int32)
+        keys = np.sort(vals[rng.integers(0, len(vals), (b, n, w))], axis=1)
     else:
         domain = 3 if case == "long" else max(n // 5, 2)
         keys = np.sort(rng.integers(-3, domain, (b, n, w)).astype(np.int32),

@@ -78,13 +78,44 @@ def test_segment_scan_and_run_lengths_match_jax(n, w, case):
         assert (start == seg).all() and (length == 1).all()
 
 
-@pytest.mark.parametrize("n,block", [(1, 8), (45, 8), (64, 16), (300, 32)])
-def test_segment_scan_matches_interpret_kernel(n, block):
+def _edge_keys(rng, n, block, w, case):
+    """(1, n, w) sorted keys for one of the scan's edge shapes."""
+    if case == "mid_run":            # a long run mid-way
+        keys = _sorted_keys(rng, 1, n, w, "random")
+        keys[0, n // 3: 2 * n // 3] = keys[0, n // 3]
+    elif case == "one_run":          # one run across every block
+        keys = np.full((1, n, w), -3, np.int32)
+    elif case == "block_edges":
+        # Runs that start at a block's first row, runs of one row at a
+        # block's first and last rows, and a block with no run start.
+        cuts = np.zeros(n, np.int32)
+        for e in range(block, n, block):
+            if (e // block) % 3 != 2:
+                cuts[e] = 1
+                cuts[min(e + 1, n - 1)] = 1
+                cuts[e - 1] = 1
+        ids = np.cumsum(cuts, dtype=np.int32)
+        keys = np.repeat(ids[None, :, None], w, 2)
+    else:                            # "sentinels": -2, -3 and INT32_MIN
+        vals = np.array([-2**31, -3, -2, 0, 5], np.int32)
+        keys = vals[rng.integers(0, len(vals), (1, n, w))]
+    return np.ascontiguousarray(keys[:, np.lexsort(keys[0].T[::-1])])
+
+
+@pytest.mark.parametrize("n,block,w,case", [
+    pytest.param(1, 8, 2, "mid_run", id="1-8"),
+    pytest.param(45, 8, 2, "mid_run", id="45-8"),
+    pytest.param(64, 16, 2, "mid_run", id="64-16"),
+    pytest.param(300, 32, 2, "mid_run", id="300-32"),
+    (40, 8, 1, "one_run"), (45, 8, 2, "one_run"),
+    (48, 8, 1, "block_edges"), (45, 8, 2, "block_edges"),
+    (70, 16, 4, "block_edges"), (50, 8, 4, "sentinels"),
+    (45, 8, 1, "sentinels"), (64, 8, 3, "sentinels")])
+def test_segment_scan_matches_interpret_kernel(n, block, w, case):
     """Blocks smaller than the runs: the carry crosses block boundaries,
-    and n not a multiple of the block leaves a ragged last block."""
-    keys = _sorted_keys(np.random.default_rng(n), 1, n, 2, "random")
-    keys[0, n // 3: 2 * n // 3] = keys[0, n // 3]   # a long run mid-way
-    keys[0] = keys[0][np.lexsort(keys[0].T[::-1])]
+    runs start and end at blocks' edges, and n not a multiple of the
+    block leaves a ragged last block."""
+    keys = _edge_keys(np.random.default_rng(n), n, block, w, case)
     jk = jnp.asarray(keys[0])
     seg, start, length = tbpr.run_lengths_host(_t(keys))
     for got, want in zip((seg[0], start[0], length[0]),
@@ -93,6 +124,8 @@ def test_segment_scan_matches_interpret_kernel(n, block):
     for got, want in zip((seg[0], start[0]),
                          jbpr.segment_scan(jk, block=block, interpret=True)):
         np.testing.assert_array_equal(got.numpy(), _np(want))
+    if case == "one_run":
+        assert int(seg.max()) == 0 and (length == n).all()
 
 
 # ---------------------------------------------------------------------------
@@ -145,3 +178,12 @@ def test_sort_merge_probe_kernel_arm_of_the_reference():
                                          jnp.asarray(rk[0]),
                                          jnp.asarray(rv[0]), True)):
         np.testing.assert_array_equal(got.numpy(), _np(want))
+
+
+@pytest.mark.parametrize("w,rows", [(0, 2048), (1, 2048), (4, 2048),
+                                    (5, 1024), (9, 512), (16, 512),
+                                    (33, 256), (9000, 256)])
+def test_seg_tile_rows(w, rows):
+    """The scan tile: 2,048 rows, halved while their words pass 8,192,
+    never below one round of 32 rows for each of the block's 8 warps."""
+    assert tbpr.seg_tile_rows(w) == rows
