@@ -47,13 +47,13 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      `prepare` + first `run_batch` and read just after: zero overflow, the
      exact join size, rows `torch.equal` to phase 3's, no new step on a
      second batch, the warm batch time and a profile that must name
-     segment_scan's kernels;
+     segment_scan's and bucket_pack's kernels;
   4b. the staged arm's kernels (route_cells, fold_cells, bucket_pack,
      segment_scan / run_lengths) against their plain versions at the
      shapes of that run, bit for bit, with kernel, plain, bound and (where
-     one PyTorch call computes the function) library times; segment_scan
-     and run_lengths also with their device time and each of their
-     kernels' share;
+     one PyTorch call computes the function) library times; bucket_pack
+     on R (the entry) and S, segment_scan and run_lengths also with their
+     device time and each of their kernels' share;
   5. the paper's running example and a 4-way chain at a few thousand rows,
      k ∈ {64, 256}, n_dev = 8, under all four arms (fused | staged map ×
      hash | sort-merge reduce), against the numpy reference join, with the
@@ -152,9 +152,12 @@ KERNEL_SITES = {
 BUILD_KERNELS = ("digit_tile_kernel", "tile_carry_kernel")
 SCATTER_KERNELS = ("scatter_count_kernel", "scatter_rank_kernel",
                    "scatter_fill_kernel")
-# The CUDA kernels of segment_scan / run_lengths (csrc/build_probe.cu),
-# each of which must appear in the staged + sort profile.
+# The CUDA kernels of segment_scan / run_lengths (csrc/build_probe.cu) and
+# of bucket_pack (csrc/bucket_pack.cu; its -1 fill is common.cuh's), each of
+# which must appear in the staged + sort profile.
 SCAN_KERNELS = ("seg_scan_kernel", "seg_tail_kernel")
+BUCKET_KERNELS = ("bucket_count_kernel", "bucket_rank_kernel",
+                  "scatter_fill_kernel")
 # Phase 7: mixtral-8x22b at its published widths, depth cut to 4 layers;
 # weights bf16 from a seeded generator on the card.
 MOE = dict(arch="mixtral-8x22b", n_layers=4, seed=0, prefill_batch=4,
@@ -870,10 +873,11 @@ def staged_cell(dev, cell):
           f"{n_valid} valid rows; prepare {t_prepare * 1e3:.1f} ms; peak "
           f"allocated (measured, {FUSED_HASH} rows held) {peak / 1e9:.2f} GB")
     warm_batches(ex, s, "staged", exact)
-    named = profile_calls(s.run_batch, "warm run_batch", named=SCAN_KERNELS)
-    check(named == set(SCAN_KERNELS),
+    named = profile_calls(s.run_batch, "warm run_batch",
+                          named=SCAN_KERNELS + BUCKET_KERNELS)
+    check(named == set(SCAN_KERNELS + BUCKET_KERNELS),
           f"kernels missing from the {STAGED_SORT} warm batch's profile: "
-          f"{set(SCAN_KERNELS) - named}")
+          f"{set(SCAN_KERNELS + BUCKET_KERNELS) - named}")
     return dict(ex=ex, session=s, launches=launches)
 
 
@@ -905,8 +909,9 @@ def staged_kernel_checks(cell):
     # the dests in and out and the table, one select per copy; library:
     # table[dest] on clamped dests (leaves out the -1 pass-through).  pack:
     # bytes the dests, the valid copies' rows, the whole buffer and the
-    # overflow; two operations per copy (bin, rank add).
-    frags = {}
+    # overflow; two operations per copy (bin, rank add).  bucket_pack's
+    # entry is R's, S's beside it, each with its device time.
+    frags, packs = {}, {}
     for name, rows in (("S", rows_s), ("R", rows_r)):
         rows3 = rows.view(n_dev, -1, rows.shape[1])
         dest, tagged = exm._route_relation(rows3, ex.route_specs[name], k,
@@ -920,13 +925,22 @@ def staged_kernel_checks(cell):
         del clamped, dest
         cap, w1 = s.caps[name], tagged.shape[2]
         n_kept = int(((phys >= 0) & (phys < n_dev)).sum())
-        buf, _ = record(out, "bucket_pack", bp.bucket_pack_cuda,
-                        bp.bucket_pack_host, (phys, tagged, n_dev, cap),
+        dst = {}
+        args = (phys, tagged, n_dev, cap)
+        buf, _ = record(dst, "bucket_pack", bp.bucket_pack_cuda,
+                        bp.bucket_pack_host, args,
                         m * 4 + n_kept * w1 * 4
                         + n_dev * n_dev * cap * w1 * 4 + n_dev * 4,
                         2 * m, 10)
+        rec = packs[name] = dst["bucket_pack"]
+        rec["device_ms"] = device_ms(lambda: bp.bucket_pack_cuda(*args), 10,
+                                     split=f"bucket_pack {name}")
+        print(f"[kernel] bucket_pack {name}: device {rec['device_ms']:.4f} "
+              f"ms (bound {rec['bound_ms']:.4f} ms), {n_kept} of {m} copies "
+              f"members, cap {cap}")
         frags[name] = exchange(buf)
-        del tagged, phys, buf
+        del tagged, phys, buf, args
+    out["bucket_pack"] = dict(packs["R"], S=packs["S"])
     # segment_scan over the sort-merge step's sorted union of keys, and
     # run_lengths over the sorted right group ids.  Bytes: the keys, the
     # outputs; operations: w compares and one scan add per row.  Library:

@@ -41,7 +41,7 @@ SIGNATURES = {
                            LL, P, P, P, P, LL, P, P, P, P],
     "route_cells_launch": [P, LL, I, P, I, P, P],
     "fold_cells_launch": [P, LL, P, I, P, P],
-    "bucket_pack_launch": [P, P, I, LL, I, I, I, LL, LL, P, P, P, P, P, P],
+    "bucket_pack_launch": [P, P, I, LL, I, I, I, I, LL, I, P, P, P, P, P, P],
     "segment_scan_launch": [P, I, LL, I, I, LL, P, P, P, P, P, P],
     "map_pack_launch": [P, I, LL, I, P, I, P, I, I, LL, LL, P, P, P, P],
     "hash_partition_launch": [P, LL, LL, I, P, P, P],

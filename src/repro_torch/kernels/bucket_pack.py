@@ -8,7 +8,10 @@ dest is in [0, k) and rank < cap, and counts the rest of the valid rows:
 overflow = Σ_d max(hist_d − cap, 0).
 
 `*_host` are the plain versions (one stable sort); `*_cuda` launch
-csrc/bucket_pack.cu.
+csrc/bucket_pack.cu, which counts and ranks only the members of [0, k)
+for the pack (bucket_rank also ranks the sentinel bucket), keeps its
+counters in shared memory, writes each bucket's records of a tile as one
+contiguous run and writes -1 only where no record lands.
 """
 from __future__ import annotations
 
@@ -18,8 +21,16 @@ from . import _build
 from .ref import INVALID
 from .map_pack import stable_rank
 
-# Items one warp ranks per tile (csrc/bucket_pack.cu).
+# csrc/bucket_pack.cu's tile (items) and BUCKET_SHARED_BINS.
 TILE_ITEMS = 2048
+SHARED_BINS = 4096
+
+
+def bucket_geometry(n_bins: int) -> tuple[int, bool]:
+    """(items a tile, counters in shared memory) of csrc/bucket_pack.cu for
+    n_bins bins (k, or k + 1 with bucket_rank's sentinel).  Past SHARED_BINS
+    bins one warp walks each tile with its counters in device memory."""
+    return TILE_ITEMS, n_bins <= SHARED_BINS
 
 
 def _bins(dest: torch.Tensor, k: int) -> torch.Tensor:
@@ -55,22 +66,26 @@ def bucket_pack_host(dest: torch.Tensor, rows: torch.Tensor, k: int,
 
 
 def _launch(dest: torch.Tensor, rows: torch.Tensor | None, k: int, cap: int,
-            buf: torch.Tensor | None, overflow: torch.Tensor | None
-            ) -> tuple[torch.Tensor, torch.Tensor]:
+            rank: torch.Tensor | None, buf: torch.Tensor | None,
+            overflow: torch.Tensor | None) -> torch.Tensor:
+    """One bucket_pack_launch: with rows, the pack into buf and overflow;
+    without, the ranks into rank.  Returns hist (B, k)."""
     b, m = dest.shape
     dev = dest.device
-    n_tiles = -(-m // TILE_ITEMS)
-    th = torch.empty((b, k + 1, n_tiles), dtype=torch.int32, device=dev)
-    rank = torch.empty((b, m), dtype=torch.int32, device=dev)
-    hist = torch.empty((b, k), dtype=torch.int32, device=dev)
     w = 0 if rows is None else rows.shape[2]
+    n_bins = k + (rows is None)
+    tile, shared = bucket_geometry(n_bins)
+    n_tiles = -(-m // tile)
+    th = torch.empty((b, n_bins, n_tiles), dtype=torch.int32, device=dev)
+    hist = torch.empty((b, k), dtype=torch.int32, device=dev)
     _build.call("bucket_pack_launch", dest.data_ptr(),
                 None if rows is None else rows.data_ptr(), b, m, w, k, cap,
-                TILE_ITEMS, n_tiles, th.data_ptr(), rank.data_ptr(),
-                hist.data_ptr(), None if buf is None else buf.data_ptr(),
+                tile, n_tiles, int(shared), th.data_ptr(),
+                None if rank is None else rank.data_ptr(), hist.data_ptr(),
+                None if buf is None else buf.data_ptr(),
                 None if overflow is None else overflow.data_ptr(),
                 _build.stream(dest))
-    return rank, hist
+    return hist
 
 
 def bucket_rank_cuda(dest: torch.Tensor, k: int
@@ -83,13 +98,15 @@ def bucket_rank_cuda(dest: torch.Tensor, k: int
     if m == 0:
         return (torch.empty((b, 0), dtype=torch.int32, device=dest.device),
                 torch.zeros((b, k), dtype=torch.int32, device=dest.device))
-    return _launch(dest, None, k, 0, None, None)
+    rank = torch.empty((b, m), dtype=torch.int32, device=dest.device)
+    return rank, _launch(dest, None, k, 0, rank, None, None)
 
 
 def bucket_pack_cuda(dest: torch.Tensor, rows: torch.Tensor, k: int,
                      cap: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """Launch csrc/bucket_pack.cu (fill, tile counts, scan, rank and write,
-    overflow): (buf (B, k, cap, w), overflow (B,))."""
+    """Launch csrc/bucket_pack.cu (tile counts, scan, rank and write, fill,
+    overflow): (buf (B, k, cap, w), overflow (B,)).  No rank is allocated
+    or written."""
     dest = _build.as_i32(dest, "dest")
     rows = _build.as_i32(rows, "rows")
     b, m, w = rows.shape
@@ -103,5 +120,5 @@ def bucket_pack_cuda(dest: torch.Tensor, rows: torch.Tensor, k: int,
                 torch.zeros(b, dtype=torch.int32, device=dev))
     buf = torch.empty((b, k, cap, w), dtype=torch.int32, device=dev)
     overflow = torch.empty(b, dtype=torch.int32, device=dev)
-    _launch(dest, rows, k, cap, buf, overflow)
+    _launch(dest, rows, k, cap, None, buf, overflow)
     return buf, overflow

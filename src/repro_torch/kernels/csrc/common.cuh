@@ -106,6 +106,33 @@ static __global__ void bins_overflow_kernel(const int* hist, int n_rows,
   overflow[r] = o;
 }
 
+// -1 into words [min(hist, cap) * wp1, cap * wp1) of each of the n_pairs
+// slabs of cap records of wp1 words (scatter_pack's (source, device)
+// pairs, bucket_pack's (batch row, bin) pairs): the only slots no record
+// lands in.  `chunks` blocks per pair, 16-byte stores in the aligned middle.
+static __global__ void scatter_fill_kernel(const int* hist, long long n_pairs,
+                                           int cap, int wp1, int chunks,
+                                           int* buf) {
+  const long long pair = blockIdx.x / chunks;
+  if (pair >= n_pairs) return;
+  const int h = hist[pair] < cap ? hist[pair] : cap;
+  const long long slab = pair * cap * (long long)wp1;
+  const long long gb = slab + (long long)h * wp1;
+  const long long ge = slab + (long long)cap * wp1;
+  long long a = (gb + 3) & ~3LL;
+  if (a > ge) a = ge;
+  long long z = ge & ~3LL;
+  if (z < a) z = a;
+  const long long stride = (long long)chunks * blockDim.x;
+  const long long tid = (long long)(blockIdx.x % chunks) * blockDim.x
+                        + threadIdx.x;
+  for (long long i = gb + tid; i < a; i += stride) buf[i] = -1;
+  for (long long i = z + tid; i < ge; i += stride) buf[i] = -1;
+  int4* v = reinterpret_cast<int4*>(buf);
+  const int4 pad = make_int4(-1, -1, -1, -1);
+  for (long long i = a / 4 + tid; i < z / 4; i += stride) v[i] = pad;
+}
+
 // In-place exclusive scan of each row of a (n_rows, len) int32 matrix, one
 // block per row, 4 items per thread.  The row total goes to
 // totals[(row / nb) * nb_out + row % nb] when row % nb < nb_out (nb = 1,

@@ -329,23 +329,87 @@ def test_fold_cells_kernel(dev, k, m):
     _eq(ops.fold_cells(dest, table), rc.fold_cells_host(dest, table))
 
 
-@pytest.mark.parametrize("b,m,k,cap", [(1, 0, 8, 4), (2, 1, 1, 1),
-                                       (8, 5000, 8, 700), (3, 70000, 33, 100),
-                                       (2, 20000, 256, 200)])
-def test_bucket_rank_and_pack_kernels(dev, b, m, k, cap):
+def _bucket_dests(rng, b, m, k, case):
+    """dest (b, m) for the bucket cases: `hot` draws from [-1, k + 2) with a
+    third of the items in one bucket; `sparse` has about 6 % members (the
+    full-size cell's share); `outside` has none; `one_bin` puts every item
+    in bucket k // 2; `tile_edges` changes bucket at every tile edge and one
+    item either side of it, with every third tile all outside [0, k)."""
+    if case == "hot":
+        dest = rng.integers(-1, k + 2, (b, m)).astype(np.int32)
+        dest[:, : m // 3] = k // 2
+    elif case == "sparse":
+        dest = np.where(rng.random((b, m)) < 0.06, rng.integers(0, k, (b, m)),
+                        -1).astype(np.int32)
+    elif case == "outside":
+        vals = np.array([-1, k, k + 5, -2**31, 2**31 - 1], np.int32)
+        dest = vals[rng.integers(0, len(vals), (b, m))]
+    elif case == "one_bin":
+        dest = np.full((b, m), k // 2, np.int32)
+    else:
+        tile = bp.bucket_geometry(k)[0]
+        i = np.arange(m)
+        dest = np.broadcast_to(((i // tile) % k).astype(np.int32), (b, m))
+        edge = i % tile
+        dest = np.where((edge == 0) | (edge == tile - 1), (dest + 1) % k, dest)
+        dest = np.where((i // tile) % 3 == 2, -1, dest).astype(np.int32)
+    return np.ascontiguousarray(dest)
+
+
+@pytest.mark.parametrize("b,m,k,cap,w,case", [
+    pytest.param(1, 0, 8, 4, 3, "hot", id="1-0-8-4"),
+    pytest.param(2, 1, 1, 1, 3, "hot", id="2-1-1-1"),
+    pytest.param(8, 5000, 8, 700, 3, "hot", id="8-5000-8-700"),
+    pytest.param(3, 70000, 33, 100, 3, "hot", id="3-70000-33-100"),
+    pytest.param(2, 20000, 256, 200, 3, "hot", id="2-20000-256-200"),
+    pytest.param(8, 4_456_448, 8, 131_072, 3, "sparse", id="cell"),
+    pytest.param(3, 50_000, 8, 10, 3, "outside", id="outside"),
+    pytest.param(2, 40_000, 8, 40_000, 3, "one_bin", id="one-bin-fits"),
+    pytest.param(2, 40_000, 8, 9_000, 3, "one_bin", id="one-bin-overflows"),
+    pytest.param(2, 9 * 2048, 4, 6_000, 3, "tile_edges", id="tile-edges"),
+    pytest.param(3, 3 * 2048 + 77, 8, 400, 3, "hot", id="ragged-m"),
+    pytest.param(2, 30_001, 8, 2_000, 1, "hot", id="w1"),
+    pytest.param(2, 30_001, 8, 2_000, 9, "hot", id="w9"),
+    pytest.param(2, 30_001, 8, 2_000, 25, "hot", id="w25-in-place"),
+    pytest.param(2, 60_000, 4096, 5, 3, "hot", id="k4096"),
+    pytest.param(2, 60_000, 5000, 5, 3, "hot", id="k5000-in-place"),
+    pytest.param(3, 20_000, 8, 1, 3, "hot", id="cap1")])
+def test_bucket_rank_and_pack_kernels(dev, b, m, k, cap, w, case):
     """Forced overflow where cap is below the buckets' sizes: the ranks
-    must be the plain version's exactly."""
-    rng = np.random.default_rng(b * m + k)
-    dest = rng.integers(-1, k + 2, (b, m)).astype(np.int32)
-    dest[:, : m // 3] = k // 2                    # one hot bucket
-    dest = torch.from_numpy(dest).to(dev)
-    rows = torch.from_numpy(rng.integers(0, 1000, (b, m, 3))
+    must be the plain version's exactly.  `ragged-m` leaves the last tile
+    short and rows after the first unaligned for 16-byte loads; k = 4096
+    keeps the pack's counters in shared memory while bucket_rank's 4,097
+    bins, and every bin of k = 5000, take the warp walk over device
+    memory."""
+    rng = np.random.default_rng(b * m + k + w)
+    dest = torch.from_numpy(_bucket_dests(rng, b, m, k, case)).to(dev)
+    rows = torch.from_numpy(rng.integers(0, 1000, (b, m, w))
                             .astype(np.int32)).to(dev)
     for got, want in zip(bp.bucket_rank_cuda(dest, k),
                          bp.bucket_rank_host(dest, k)):
         _eq(got, want)
     for got, want in zip(ops.bucket_pack(dest, rows, k, cap),
                          bp.bucket_pack_host(dest, rows, k, cap)):
+        _eq(got, want)
+
+
+def test_bucket_pack_allocates_no_rank(dev):
+    """The pack's scratch is its tile counts and histogram: far below the
+    (B, m) int32 rank bucket_rank returns."""
+    b, m, k, cap = 4, 1 << 20, 8, 16
+    rng = np.random.default_rng(3)
+    dest = torch.from_numpy(_bucket_dests(rng, b, m, k, "sparse")).to(dev)
+    rows = torch.from_numpy(rng.integers(0, 1000, (b, m, 1))
+                            .astype(np.int32)).to(dev)
+    bp.bucket_pack_cuda(dest, rows, k, cap)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    out = bp.bucket_pack_cuda(dest, rows, k, cap)
+    torch.cuda.synchronize()
+    grown = torch.cuda.max_memory_allocated() - before
+    assert grown < b * m * 4 // 8, grown
+    for got, want in zip(out, bp.bucket_pack_host(dest, rows, k, cap)):
         _eq(got, want)
 
 

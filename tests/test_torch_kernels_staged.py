@@ -162,6 +162,17 @@ def test_bucket_rank_and_pack_match_jax(k, m, case):
         assert int(r_over) == int(over[b])
 
 
+@pytest.mark.parametrize("n_bins,shared", [(1, True), (9, True),
+                                            (4096, True), (4097, False),
+                                            (20001, False)])
+def test_bucket_geometry(n_bins, shared):
+    """csrc/bucket_pack.cu's geometry: 2,048-item tiles whatever the row
+    width (records are copied in place, never staged, so no width limit);
+    counters in shared memory up to 4,096 bins (k, or k + 1 with
+    bucket_rank's sentinel), past it in device memory."""
+    assert tbp.bucket_geometry(n_bins) == (2048, shared)
+
+
 @pytest.mark.parametrize("k,m,cap", [(7, 300, 40), (33, 700, 3)])
 def test_bucket_pack_matches_interpret_kernel_with_overflow(k, m, cap):
     """Forced overflow: the ranks decide which rows are dropped, so they
