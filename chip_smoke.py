@@ -6,7 +6,7 @@ one NVIDIA GPU.
 
 Phases (any failure exits non-zero; nothing is caught and carried on):
   1. the card's name and power limit (nvidia-smi);
-  2. build the fourteen CUDA kernels from src/repro_torch/kernels/csrc;
+  2. build the fifteen CUDA kernels from src/repro_torch/kernels/csrc;
   3. the full-size cell end to end on the kernels (fused map + hash
      reduce, the default `ExecutorConfig`): R(A,B) ⋈ S(B,C) with
      2^21 rows per relation, one heavy hitter B = 0 of 12,288 rows, a tail
@@ -15,8 +15,9 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      and read just after.  Requires zero overflow, the exact join size
      Σ_v c_R(v)·c_S(v), rows equal to the same step on the plain versions
      (`use_kernels=False`) on the card, and no new step on a second batch;
-     a profile of a warm batch that must name build_table's and
-     scatter_pack's kernels;
+     a profile of a warm batch that must name build_table's, scatter_pack's
+     and probe_tables' kernels and hold no torch row-wise scan
+     (`tensor_kernel_scan_innermost_dim`, the plain probe's cumsum);
   4. every kernel against its plain version on the card at the shapes of
      that run, bit for bit, with kernel, plain and bound times; the bound
      counts what this run's data needs (valid rows only, matched rows only
@@ -28,6 +29,8 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      own bound and its device time; build_table is recorded with its
      device time, and beside it on the cell's right side with every valid
      row given one heavy-hitter row's keys (one bucket a destination);
+     probe_tables likewise on the cell's tables and on that hot bucket,
+     each with its device time and each of its kernels' share;
      scatter_pack is recorded on R (the entry) and S with their device
      times (each of its kernels' share printed), and on R with every
      member copy on one device (a placement table of zeros) at a cap that
@@ -124,6 +127,10 @@ KERNEL_SITES = {
                   "src/repro/kernels/join_probe.py:195", FUSED_HASH),
     "build_table": ("src/repro_torch/kernels/csrc/join_probe.cu",
                     "src/repro/kernels/join_probe.py:234", FUSED_HASH),
+    # XLA in the reference, no pallas_call: `probe_tables` and its
+    # while_loop `_chain_probe` (:328).
+    "probe_tables": ("src/repro_torch/kernels/csrc/probe_tables.cu",
+                     "src/repro/kernels/join_probe.py:426", FUSED_HASH),
     "expand_rows": ("src/repro_torch/kernels/csrc/expand_rows.cu",
                     "src/repro/kernels/scatter_pack.py:246", FUSED_HASH),
     "route_cells": ("src/repro_torch/kernels/csrc/route_cells.cu",
@@ -146,12 +153,19 @@ KERNEL_SITES = {
                           "src/repro/kernels/segment_histogram.py:36",
                           MOE_SERVE),
 }
-# The CUDA kernels of build_table (csrc/join_probe.cu) and scatter_pack
-# (csrc/scatter_pack.cu), named in the fused + hash profile wherever they
-# rank; each must appear there.
+# The CUDA kernels of build_table (csrc/join_probe.cu), scatter_pack
+# (csrc/scatter_pack.cu) and probe_tables (csrc/probe_tables.cu, which
+# also runs build_table's digit kernels), named in the fused + hash profile
+# wherever they rank; each must appear there.  The plain probe's row-wise
+# cumsum must not.
 BUILD_KERNELS = ("digit_tile_kernel", "tile_carry_kernel")
 SCATTER_KERNELS = ("scatter_count_kernel", "scatter_rank_kernel",
                    "scatter_fill_kernel")
+PROBE_KERNELS = ("probe_starts_kernel", "probe_place_kernel",
+                 "probe_walk_kernel", "probe_merge_kernel",
+                 "probe_round_kernel", "probe_final_kernel",
+                 "probe_left_kernel")
+TORCH_SCAN = "tensor_kernel_scan_innermost_dim"
 # The CUDA kernels of segment_scan / run_lengths (csrc/build_probe.cu) and
 # of bucket_pack (csrc/bucket_pack.cu; its -1 fill is common.cuh's), each of
 # which must appear in the staged + sort profile.
@@ -298,14 +312,15 @@ def out_capacity_from_fragments(frag_l, frag_r, lcols, rcols, quantize):
 
 
 def profile_calls(fn, label: str, calls: int = 1, top: int = 12,
-                  tag: str = "profile", named: tuple[str, ...] = ()
-                  ) -> set[str]:
+                  tag: str = "profile", named: tuple[str, ...] = (),
+                  banned: tuple[str, ...] = ()) -> set[str]:
     """Where `calls` warm calls of `fn` spend device time: torch.profiler's
     per-kernel sums, and the device-busy share of their wall time; then
-    every kernel whose name holds one of `named`, in the top or not.  A
-    trace that holds no device event, or misses a kernel of `named` (the
-    profiler can drop events), is taken again, up to three times in all.
-    Returns the names of `named` that some kernel's name holds."""
+    every kernel whose name holds one of `named` or `banned`, in the top or
+    not.  A trace that holds no device event, or misses a kernel of `named`
+    (the profiler can drop events), is taken again, up to three times in
+    all.  Returns the names of `named` and `banned` that some kernel's name
+    holds."""
     from torch.profiler import ProfilerActivity, profile
     for _ in range(3):
         torch.cuda.synchronize()
@@ -335,7 +350,7 @@ def profile_calls(fn, label: str, calls: int = 1, top: int = 12,
               f"x{e.count:<4d} {e.key[:90]}")
     found = set()
     for e in events:
-        hits = {name for name in named if name in e.key}
+        hits = {name for name in named + banned if name in e.key}
         if hits:
             found |= hits
             print(f"[{tag}]   named: {e.self_device_time_total / 1e3:9.3f} ms "
@@ -348,8 +363,8 @@ def expected_launches(ex, fields) -> dict[str, int]:
     one run_batch under the arm `fields`: the fused map counts and packs
     each relation once; the staged map routes once per (relation, route
     with hashed attributes) in prepare and again in the step, and folds
-    and packs each relation once; each cascade step hashes, builds and
-    expands once (hash), or scans twice (group ids, run lengths) and
+    and packs each relation once; each cascade step hashes, builds, probes
+    and expands once (hash), or scans twice (group ids, run lengths) and
     expands once (sort-merge)."""
     n_rel = len(ex.query.relations)
     steps = n_rel - 1
@@ -362,7 +377,8 @@ def expected_launches(ex, fields) -> dict[str, int]:
         want.update(route_cells=2 * hashed, fold_cells=n_rel,
                     bucket_pack=n_rel)
     if fields.get("hash_reduce", True):
-        want.update(join_hash=steps, build_table=steps, expand_rows=steps)
+        want.update(join_hash=steps, build_table=steps, probe_tables=steps,
+                    expand_rows=steps)
     else:
         want.update(segment_scan=2 * steps, expand_rows=steps)
     return want
@@ -475,11 +491,11 @@ def full_cell(dev):
 
     print(f"[cell] prepare {t_prepare * 1e3:.1f} ms")
     warm_batches(ex, s, "cell", exact)
-    named = profile_calls(s.run_batch, "warm run_batch",
-                          named=BUILD_KERNELS + SCATTER_KERNELS)
-    check(named == set(BUILD_KERNELS + SCATTER_KERNELS),
-          f"kernels missing from the warm batch's profile: "
-          f"{set(BUILD_KERNELS + SCATTER_KERNELS) - named}")
+    must = BUILD_KERNELS + SCATTER_KERNELS + PROBE_KERNELS
+    named = profile_calls(s.run_batch, "warm run_batch", named=must,
+                          banned=(TORCH_SCAN,))
+    check(named == set(must), f"the warm batch's profile misses "
+          f"{set(must) - named} or holds {named - set(must)}")
 
     # The same step on the plain versions, on the card.
     out_k, valid_k = res.tensors[0], res.tensors[1]
@@ -625,16 +641,39 @@ def kernel_checks(cell):
     check(bool(hh_rows.any()), "build_table: no heavy-hitter row on the right")
     rk_one = torch.where(rv[..., None], rk[hh_rows][0], rk).contiguous()
     one = {}
-    record(one, "build_table", jp.build_table_cuda, jp.build_table_host,
-           (rk_one, rv, bits), build_bytes, build_ops, 10)
+    table_one = record(one, "build_table", jp.build_table_cuda,
+                       jp.build_table_host, (rk_one, rv, bits), build_bytes,
+                       build_ops, 10)
     for dst, keys, label in ((out, rk, "cell"), (one, rk_one, "one bucket")):
         dst["build_table"]["device_ms"] = device_ms(
             lambda keys=keys: jp.build_table_cuda(keys, rv, bits), 10)
         print(f"[kernel] build_table {label}: device "
               f"{dst['build_table']['device_ms']:.4f} ms")
     out["build_table"]["one_bucket"] = one["build_table"]
-    del rk_one, one, hh_rows
-    counts, lo, perm = jp.probe_tables(lk, bl, rk, br, rank, hist, bits)
+    # probe_tables on the cell's tables (the main path's call) and on the
+    # hot bucket's (the cell's left side against rk_one: ~270K rows of one
+    # key a destination).  Bytes: r_bkt, rank, hist, the valid right keys,
+    # l_bkt and the valid left keys read once; perm, counts and lo written.
+    # Operations: a compare per key column of each valid row on either side.
+    probe_bytes = 4 * (3 * rv.numel() + hist.numel() + n_rv * w_key
+                       + 3 * lv.numel() + n_lv * w_key)
+    probe_ops = (n_rv + n_lv) * w_key
+    for dst, args, label in (
+            (out, (lk, bl, rk, br, rank, hist, bits), "cell"),
+            (one, (lk, bl, rk_one, *table_one, bits), "hot bucket")):
+        got = record(dst, "probe_tables", jp.probe_tables_cuda,
+                     jp.probe_tables_host, args, probe_bytes, probe_ops, 10)
+        rec = dst["probe_tables"]
+        rec["device_ms"] = device_ms(
+            lambda args=args: jp.probe_tables_cuda(*args), 10,
+            split=f"probe_tables {label}")
+        print(f"[kernel] probe_tables {label}: device {rec['device_ms']:.4f} "
+              f"ms (bound {rec['bound_ms']:.4f} ms), max count "
+              f"{int(got[0].max())}")
+        if label == "cell":
+            counts, lo, perm = got
+    out["probe_tables"]["hot_bucket"] = one["probe_tables"]
+    del rk_one, one, hh_rows, table_one, got
     cap_out = cell["cap_out"]
     del frags, bl, br, rank, hist, lk, rk
     torch.cuda.empty_cache()

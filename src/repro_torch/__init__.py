@@ -10,9 +10,10 @@ Layout mirrors the JAX package module for module:
             dispatch planner (`moe_shares`)
   data/     synthetic skewed workloads
   kernels/  the fourteen kernels, one for each TPU kernel of the
-            reference: CUDA sources in `csrc/`, their plain PyTorch
-            versions beside each wrapper, the dispatch and launch counts
-            in `ops.py` and the build in `_build.py`
+            reference, and the hash reduce's chained probe, which the
+            reference leaves to XLA: CUDA sources in `csrc/`, their
+            plain PyTorch versions beside each wrapper, the dispatch and
+            launch counts in `ops.py` and the build in `_build.py`
   models/   the MoE transformer (mixtral-8x22b, kimi-k2) and its layers
   serve/    serve steps and the continuous-batching `ServingEngine`
 

@@ -46,7 +46,7 @@ import numpy as np
 import torch
 
 from ..kernels import ops
-from ..kernels.join_probe import default_bits, probe_tables
+from ..kernels.join_probe import default_bits
 from ..kernels.map_pack import count_scatter
 from .hypercube import hash_seed
 from .placement import (CellPlacement, check_fold, modulo_placement,
@@ -401,7 +401,8 @@ def _probe_hash(lk: torch.Tensor, l_valid: torch.Tensor, rk: torch.Tensor,
     bl = ops.join_hash(lk, l_valid, bits, use_kernels=use_kernels)
     br, rank, hist = ops.build_table(rk, r_valid, bits,
                                      use_kernels=use_kernels)
-    return probe_tables(lk, bl, rk, br, rank, hist, bits)
+    return ops.probe_tables(lk, bl, rk, br, rank, hist, bits,
+                            use_kernels=use_kernels)
 
 
 def _local_join(frags: dict[str, torch.Tensor], query: JoinQuery,

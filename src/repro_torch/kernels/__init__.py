@@ -1,2 +1,3 @@
-"""The fourteen kernels: CUDA sources (`csrc/`), plain PyTorch versions,
-the dispatch (`ops`) and the build (`_build`)."""
+"""The fifteen kernels (the fourteen TPU kernels and the hash reduce's
+chained probe): CUDA sources (`csrc/`), plain PyTorch versions, the
+dispatch (`ops`) and the build (`_build`)."""

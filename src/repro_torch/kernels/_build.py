@@ -37,6 +37,8 @@ SIGNATURES = {
     "join_hash_launch": [P, P, LL, I, I, P, P],
     "build_table_launch": [P, P, I, I, I, I, I, I, P, P, P, P, P, P, P, P, P,
                            P],
+    "probe_tables_launch": [P, P, I, I, P, P, P, P, LL, I, I, I, I, I, I, P,
+                            P, P, P, P, P, P, P, P, P, P, P, P, P],
     "expand_rows_launch": [P, P, P, P, P, I, LL, I, LL, I, LL, P, I, P, I, I,
                            LL, P, P, P, P, LL, P, P, P, P],
     "route_cells_launch": [P, LL, I, P, I, P, P],

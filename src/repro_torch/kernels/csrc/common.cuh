@@ -200,6 +200,14 @@ static inline cudaError_t launch_scan_rows(int* data, long long n_rows,
   return cudaGetLastError();
 }
 
+// build_table's stable rank of each row's bucket, digit by digit
+// (csrc/join_probe.cu); with keys == nullptr, bkt holds the buckets already.
+cudaError_t repro_rank_buckets(const int* keys, const unsigned char* valid,
+                               int B, int n, int w, int n_bits,
+                               int digit_bits, int n_tiles, int* th, int* tot,
+                               int* key_a, int* idx_a, int* key_b, int* idx_b,
+                               int* bkt, int* rank, int* tab, cudaStream_t s);
+
 static inline unsigned blocks_for(long long n, int threads) {
   long long b = (n + threads - 1) / threads;
   return (unsigned)(b < 1 ? 1 : b);

@@ -12,14 +12,17 @@ Hash: h = (Σ_c key_c · seed_c) · MULT over uint32, seed_c =
 (0x9E3779B1 + 2c·0x85EBCA77) | 1, bucket = the top n_bits bits; invalid rows
 land in the sentinel bucket P = 2^n_bits.
 
-`join_hash_host` / `build_table_host` are the plain versions (int64 masked
-arithmetic, one stable sort for the rank); `*_cuda` launch
-csrc/join_probe.cu.  The CUDA build ranks the buckets digit by digit, low
-digit first (digits of at most MAX_DIGIT_BITS bits, counters in shared
-memory, tiles of RANK_TILE_ROWS rows), so its scratch grows with B·n and
-not with the table size; it takes 1 ≤ n_bits ≤ MAX_BUILD_BITS.
-`probe_tables` / `_chain_probe` are torch ops on every device, as the
-reference leaves them to XLA.
+`join_hash_host` / `build_table_host` / `probe_tables_host` are the plain
+versions (int64 masked arithmetic, one stable sort for the rank, the
+reference's chained rounds as torch ops); `*_cuda` launch
+csrc/join_probe.cu and csrc/probe_tables.cu.  The CUDA build ranks the
+buckets digit by digit, low digit first (digits of at most MAX_DIGIT_BITS
+bits, counters in shared memory, tiles of RANK_TILE_ROWS rows), so its
+scratch grows with B·n and not with the table size; it takes 1 ≤ n_bits ≤
+MAX_BUILD_BITS.  The CUDA probe numbers each bucket's keys in one walk of
+the packed table and orders the groups by a stable rank of their rounds
+(the build's digit passes), with no host sync; the reference leaves the
+probe to XLA.
 """
 from __future__ import annotations
 
@@ -39,6 +42,9 @@ _SEED_STEP = 0x85EBCA77
 RANK_TILE_ROWS = 4096
 MAX_DIGIT_BITS = 10
 MAX_BUILD_BITS = 30
+# The CUDA probe's scans of long rows: items a block scans
+# (csrc/probe_tables.cu's SCAN_CHUNK).
+SCAN_CHUNK = 4096
 
 
 def col_seeds(w: int) -> tuple[int, ...]:
@@ -209,14 +215,15 @@ def _chain_probe(lk: torch.Tensor, rk: torch.Tensor, perm1: torch.Tensor,
     return (cnt.to(torch.int32), lo.to(torch.int32), perm.to(torch.int32))
 
 
-def probe_tables(lk: torch.Tensor, l_bkt: torch.Tensor, rk: torch.Tensor,
-                 r_bkt: torch.Tensor, rank: torch.Tensor, hist: torch.Tensor,
-                 n_bits: int
-                 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Chained build+probe from `join_hash` (left) and `build_table` (right)
-    outputs: lays the right side out as the compact per-bucket table
-    (starts[bucket] + rank, sentinel bucket last) and runs `_chain_probe`
-    with buckets as the partitions."""
+def probe_tables_host(lk: torch.Tensor, l_bkt: torch.Tensor,
+                      rk: torch.Tensor, r_bkt: torch.Tensor,
+                      rank: torch.Tensor, hist: torch.Tensor, n_bits: int
+                      ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain version of `probe_tables`, the chained build+probe from
+    `join_hash` (left) and `build_table` (right) outputs: lays the right
+    side out as the compact per-bucket table (starts[bucket] + rank,
+    sentinel bucket last) and runs `_chain_probe` with buckets as the
+    partitions."""
     b, n_l = lk.shape[:2]
     n_r = rk.shape[1]
     p = 1 << n_bits
@@ -242,3 +249,67 @@ def probe_tables(lk: torch.Tensor, l_bkt: torch.Tensor, rk: torch.Tensor,
     l_miss = (l_bkt >= p) | (torch.gather(hist_full, 1, l_safe) == 0)
     return _chain_probe(lk, rk, perm1, rstart, rend,
                         torch.gather(starts, 1, l_safe), l_miss, fpos0)
+
+
+def probe_tables_cuda(lk: torch.Tensor, l_bkt: torch.Tensor,
+                      rk: torch.Tensor, r_bkt: torch.Tensor,
+                      rank: torch.Tensor, hist: torch.Tensor, n_bits: int
+                      ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Launch csrc/probe_tables.cu: (counts (B, n_l), lo (B, n_l), perm
+    (B, n_r)) int32, equal to `probe_tables_host`'s.  Scratch: the
+    (B, P + 1) starts, eight (B, n_r) arrays, the digit passes of a stable
+    rank over 2^rbits rounds (rbits covers n_r - 1: a bucket has no more
+    keys than rows) with their (B, 2^rbits + 1) histogram, and a sum per
+    SCAN_CHUNK items of the longer of the two scanned rows.  Raises
+    `KernelError` outside 1 ≤ n_bits ≤ MAX_BUILD_BITS or past 2^30 rows."""
+    lk, rk = _build.as_i32(lk, "lk"), _build.as_i32(rk, "rk")
+    l_bkt, r_bkt = _build.as_i32(l_bkt, "l_bkt"), _build.as_i32(r_bkt, "r_bkt")
+    rank = _build.as_i32(rank, "rank")
+    # build_table's hist, a view of its (B, P + 1) table, is read in place.
+    if not (hist.device.type == "cuda" and hist.dtype == torch.int32
+            and hist.dim() == 2 and hist.stride(1) == 1):
+        hist = _build.as_i32(hist, "hist")
+    if not 1 <= n_bits <= MAX_BUILD_BITS:
+        raise _build.KernelError(
+            f"probe_tables: n_bits {n_bits} outside 1..{MAX_BUILD_BITS}")
+    b, n_l, w = lk.shape
+    n_r = rk.shape[1]
+    p = 1 << n_bits
+    if (rk.shape != (b, n_r, w) or l_bkt.shape != (b, n_l)
+            or r_bkt.shape != (b, n_r) or rank.shape != (b, n_r)
+            or hist.shape != (b, p) or w < 1):
+        raise ValueError(
+            f"probe_tables: shapes lk {tuple(lk.shape)}, l_bkt "
+            f"{tuple(l_bkt.shape)}, rk {tuple(rk.shape)}, r_bkt "
+            f"{tuple(r_bkt.shape)}, rank {tuple(rank.shape)}, hist "
+            f"{tuple(hist.shape)} do not fit n_bits {n_bits}")
+    dev = lk.device
+    if b * n_r == 0:
+        z = torch.zeros((b, n_l), dtype=torch.int32, device=dev)
+        return z, z.clone(), torch.zeros((b, n_r), dtype=torch.int32,
+                                         device=dev)
+    rbits = max(1, (n_r - 1).bit_length())
+    passes, digit_bits = build_digits(rbits)
+    n_tiles = -(-n_r // RANK_TILE_ROWS)
+    nb = (1 << digit_bits) + 1
+    i32 = dict(dtype=torch.int32, device=dev)
+    st = torch.empty((b, p + 1), **i32)
+    slots = torch.empty((8, b, n_r), **i32)
+    th = torch.empty(b * nb * n_tiles, **i32)
+    tot = torch.empty(b * nb, **i32)
+    n_pairs = 2 * min(passes - 1, 2)
+    pairs = torch.empty((n_pairs, b, n_r), **i32)
+    pair_ptrs = [x.data_ptr() for x in pairs] + [0] * (4 - n_pairs)
+    rtab = torch.empty((b, (1 << rbits) + 1), **i32)
+    csum = torch.empty(b * -(-(max(p, 1 << rbits) + 1) // SCAN_CHUNK), **i32)
+    counts = torch.empty((b, n_l), **i32)
+    lo = torch.empty((b, n_l), **i32)
+    perm = torch.empty((b, n_r), **i32)
+    _build.call("probe_tables_launch", lk.data_ptr(), l_bkt.data_ptr(), b,
+                n_l, rk.data_ptr(), r_bkt.data_ptr(), rank.data_ptr(),
+                hist.data_ptr(), hist.stride(0), n_r, w, n_bits, rbits,
+                digit_bits, n_tiles, st.data_ptr(), slots.data_ptr(),
+                th.data_ptr(), tot.data_ptr(), *pair_ptrs, rtab.data_ptr(),
+                csum.data_ptr(), counts.data_ptr(), lo.data_ptr(),
+                perm.data_ptr(), _build.stream(lk))
+    return counts, lo, perm

@@ -1,9 +1,11 @@
 """Dispatch of the ported kernels, with launch counts.
 
-Fourteen kernels, one for each TPU kernel of the reference package: the
-join main path's `map_count`, `scatter_pack`, `join_hash`, `build_table`
-and `expand_rows`; the staged map's `route_cells`, `fold_cells` and
-`bucket_pack` (`fuse_map=False`); the sort-merge reduce's `segment_scan`
+Fifteen kernels: one for each TPU kernel of the reference package, and
+`probe_tables`, the hash reduce's chained probe, which the reference
+leaves to XLA: the join main path's `map_count`, `scatter_pack`,
+`join_hash`, `build_table`, `probe_tables` and `expand_rows`; the staged
+map's `route_cells`, `fold_cells` and `bucket_pack` (`fuse_map=False`);
+the sort-merge reduce's `segment_scan`
 (`hash_reduce=False`; `run_lengths` is the same kernel with run lengths,
 and counts under `segment_scan`); the kernel library's `map_pack`,
 `hash_partition`, `match_counts` and `first_match`, which the executor
@@ -84,6 +86,17 @@ def build_table(keys: torch.Tensor, valid: torch.Tensor, n_bits: int, *,
     if _on_card(keys, use_kernels):
         return jp.build_table_cuda(keys, valid, n_bits)
     return jp.build_table_host(keys, valid, n_bits)
+
+
+def probe_tables(lk: torch.Tensor, l_bkt: torch.Tensor, rk: torch.Tensor,
+                 r_bkt: torch.Tensor, rank: torch.Tensor, hist: torch.Tensor,
+                 n_bits: int, *, use_kernels: bool = True
+                 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(counts, lo, perm): each left row's matches are perm[lo, lo +
+    counts), every exact-key group of the right side contiguous."""
+    if _on_card(lk, use_kernels):
+        return jp.probe_tables_cuda(lk, l_bkt, rk, r_bkt, rank, hist, n_bits)
+    return jp.probe_tables_host(lk, l_bkt, rk, r_bkt, rank, hist, n_bits)
 
 
 def expand_rows(left: torch.Tensor, right: torch.Tensor, counts: torch.Tensor,

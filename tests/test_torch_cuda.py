@@ -213,6 +213,100 @@ def test_hash_and_build_kernels(dev, b, n, w, bits, recipe):
         _eq(got, want)
 
 
+def _probe_inputs(dev, b, n_l, n_r, w, bits, recipe, seed):
+    """(lk, l_bkt, rk, r_bkt, rank, hist) on the card from join_hash and
+    build_table's plain versions.  Keys: "few" (31 values a column, so
+    buckets hold several keys), "wide" (30-bit values, mostly distinct),
+    "hot" / "hot2" (every valid right row one key, or two keys of one
+    bucket interleaved; a third of the left rows carry them), "none" (no
+    valid row on either side); valid rows 26 % on the right (the cell's
+    share), 80 % on the left."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    high = 31 if recipe == "few" else 1 << 30
+    lk = torch.randint(0, high, (b, n_l, w), generator=gen, device=dev,
+                       dtype=torch.int32)
+    rk = torch.randint(0, high, (b, n_r, w), generator=gen, device=dev,
+                       dtype=torch.int32)
+    # half the left rows copy a right row, so most buckets see hits
+    pick = torch.randint(0, max(n_r, 1), (b, n_l // 2), generator=gen,
+                         device=dev)
+    if n_r:
+        lk[:, : n_l // 2] = torch.gather(
+            rk, 1, pick[..., None].expand(-1, -1, w))
+    lv = torch.rand((b, n_l), generator=gen, device=dev) < 0.8
+    rv = torch.rand((b, n_r), generator=gen, device=dev) < 0.26
+    if recipe in ("hot", "hot2"):
+        cand = torch.randint(0, 1 << 30, (1, 1 << 16, w), generator=gen,
+                             device=dev, dtype=torch.int32)
+        ones = torch.ones(cand.shape[:2], dtype=torch.bool, device=dev)
+        h = jp.join_hash_host(cand, ones, bits)[0]
+        vals, counts = torch.unique(h, return_counts=True)
+        two = torch.unique(cand[0, h == vals[counts.argmax()]], dim=0)[:2]
+        assert two.shape[0] == 2
+        which = (torch.arange(n_r, device=dev) % 2 if recipe == "hot2"
+                 else torch.zeros(n_r, dtype=torch.long, device=dev))
+        rk[:] = two[which]
+        lk[:, ::3] = two[torch.randint(0, 2, lk[:, ::3].shape[:2],
+                                       generator=gen, device=dev)]
+    if recipe == "none":
+        lv[:] = False
+        rv[:] = False
+    l_bkt = jp.join_hash_host(lk, lv, bits)
+    r_bkt, rank, hist = jp.build_table_host(rk, rv, bits)
+    return lk, l_bkt, rk, r_bkt, rank, hist
+
+
+def _probe_case(b, n_l, n_r, w, bits, recipe, id_=None):
+    return pytest.param(b, n_l, n_r, w, bits, recipe, id=id_ or
+                        f"{b}-{n_l}-{n_r}-{w}-{bits}-{recipe}")
+
+
+@pytest.mark.parametrize("b,n_l,n_r,w,bits,recipe", [
+    # the full-size cell's shape: 8 destinations, 2^20 rows a side, 16 bits
+    _probe_case(8, 1 << 20, 1 << 20, 2, 16, "wide"),
+    # the hot bucket: ~270K valid rows of one key, and of two keys
+    _probe_case(2, 1 << 16, 1 << 20, 2, 16, "hot"),
+    _probe_case(2, 1 << 16, 1 << 20, 3, 16, "hot2"),
+    # deep rounds: bits 1-2 with many keys (group lists past a warp's
+    # lanes, buckets across many tiles, keys new in later tiles)
+    _probe_case(2, 3000, 8000, 2, 1, "wide"),
+    _probe_case(2, 3000, 8000, 1, 2, "wide"),
+    _probe_case(3, 5000, 20000, 2, 2, "few"),
+    # no valid rows on either side, n_l = 0, n_r = 1, n_r = 0
+    _probe_case(3, 500, 700, 2, 8, "none"), _probe_case(2, 0, 900, 2, 6, "few"),
+    _probe_case(2, 300, 1, 2, 4, "few"), _probe_case(2, 300, 0, 2, 4, "few"),
+    # w = 1, 2, 3, 9; buckets of several keys (few); left rows in empty
+    # buckets (16 bits over a few hundred right rows)
+    _probe_case(4, 20000, 30000, 1, 9, "few"),
+    _probe_case(4, 20000, 30000, 2, 12, "few"),
+    _probe_case(4, 20000, 30000, 3, 7, "wide"),
+    _probe_case(4, 20000, 30000, 9, 10, "wide"),
+    _probe_case(2, 5000, 300, 2, 16, "wide")])
+def test_probe_tables_kernel(dev, b, n_l, n_r, w, bits, recipe):
+    """probe_tables' kernels against the plain version: one launch a call
+    (none for n_r = 0)."""
+    args = _probe_inputs(dev, b, n_l, n_r, w, bits, recipe, n_l + n_r + w)
+    ops.reset_launches()
+    got = ops.probe_tables(*args, bits)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["probe_tables"] == (1 if b * n_r else 0)
+    for g, w_ in zip(got, jp.probe_tables_host(*args, bits)):
+        assert g.dtype == torch.int32
+        _eq(g, w_)
+
+
+def test_probe_tables_wrapper_rejects_what_it_does_not_take(dev):
+    args = _probe_inputs(dev, 2, 30, 40, 2, 4, "few", 1)
+    ops.reset_launches()
+    with pytest.raises(KernelError, match="n_bits 31"):
+        jp.probe_tables_cuda(*args, 31)
+    with pytest.raises(ValueError):
+        jp.probe_tables_cuda(*args, 5)                   # hist of 16 buckets
+    with pytest.raises(ValueError):
+        jp.probe_tables_cuda(args[0][..., :1], *args[1:], 4)   # w 1 vs 2
+    assert all(v == 0 for v in ops.LAUNCHES.values())
+
+
 @pytest.mark.parametrize("b,n_l,n_r,cap", [(1, 1, 1, 4), (4, 300, 200, 5000),
                                            (8, 3000, 2500, 20000)])
 def test_expand_rows_kernel(dev, b, n_l, n_r, cap):
@@ -225,7 +319,8 @@ def test_expand_rows_kernel(dev, b, n_l, n_r, cap):
     bits = jp.default_bits(n_r)
     bl = jp.join_hash_host(lk, lv, bits)
     br, rank, hist = jp.build_table_host(rk, rv, bits)
-    counts, lo, perm = jp.probe_tables(lk, bl, rk, br, rank, hist, bits)
+    counts, lo, perm = jp.probe_tables_host(lk, bl, rk, br, rank, hist,
+                                            bits)
     left = torch.cat([lk, lk + 100], -1)
     right = torch.cat([rk, rk * 3], -1)
     got = ops.expand_rows(left, right, counts, lo, perm, cap)
@@ -616,11 +711,11 @@ def test_library_wrappers_reject_shapes_and_dtypes_they_do_not_take(dev):
 # Kernels each ExecutorConfig arm launches (prepare counts, k > n_dev).
 ARM_KERNELS = {
     (True, True): {"map_count", "scatter_pack", "join_hash", "build_table",
-                   "expand_rows"},
+                   "probe_tables", "expand_rows"},
     (True, False): {"map_count", "scatter_pack", "segment_scan",
                     "expand_rows"},
     (False, True): {"route_cells", "fold_cells", "bucket_pack", "join_hash",
-                    "build_table", "expand_rows"},
+                    "build_table", "probe_tables", "expand_rows"},
     (False, False): {"route_cells", "fold_cells", "bucket_pack",
                      "segment_scan", "expand_rows"},
 }

@@ -1,5 +1,5 @@
 """Plain torch versions of the reduce-side kernels (join_hash, build_table,
-expand_rows) and probe_tables vs the JAX package.
+probe_tables, expand_rows) vs the JAX package.
 
 The same numpy inputs go through the JAX functions (the `*_host` twins, the
 Pallas kernels in interpret mode at tiny sizes, the ref.py oracles) and the
@@ -16,6 +16,7 @@ from repro.kernels import join_probe as jjp
 from repro.kernels import ref as jref
 from repro.kernels import scatter_pack as jsp
 from repro_torch.kernels import join_probe as tjp
+from repro_torch.kernels import ops
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels._build import KernelError
 from repro_torch.kernels import scatter_pack as tsp
@@ -103,18 +104,76 @@ def test_build_table_matches_interpret_kernel(multi_pass):
             _np(jjp.join_hash(jk, jv, n_bits=bits, interpret=True)))
 
 
-@pytest.mark.parametrize("n_l,n_r,bits,domain", [
-    (0, 5, 3, 4), (6, 0, 3, 4), (50, 40, 1, 6), (120, 90, 2, 10),
-    (200, 300, 9, 25), (100, 100, 7, 3)])
-def test_probe_and_expand_match_jax(n_l, n_r, bits, domain):
-    rng = np.random.default_rng(n_l * 13 + n_r + bits)
-    lk, lv = _keys(rng, 2, n_l, 2, domain)
-    rk, rv = _keys(rng, 2, n_r, 2, domain)
+def _colliding_keys(n_keys, w, bits, rng):
+    """n_keys distinct keys (w columns) that all hash to one bucket."""
+    first = rng.integers(0, 1 << 20, (1, w)).astype(np.int32)
+    want = int(tjp.join_hash_host(torch.from_numpy(first[None]),
+                                  torch.ones((1, 1), dtype=torch.bool),
+                                  bits)[0, 0])
+    cand = rng.integers(0, 1 << 20, (4096, w)).astype(np.int32)
+    hit = tjp.join_hash_host(torch.from_numpy(cand[None]),
+                             torch.ones((1, 4096), dtype=torch.bool),
+                             bits)[0].numpy() == want
+    keys = np.unique(np.concatenate([first, cand[hit]]), axis=0)
+    assert len(keys) >= n_keys
+    return keys[:n_keys]
+
+
+def _probe_keys(recipe, n_l, n_r, w, bits, domain, seed):
+    """(lk, lv, rk, rv) numpy for the probe: "random" keys of `domain`
+    values a column; "deep" (few hundred distinct right keys, half the
+    left rows copies of right rows); "one_key" / "two_keys" (every valid
+    right row one key, or two keys of one bucket interleaved); "absent"
+    (left keys from a range the right side never draws)."""
+    rng = np.random.default_rng(seed)
+    lk, lv = _keys(rng, 2, n_l, w, domain)
+    rk, rv = _keys(rng, 2, n_r, w, domain)
+    if recipe == "deep":
+        pick = rng.integers(0, n_r, (2, n_l // 2))
+        lk[:, : n_l // 2] = np.take_along_axis(rk, pick[..., None], 1)
+    elif recipe in ("one_key", "two_keys"):
+        keys = _colliding_keys(2, w, bits, rng)
+        which = np.arange(n_r) % 2 if recipe == "two_keys" else np.zeros(
+            n_r, np.int64)
+        rk[:] = keys[which]
+        lk[:, ::3] = keys[rng.integers(0, 2, (2, len(range(0, n_l, 3))))]
+    elif recipe == "absent":
+        lk[:, ::2] += domain
+    return lk, lv, rk, rv
+
+
+def _probe_case(n_l, n_r, bits, domain, w=2, recipe="random", id_=None):
+    return pytest.param(n_l, n_r, w, bits, domain, recipe,
+                        id=id_ or f"{n_l}-{n_r}-{w}-{bits}-{recipe}")
+
+
+@pytest.mark.parametrize("n_l,n_r,w,bits,domain,recipe", [
+    _probe_case(0, 5, 3, 4, id_="0-5-3-4"),
+    _probe_case(6, 0, 3, 4, id_="6-0-3-4"),
+    _probe_case(50, 40, 1, 6, id_="50-40-1-6"),
+    _probe_case(120, 90, 2, 10, id_="120-90-2-10"),
+    _probe_case(200, 300, 9, 25, id_="200-300-9-25"),
+    _probe_case(100, 100, 7, 3, id_="100-100-7-3"),
+    # the inputs the CUDA probe must get right: deep rounds (one bucket
+    # of each of two hash values, a few hundred keys), every valid right
+    # row in one bucket with one key and with two keys interleaved, w = 1
+    # and 3, left keys absent from the right
+    _probe_case(150, 400, 1, 1 << 20, recipe="deep"),
+    _probe_case(30, 70, 5, 1 << 20, recipe="one_key"),
+    _probe_case(30, 70, 4, 1 << 20, w=3, recipe="two_keys"),
+    _probe_case(90, 60, 3, 12, w=1), _probe_case(60, 90, 5, 6, w=3),
+    _probe_case(80, 50, 4, 8, recipe="absent")])
+def test_probe_and_expand_match_jax(n_l, n_r, w, bits, domain, recipe):
+    lk, lv, rk, rv = _probe_keys(recipe, n_l, n_r, w, bits, domain,
+                                 n_l * 13 + n_r + bits)
     tlk, trk = torch.from_numpy(lk), torch.from_numpy(rk)
     tlv, trv = torch.from_numpy(lv), torch.from_numpy(rv)
     bl = tjp.join_hash_host(tlk, tlv, bits)
     br, rank, hist = tjp.build_table_host(trk, trv, bits)
-    counts, lo, perm = tjp.probe_tables(tlk, bl, trk, br, rank, hist, bits)
+    counts, lo, perm = tjp.probe_tables_host(tlk, bl, trk, br, rank, hist,
+                                             bits)
+    if recipe in ("one_key", "two_keys"):
+        assert int((hist > 0).sum()) == 2      # one bucket a batch row
     left = torch.cat([tlk, tlk * 5 + 1], -1)
     right = torch.cat([trk, trk - 7], -1)
     cap = max(8, int(counts.sum(1).max()) - 3)      # ragged: may truncate
@@ -143,6 +202,23 @@ def test_probe_and_expand_match_jax(n_l, n_r, bits, domain):
                                            cap=cap, interpret=True)
             np.testing.assert_array_equal(out[b].numpy(), _np(kout))
             np.testing.assert_array_equal(valid[b].numpy(), _np(kvalid))
+
+
+def test_probe_tables_on_the_cpu_runs_the_plain_version_and_launches_nothing():
+    lk, lv, rk, rv = _probe_keys("two_keys", 30, 70, 2, 4, 1 << 20, 3)
+    tlk, trk = torch.from_numpy(lk), torch.from_numpy(rk)
+    bl = tjp.join_hash_host(tlk, torch.from_numpy(lv), 4)
+    table = tjp.build_table_host(trk, torch.from_numpy(rv), 4)
+    want = tjp.probe_tables_host(tlk, bl, trk, *table, 4)
+    ops.reset_launches()
+    for use_kernels in (True, False):
+        got = ops.probe_tables(tlk, bl, trk, *table, 4,
+                               use_kernels=use_kernels)
+        for g, w_ in zip(got, want):
+            assert torch.equal(g, w_)
+    assert ops.LAUNCHES["probe_tables"] == 0
+    with pytest.raises(KernelError, match="CUDA"):
+        tjp.probe_tables_cuda(tlk, bl, trk, *table, 4)
 
 
 def test_join_probe_ref_matches_jax():
