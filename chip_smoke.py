@@ -29,8 +29,10 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      own bound and its device time; build_table is recorded with its
      device time, and beside it on the cell's right side with every valid
      row given one heavy-hitter row's keys (one bucket a destination);
-     probe_tables likewise on the cell's tables and on that hot bucket,
-     each with its device time and each of its kernels' share;
+     probe_tables likewise on the cell's tables, on that hot bucket and
+     at deep-round shapes (1-2 bits, 8,000-20,000 rows), each with its
+     device time and each of its kernels' share; map_count on R (the
+     entry) and S, each with its device time and its kernels' share;
      scatter_pack is recorded on R (the entry) and S with their device
      times (each of its kernels' share printed), and on R with every
      member copy on one device (a placement table of zeros) at a cap that
@@ -154,16 +156,15 @@ KERNEL_SITES = {
                           MOE_SERVE),
 }
 # The CUDA kernels of build_table (csrc/join_probe.cu), scatter_pack
-# (csrc/scatter_pack.cu) and probe_tables (csrc/probe_tables.cu, which
-# also runs build_table's digit kernels), named in the fused + hash profile
-# wherever they rank; each must appear there.  The plain probe's row-wise
-# cumsum must not.
+# (csrc/scatter_pack.cu) and probe_tables (csrc/probe_tables.cu), named in
+# the fused + hash profile wherever they rank; each must appear there.  The
+# plain probe's row-wise cumsum must not.
 BUILD_KERNELS = ("digit_tile_kernel", "tile_carry_kernel")
 SCATTER_KERNELS = ("scatter_count_kernel", "scatter_rank_kernel",
                    "scatter_fill_kernel")
 PROBE_KERNELS = ("probe_starts_kernel", "probe_place_kernel",
                  "probe_walk_kernel", "probe_merge_kernel",
-                 "probe_round_kernel", "probe_final_kernel",
+                 "probe_rank_kernel", "probe_perm_kernel",
                  "probe_left_kernel")
 TORCH_SCAN = "tensor_kernel_scan_innermost_dim"
 # The CUDA kernels of segment_scan / run_lengths (csrc/build_probe.cu) and
@@ -185,6 +186,11 @@ HIST_SHAPES = [(1 << 24, 384), (1 << 22, 1 << 16)]
 # package's `kernel_throughput` table times match_counts at.
 RANDOM_PAIR = dict(n_keys=1 << 20, n_probe=1 << 14, n_build=1 << 12,
                    key_range=1 << 30)
+# probe_tables' deep-round shapes, timed in phase 4 beside the cell's:
+# (B, n_l, n_r, w, n_bits, keys) with 1-2 bits, so a bucket holds
+# thousands of keys (the last one past 1,024).
+DEEP_PROBES = [(2, 3000, 8000, 2, 1, "wide"), (2, 3000, 8000, 1, 2, "wide"),
+               (3, 5000, 20000, 2, 2, "few"), (2, 3000, 20000, 2, 1, "wide")]
 
 
 def fail(msg: str) -> None:
@@ -548,6 +554,49 @@ def record(out, name, kern, plain, args, n_bytes, n_ops, iters,
     return got
 
 
+def deep_probe_inputs(dev, b, n_l, n_r, w, bits, keys, seed):
+    """probe_tables' inputs (lk, l_bkt, rk, r_bkt, rank, hist, bits) on the
+    card from join_hash's and build_table's plain versions, with keys
+    "wide" (30-bit values, mostly distinct) or "few" (31 values a column):
+    valid rows 26 % on the right (the cell's share), 80 % on the left, half
+    the left rows a right row's keys."""
+    from repro_torch.kernels import join_probe as jp
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    high = 31 if keys == "few" else 1 << 30
+    lk = torch.randint(0, high, (b, n_l, w), generator=gen, device=dev,
+                       dtype=torch.int32)
+    rk = torch.randint(0, high, (b, n_r, w), generator=gen, device=dev,
+                       dtype=torch.int32)
+    pick = torch.randint(0, n_r, (b, n_l // 2), generator=gen, device=dev)
+    lk[:, : n_l // 2] = torch.gather(rk, 1, pick[..., None].expand(-1, -1, w))
+    lv = torch.rand((b, n_l), generator=gen, device=dev) < 0.8
+    rv = torch.rand((b, n_r), generator=gen, device=dev) < 0.26
+    return (lk, jp.join_hash_host(lk, lv, bits), rk,
+            *jp.build_table_host(rk, rv, bits), bits)
+
+
+def deep_probes(dev) -> dict:
+    """probe_tables at the DEEP_PROBES shapes: equal to plain, with its
+    events, device time and each of its kernels' share."""
+    from repro_torch.kernels import join_probe as jp
+    deep = {}
+    for i, (b, n_l, n_r, w, bits, keys) in enumerate(DEEP_PROBES):
+        args = deep_probe_inputs(dev, b, n_l, n_r, w, bits, keys, i)
+        label = f"deep {b}x{n_r} w={w} bits={bits} {keys}"
+        n_rv = int((args[3] < (1 << bits)).sum())
+        n_lv = int((args[1] < (1 << bits)).sum())
+        dst = {}
+        record(dst, "probe_tables", jp.probe_tables_cuda, jp.probe_tables_host,
+               args, 4 * (3 * b * n_r + b * (1 << bits) + n_rv * w
+                          + 3 * b * n_l + n_lv * w), (n_rv + n_lv) * w, 5)
+        rec = deep[label] = dst["probe_tables"]
+        rec["device_ms"] = device_ms(lambda args=args: jp.probe_tables_cuda(
+            *args), 5, split=f"probe_tables {label}")
+        print(f"[kernel] probe_tables {label}: device "
+              f"{rec['device_ms']:.4f} ms")
+    return deep
+
+
 def kernel_checks(cell):
     """Phase 4: each kernel against its plain version at the cell's shapes."""
     from repro_torch.core.executor import (INVALID, exchange, shared_columns,
@@ -566,11 +615,22 @@ def kernel_checks(cell):
     # is R's (fanout 17).  Bytes: the rows, the (k,) table, the outputs in
     # full (the pack buffer's -1 padding is output).  Operations: routing,
     # plus one histogram add per member copy.
-    for rows, spec in ((rows_s, spec_s), (rows_r, spec_r)):
+    # Each with its device time and each of its kernels' share.
+    counted = {}
+    for name, rows, spec in (("S", rows_s, spec_s), ("R", rows_r, spec_r)):
         r_bytes, r_ops, members = route_work(rows, spec, k)
-        record(out, "map_count", mp.map_count_cuda, mp.map_count_host,
+        dst = {}
+        record(dst, "map_count", mp.map_count_cuda, mp.map_count_host,
                (rows, spec, k, n_dev), r_bytes + n_dev * k * 4,
                r_ops + members, 10)
+        rec = counted[name] = dst["map_count"]
+        rec["device_ms"] = device_ms(
+            lambda rows=rows, spec=spec: mp.map_count_cuda(rows, spec, k,
+                                                           n_dev), 10,
+            split=f"map_count {name}")
+        print(f"[kernel] map_count {name}: device {rec['device_ms']:.4f} ms "
+              f"(bound {rec['bound_ms']:.4f} ms)")
+    out["map_count"] = dict(counted["R"], S=counted["S"])
     # scatter_pack's entry is R's, with S's and R's on one device (every
     # member copy through a placement table of zeros, at a cap that holds
     # them all and at the cell's cap, which overflows) beside it; each with
@@ -673,6 +733,7 @@ def kernel_checks(cell):
         if label == "cell":
             counts, lo, perm = got
     out["probe_tables"]["hot_bucket"] = one["probe_tables"]
+    out["probe_tables"]["deep_rounds"] = deep_probes(lk.device)
     del rk_one, one, hh_rows, table_one, got
     cap_out = cell["cap_out"]
     del frags, bl, br, rank, hist, lk, rk

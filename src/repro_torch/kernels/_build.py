@@ -31,14 +31,14 @@ NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
 P, LL, I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 # argtypes of every C entry point (pointers and the stream as c_void_p).
 SIGNATURES = {
-    "map_count_launch": [P, LL, I, P, I, I, I, LL, P, P],
+    "map_count_launch": [P, LL, I, P, I, I, I, I, LL, P, P],
     "scatter_pack_launch": [P, I, LL, I, P, I, I, P, I, I, I, I, LL, P, P, P,
                             P, P],
     "join_hash_launch": [P, P, LL, I, I, P, P],
     "build_table_launch": [P, P, I, I, I, I, I, I, P, P, P, P, P, P, P, P, P,
                            P],
-    "probe_tables_launch": [P, P, I, I, P, P, P, P, LL, I, I, I, I, I, I, P,
-                            P, P, P, P, P, P, P, P, P, P, P, P, P],
+    "probe_tables_launch": [P, P, I, I, P, P, P, P, LL, I, I, I, I, P, P, P,
+                            P, P, P, P, P, P, P, P],
     "expand_rows_launch": [P, P, P, P, P, I, LL, I, LL, I, LL, P, I, P, I, I,
                            LL, P, P, P, P, LL, P, P, P, P],
     "route_cells_launch": [P, LL, I, P, I, P, P],

@@ -89,15 +89,6 @@ __device__ __forceinline__ int bucket_bin(int v, bool in, int k, int other) {
   return !in ? -1 : v >= 0 && v < k ? v : other;
 }
 
-// Adds one warp's 32 bins to their counters in shared memory (-1 counts
-// nowhere).  Every lane calls it.
-__device__ __forceinline__ void bucket_count_warp(int d, int* cnt) {
-  if (!__ballot_sync(REPRO_FULL_MASK, d >= 0)) return;
-  const unsigned same = __match_any_sync(REPRO_FULL_MASK, d);
-  if (d >= 0 && (threadIdx.x & 31) == __ffs(same) - 1)
-    atomicAdd(&cnt[d], __popc(same));
-}
-
 // Stage 1: per-tile bin counts, th[b, d, tile].  Each thread counts four
 // consecutive items at a time, read with one 16-byte load where the row is
 // aligned.

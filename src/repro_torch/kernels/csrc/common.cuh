@@ -92,6 +92,89 @@ __device__ __forceinline__ void warp_tile_walk(long long i0, long long i1,
   }
 }
 
+// The routing of scatter_pack's and map_count's kernels reads the int32
+// descriptor (kernels/map_pack.py::scatter_desc_tensor): route_desc's words
+// above wrapped to int32 (the values the routing truncates to), then each
+// route's first copy (n_routes + 1 words).
+//
+// Whether a (non-padding) row meets the eq / not-in constraints of the route
+// record `rec`.
+static __device__ __forceinline__ bool scatter_member(const int* row,
+                                                      const int* rec) {
+  const int ne = rec[1], nn = rec[2];
+  const int* p = rec + 3 + 4 * rec[0];
+  for (int i = 0; i < ne; ++i, p += 2)
+    if (row[p[0]] != p[1]) return false;
+  for (int i = 0; i < nn; ++i, p += 2)
+    if (row[p[0]] == p[1]) return false;
+  return true;
+}
+
+// The route's hashed base cell of a row (hashed_cell on int32 words).
+static __device__ __forceinline__ uint32_t scatter_base(const int* row,
+                                                       const int* rec) {
+  const int nh = rec[0];
+  const int* p = rec + 3;
+  uint32_t base = 0;
+  for (int i = 0; i < nh; ++i, p += 4) {
+    const uint32_t h = ((uint32_t)row[p[0]] * (uint32_t)p[1]) * REPRO_MULT;
+    base += (h >> (32 - p[2])) * (uint32_t)p[3];
+  }
+  return base;
+}
+
+// The device of an unwrapped cell: ptable[logical % k] (the division only
+// for a cell past k).
+static __device__ __forceinline__ int scatter_dev(const int* ptable, int k,
+                                                  int logical) {
+  return ptable[(unsigned)logical < (unsigned)k ? logical : logical % k];
+}
+
+// Copies a tile's n_words row words into shared memory (16-byte loads where
+// both ends allow); the caller's next barrier makes them visible.
+static __device__ __forceinline__ void scatter_stage_rows(const int* from,
+                                                          int n_words,
+                                                          int* to) {
+  if ((((uintptr_t)from) & 15) == 0 && (n_words & 3) == 0) {
+    const int4* f = reinterpret_cast<const int4*>(from);
+    int4* t = reinterpret_cast<int4*>(to);
+    for (int i = threadIdx.x; i < n_words / 4; i += blockDim.x) t[i] = f[i];
+  } else {
+    for (int i = threadIdx.x; i < n_words; i += blockDim.x) to[i] = from[i];
+  }
+}
+
+// Copies the descriptor into shared memory at `to` when kSharedDesc (the
+// caller's next barrier makes it visible) and returns where to read it.
+template <bool kSharedDesc>
+static __device__ __forceinline__ const int* scatter_desc(const int* desc,
+                                                          int desc_len,
+                                                          int* to) {
+  if constexpr (!kSharedDesc) return desc;
+  for (int i = threadIdx.x; i < desc_len; i += blockDim.x) to[i] = desc[i];
+  return to;
+}
+
+// Lets `fn` take `bytes` of dynamic shared memory; a refusal (past the
+// card's limit) is returned and cleared, so it does not surface at the next
+// launch of another kernel.
+static inline cudaError_t scatter_allow_smem(const void* fn, size_t bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  const cudaError_t err = cudaFuncSetAttribute(
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err != cudaSuccess) cudaGetLastError();
+  return err;
+}
+
+// Adds one warp's 32 bins to their counters (-1 counts nowhere), one add a
+// distinct bin.  Every lane calls it.
+static __device__ __forceinline__ void bucket_count_warp(int d, int* cnt) {
+  if (!__ballot_sync(REPRO_FULL_MASK, d >= 0)) return;
+  const unsigned same = __match_any_sync(REPRO_FULL_MASK, d);
+  if (d >= 0 && (threadIdx.x & 31) == __ffs(same) - 1)
+    atomicAdd(&cnt[d], __popc(same));
+}
+
 // overflow[r] = sum over the n_bins bins of row r of max(hist - cap, 0).
 static __global__ void bins_overflow_kernel(const int* hist, int n_rows,
                                             int n_bins, int cap,
@@ -199,14 +282,6 @@ static inline cudaError_t launch_scan_rows(int* data, long long n_rows,
                                                          totals);
   return cudaGetLastError();
 }
-
-// build_table's stable rank of each row's bucket, digit by digit
-// (csrc/join_probe.cu); with keys == nullptr, bkt holds the buckets already.
-cudaError_t repro_rank_buckets(const int* keys, const unsigned char* valid,
-                               int B, int n, int w, int n_bits,
-                               int digit_bits, int n_tiles, int* th, int* tot,
-                               int* key_a, int* idx_a, int* key_b, int* idx_b,
-                               int* bkt, int* rank, int* tab, cudaStream_t s);
 
 static inline unsigned blocks_for(long long n, int threads) {
   long long b = (n + threads - 1) / threads;

@@ -471,18 +471,16 @@ static __global__ void tile_carry_kernel(const int* skey, int B, int n,
 // tot: B * (2^digit_bits + 1); key_a, idx_a: B * n each (unused for one
 // digit), key_b, idx_b: the same from three digits on; tab: the
 // (B, 2^n_bits + 1) histogram table (its last column the sentinel's count).
-// With keys == nullptr the first pass hashes nothing: bkt already holds
-// each row's bucket in [0, 2^n_bits] (probe_tables ranks its slots' rounds
-// so, csrc/probe_tables.cu).
-cudaError_t repro_rank_buckets(const int* keys, const unsigned char* valid,
-                               int B, int n, int w, int n_bits,
-                               int digit_bits, int n_tiles, int* th, int* tot,
-                               int* key_a, int* idx_a, int* key_b, int* idx_b,
-                               int* bkt, int* rank, int* tab,
-                               cudaStream_t s) {
-  if (B == 0 || n == 0) return cudaSuccess;
+extern "C" int build_table_launch(const int* keys, const unsigned char* valid,
+                                  int B, int n, int w, int n_bits,
+                                  int digit_bits, int n_tiles, int* th,
+                                  int* tot, int* key_a, int* idx_a,
+                                  int* key_b, int* idx_b, int* bkt, int* rank,
+                                  int* tab, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (B == 0 || n == 0) return 0;
   if (n_tiles != (n + DIGIT_TILE - 1) / DIGIT_TILE)
-    return cudaErrorInvalidValue;
+    return (int)cudaErrorInvalidValue;
   const int passes = (n_bits + digit_bits - 1) / digit_bits;
   const long long nt = (1LL << n_bits) + 1;
   cudaError_t err;
@@ -493,12 +491,12 @@ cudaError_t repro_rank_buckets(const int* keys, const unsigned char* valid,
     const int top = j == passes - 1;
     const int bits = top ? n_bits - shift : digit_bits;
     const int nb = digit_bins(bits, top);
-    if (j == 0 && keys != nullptr)
+    if (j == 0)
       err = launch_digit<kHashCount>(keys, valid, w, n_bits, B, n, n_tiles,
                                      shift, bits, top, th, nullptr, nullptr,
                                      nullptr, bkt, nullptr, nullptr, nullptr,
                                      s);
-    else if (!top || passes == 1)
+    else if (!top)
       err = launch_digit<kCount>(keys, valid, w, n_bits, B, n, n_tiles,
                                  shift, bits, top, th, nullptr, key_in,
                                  nullptr, nullptr, nullptr, nullptr, nullptr,
@@ -508,15 +506,15 @@ cudaError_t repro_rank_buckets(const int* keys, const unsigned char* valid,
                                      shift, bits, top, th, nullptr, key_in,
                                      nullptr, nullptr, nullptr, nullptr,
                                      nullptr, s);
-    if (err != cudaSuccess) return err;
+    if (err != cudaSuccess) return (int)err;
     if (passes == 1) {   // one digit: the totals are the histogram
       if ((err = launch_scan_rows(th, (long long)B * nb, n_tiles, nb, nb, tab,
                                   s)) != cudaSuccess)
-        return err;
-      return launch_digit<kRankOnly>(keys, valid, w, n_bits, B, n, n_tiles,
-                                     shift, bits, top, th, nullptr, bkt,
-                                     nullptr, nullptr, nullptr, rank, nullptr,
-                                     s);
+        return (int)err;
+      return (int)launch_digit<kRankOnly>(keys, valid, w, n_bits, B, n,
+                                          n_tiles, shift, bits, top, th,
+                                          nullptr, bkt, nullptr, nullptr,
+                                          nullptr, rank, nullptr, s);
     }
     if (top) {
       tile_carry_kernel<<<blocks_for((long long)B * nb, REPRO_WARPS_PER_BLOCK),
@@ -525,37 +523,27 @@ cudaError_t repro_rank_buckets(const int* keys, const unsigned char* valid,
       if ((err = cudaGetLastError()) != cudaSuccess ||
           (err = cudaMemsetAsync(tab, 0, sizeof(int) * (size_t)(B * nt), s)) !=
               cudaSuccess)
-        return err;
-      return launch_digit<kRankLast>(keys, valid, w, n_bits, B, n, n_tiles,
-                                     shift, bits, top, th, nullptr, key_in,
-                                     idx_in, nullptr, nullptr, rank, tab, s);
+        return (int)err;
+      return (int)launch_digit<kRankLast>(keys, valid, w, n_bits, B, n,
+                                          n_tiles, shift, bits, top, th,
+                                          nullptr, key_in, idx_in, nullptr,
+                                          nullptr, rank, tab, s);
     }
     if ((err = launch_scan_rows(th, (long long)B * nb, n_tiles, nb, nb, tot,
                                 s)) != cudaSuccess ||
         (err = launch_scan_rows(tot, B, nb, 1, 1, nullptr, s)) != cudaSuccess)
-      return err;
+      return (int)err;
     int* key_out = j % 2 == 0 ? key_a : key_b;
     int* idx_out = j % 2 == 0 ? idx_a : idx_b;
     if ((err = launch_digit<kScatter>(keys, valid, w, n_bits, B, n, n_tiles,
                                       shift, bits, top, th, tot, key_in,
                                       idx_in, key_out, idx_out, nullptr,
                                       nullptr, s)) != cudaSuccess)
-      return err;
+      return (int)err;
     key_in = key_out;
     idx_in = idx_out;
   }
-  return cudaSuccess;
-}
-
-extern "C" int build_table_launch(const int* keys, const unsigned char* valid,
-                                  int B, int n, int w, int n_bits,
-                                  int digit_bits, int n_tiles, int* th,
-                                  int* tot, int* key_a, int* idx_a,
-                                  int* key_b, int* idx_b, int* bkt, int* rank,
-                                  int* tab, void* stream) {
-  return (int)repro_rank_buckets(keys, valid, B, n, w, n_bits, digit_bits,
-                                 n_tiles, th, tot, key_a, idx_a, key_b, idx_b,
-                                 bkt, rank, tab, (cudaStream_t)stream);
+  return 0;
 }
 
 extern "C" const char* repro_cuda_error_string(int err) {

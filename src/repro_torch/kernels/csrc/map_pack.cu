@@ -1,77 +1,151 @@
 // map_count (the prepare-time counting pass) and map_pack (the fused map's
 // per-copy streams) on the card.
 //
-// Replaces the Pallas `_map_count_kernel` (src/repro/kernels/map_pack.py:192,
-// launched by `map_count` at :298/:317).  Every row goes through every
-// residual route of its relation (eq / not-in constraints against the heavy
-// hitters, the -1 padding mask, multiply-shift hashes combined in mixed
-// radix, replication offsets) and each member copy adds one to
-// counts[source, logical % k], source = row / rows_per_src.
+// map_count replaces the Pallas `_map_count_kernel`
+// (src/repro/kernels/map_pack.py:192, launched by `map_count` at
+// :298/:317).  Every row goes through every residual route of its relation
+// (eq / not-in constraints against the heavy hitters, the -1 padding mask,
+// multiply-shift hashes combined in mixed radix, replication offsets) and
+// each member copy adds one to counts[source, logical % k], source =
+// row / rows_per_src (rows_per_src = max(n / n_src, 1); rows past
+// n_src * rows_per_src count toward nothing, as in the reference).
 //
 // Bound: reading the rows once (n * w * 4 bytes); the (n_src, k) output is
-// tiny.  The TPU kernel carries the histogram across a sequential grid; here
-// the counts do not depend on order, so each block owns a run of rows of ONE
-// source, histograms its copies with shared-memory atomics (k words) and
-// flushes the non-zero bins with one global atomic each.  Rows beyond
-// n_src * rows_per_src count toward nothing, as in the reference.
+// tiny.  The TPU kernel walks every (row, copy) with a histogram carried
+// across a sequential grid.  Here the counts do not depend on order, and
+// the work follows rows, as scatter_pack's count kernel does: a block of
+// MAP_COUNT_THREADS threads takes MAP_COUNT_ROWS_PER_BLOCK rows of ONE
+// source, a tile at a time copied into shared memory with one coalesced
+// read (1,024 rows, or as many as fit MAP_COUNT_ROW_WORDS words; one row at
+// the least).  The int32 descriptor (scatter_pack's) sits in shared memory
+// up to MAP_COUNT_SHARED_DESC_WORDS words, else it is read in place.  A
+// thread a row tests each route's eq / not-in constraints once and hashes a
+// member route once; a heavy-hitter route's many reps are spread over the
+// warp's lanes when its member rows are few.  The warp's cells are added to
+// counters in shared memory (k up to MAP_COUNT_SHARED_BINS, else in device
+// memory) with one add a distinct cell (__match_any_sync), and the block
+// flushes its non-zero counters with one device atomic each.  What holds
+// it above its bound: the flush's atomics (k a block) and the
+// load-then-count sequence of each tile within a block.
 #include "common.cuh"
 
 #define MAP_COUNT_THREADS 256
 #define MAP_COUNT_ROWS_PER_BLOCK 2048
+#define MAP_COUNT_TILE_ROWS 1024
+#define MAP_COUNT_ROW_WORDS 8192
 #define MAP_COUNT_SHARED_BINS 8192
+#define MAP_COUNT_SHARED_DESC_WORDS 4096
 
-static __global__ void map_count_kernel(const int* rows, long long n, int w,
-                                        const long long* desc, int k,
-                                        long long rows_per_src,
-                                        long long rows_per_block,
-                                        int use_shared, int* counts) {
-  extern __shared__ int hist[];
-  const int src = blockIdx.y;
-  const int F = (int)desc[0];
-  const long long r0 = (long long)src * rows_per_src + blockIdx.x * rows_per_block;
-  long long r1 = r0 + rows_per_block;
-  const long long src_end = (long long)(src + 1) * rows_per_src;
-  if (r1 > src_end) r1 = src_end;
-  if (r1 > n) r1 = n;
-  int* out = counts + (long long)src * k;
-  if (use_shared) {
-    for (int b = threadIdx.x; b < k; b += blockDim.x) hist[b] = 0;
-    __syncthreads();
+// Adds the cell of each lane's (row, copy) to bins; all 32 lanes call it
+// with the same route q.  `mine`: the lane's row is a member of the route.
+static __device__ __forceinline__ void map_count_route(bool mine,
+                                                       const int* row,
+                                                       const int* rec,
+                                                       const int* adds,
+                                                       int reps, int k,
+                                                       int* bins) {
+  const unsigned members = __ballot_sync(REPRO_FULL_MASK, mine);
+  if (!members) return;
+  const uint32_t base = mine ? scatter_base(row, rec) : 0;
+  auto cell = [k](uint32_t logical) {
+    return (int)(logical < (uint32_t)k ? logical : logical % (uint32_t)k);
+  };
+  if (__popc(members) * ((reps + 31) / 32) >= reps) {
+    for (int j = 0; j < reps; ++j)
+      bucket_count_warp(mine ? cell(base + (uint32_t)adds[2 * j]) : -1, bins);
+    return;
   }
-  const long long n_copies = r1 > r0 ? (r1 - r0) * F : 0;
-  for (long long c = threadIdx.x; c < n_copies; c += blockDim.x) {
-    const long long row = r0 + c / F;
-    const int j = (int)(c % F);
-    int logical;
-    if (route_copy(rows + row * w, desc, j, &logical)) {
-      const int cell = logical % k;
-      if (use_shared) atomicAdd(&hist[cell], 1);
-      else atomicAdd(&out[cell], 1);
+  const int lane = threadIdx.x & 31;
+  for (unsigned m = members; m; m &= m - 1) {
+    const uint32_t b = __shfl_sync(REPRO_FULL_MASK, base, __ffs(m) - 1);
+    for (int j0 = 0; j0 < reps; j0 += 32) {
+      const int j = j0 + lane;
+      bucket_count_warp(j < reps ? cell(b + (uint32_t)adds[2 * j]) : -1, bins);
     }
-  }
-  if (use_shared) {
-    __syncthreads();
-    for (int b = threadIdx.x; b < k; b += blockDim.x)
-      if (hist[b]) atomicAdd(&out[b], hist[b]);
   }
 }
 
+template <bool kSharedDesc, bool kSharedBins>
+static __global__ void __launch_bounds__(MAP_COUNT_THREADS)
+map_count_kernel(const int* rows, long long n, int w, const int* desc,
+                 int desc_len, int n_routes, int k, long long rows_per_src,
+                 int tile_rows, long long blocks_per_src, int* counts) {
+  extern __shared__ int smem[];
+  int* row_words = smem;                              // tile_rows * w
+  int* cnt = row_words + (long long)tile_rows * w;    // k (kSharedBins)
+  desc = scatter_desc<kSharedDesc>(desc, desc_len,
+                                   cnt + (kSharedBins ? k : 0));
+  const long long src = blockIdx.x / blocks_per_src;
+  const long long blk = blockIdx.x % blocks_per_src;
+  long long src_end = (src + 1) * rows_per_src;
+  if (src_end > n) src_end = n;
+  const long long r_blk = src * rows_per_src + blk * MAP_COUNT_ROWS_PER_BLOCK;
+  long long r_end = r_blk + MAP_COUNT_ROWS_PER_BLOCK;
+  if (r_end > src_end) r_end = src_end;
+  int* out = counts + src * k;
+  int* bins = kSharedBins ? cnt : out;
+  if (kSharedBins)
+    for (int c = threadIdx.x; c < k; c += blockDim.x) cnt[c] = 0;
+  const int* rfirst = desc + desc_len - (n_routes + 1);
+  for (long long r0 = r_blk; r0 < r_end; r0 += tile_rows) {
+    const int n_rows = (int)(r_end - r0 < tile_rows ? r_end - r0 : tile_rows);
+    __syncthreads();   // the last tile's rows are read
+    scatter_stage_rows(rows + r0 * w, n_rows * w, row_words);
+    __syncthreads();
+    const int F = desc[0];
+    // Whole warps step over the rows (map_count_route needs every lane).
+    for (int rb = 0; rb < n_rows; rb += blockDim.x) {
+      const int r = rb + threadIdx.x;
+      const int* row = row_words + (long long)(r < n_rows ? r : 0) * w;
+      const bool live = r < n_rows && row[0] != -1;
+      for (int q = 0; q < n_routes; ++q) {
+        const int j0 = rfirst[q], reps = rfirst[q + 1] - j0;
+        if (!reps) continue;
+        const int* rec = desc + desc[2 + 2 * F + q];
+        map_count_route(live && scatter_member(row, rec), row, rec,
+                        desc + 3 + 2 * j0, reps, k, bins);
+      }
+    }
+  }
+  if (kSharedBins) {
+    __syncthreads();
+    for (int c = threadIdx.x; c < k; c += blockDim.x)
+      if (cnt[c]) atomicAdd(&out[c], cnt[c]);
+  }
+}
+
+// desc: scatter_pack's int32 descriptor of desc_len words over n_routes
+// routes; counts: (n_src, k), zeroed here.
 extern "C" int map_count_launch(const int* rows, long long n, int w,
-                                const long long* desc, int F, int k, int n_src,
-                                long long rows_per_src, int* counts,
-                                void* stream) {
+                                const int* desc, int desc_len, int n_routes,
+                                int k, int n_src, long long rows_per_src,
+                                int* counts, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  cudaError_t err = cudaMemsetAsync(counts, 0, sizeof(int) * (size_t)n_src * k, s);
+  cudaError_t err =
+      cudaMemsetAsync(counts, 0, sizeof(int) * (size_t)n_src * k, s);
   if (err != cudaSuccess) return (int)err;
-  if (n == 0 || F == 0) return 0;
-  const long long blocks_x =
+  if (n == 0 || n_src == 0 || n_routes == 0 || rows_per_src < 1) return 0;
+  int tile_rows = MAP_COUNT_ROW_WORDS / (w > 0 ? w : 1);
+  tile_rows = tile_rows < 1 ? 1
+              : (tile_rows > MAP_COUNT_TILE_ROWS ? MAP_COUNT_TILE_ROWS
+                                                 : tile_rows);
+  const long long blocks_per_src =
       (rows_per_src + MAP_COUNT_ROWS_PER_BLOCK - 1) / MAP_COUNT_ROWS_PER_BLOCK;
-  const int use_shared = k <= MAP_COUNT_SHARED_BINS;
-  dim3 grid((unsigned)blocks_x, (unsigned)n_src);
-  const size_t smem = use_shared ? sizeof(int) * (size_t)k : 0;
-  map_count_kernel<<<grid, MAP_COUNT_THREADS, smem, s>>>(
-      rows, n, w, desc, k, rows_per_src, MAP_COUNT_ROWS_PER_BLOCK, use_shared,
-      counts);
+  const bool shared_desc = desc_len <= MAP_COUNT_SHARED_DESC_WORDS;
+  const bool shared_bins = k <= MAP_COUNT_SHARED_BINS;
+  auto kernel = shared_desc
+      ? (shared_bins ? map_count_kernel<true, true>
+                     : map_count_kernel<true, false>)
+      : (shared_bins ? map_count_kernel<false, true>
+                     : map_count_kernel<false, false>);
+  const size_t smem =
+      sizeof(int) * ((size_t)tile_rows * w + (shared_bins ? (size_t)k : 0) +
+                     (shared_desc ? (size_t)desc_len : 0));
+  if ((err = scatter_allow_smem((const void*)kernel, smem)) != cudaSuccess)
+    return (int)err;
+  kernel<<<(unsigned)(n_src * blocks_per_src), MAP_COUNT_THREADS, smem, s>>>(
+      rows, n, w, desc, desc_len, n_routes, k, rows_per_src, tile_rows,
+      blocks_per_src, counts);
   return (int)cudaGetLastError();
 }
 

@@ -68,37 +68,6 @@
 #define SCATTER_FILL_THREADS 256
 #define SCATTER_SHARED_DESC_WORDS 4096
 
-// Whether a (non-padding) row meets the eq / not-in constraints of the route
-// record `rec` (int32 descriptor words, layout in common.cuh).
-__device__ __forceinline__ bool scatter_member(const int* row, const int* rec) {
-  const int ne = rec[1], nn = rec[2];
-  const int* p = rec + 3 + 4 * rec[0];
-  for (int i = 0; i < ne; ++i, p += 2)
-    if (row[p[0]] != p[1]) return false;
-  for (int i = 0; i < nn; ++i, p += 2)
-    if (row[p[0]] == p[1]) return false;
-  return true;
-}
-
-// The route's hashed base cell of a row (hashed_cell on int32 words).
-__device__ __forceinline__ uint32_t scatter_base(const int* row, const int* rec) {
-  const int nh = rec[0];
-  const int* p = rec + 3;
-  uint32_t base = 0;
-  for (int i = 0; i < nh; ++i, p += 4) {
-    const uint32_t h = ((uint32_t)row[p[0]] * (uint32_t)p[1]) * REPRO_MULT;
-    base += (h >> (32 - p[2])) * (uint32_t)p[3];
-  }
-  return base;
-}
-
-// The device of an unwrapped cell: ptable[logical % k] (the division only
-// for a cell past k).
-__device__ __forceinline__ int scatter_dev(const int* ptable, int k,
-                                           int logical) {
-  return ptable[(unsigned)logical < (unsigned)k ? logical : logical % k];
-}
-
 // Calls emit(r, at, j, logical) for reps j in [j_lo, j_hi) of one route for
 // every lane of the warp with `mine` (its row `row`, its tokens r and at);
 // logical = the route's hashed base of the row + adds[2 * j].  All 32 lanes
@@ -130,29 +99,6 @@ __device__ __forceinline__ void scatter_reps(bool mine, const int* row,
     for (int j = lo + lane; j < hi; j += 32)
       emit(rr, aa, j, (int)(b + (uint32_t)adds[2 * j]));
   }
-}
-
-// Copies a tile's n_words row words into shared memory (16-byte loads where
-// both ends allow); the caller's next barrier makes them visible.
-__device__ __forceinline__ void scatter_stage_rows(const int* from, int n_words,
-                                                   int* to) {
-  if ((((uintptr_t)from) & 15) == 0 && (n_words & 3) == 0) {
-    const int4* f = reinterpret_cast<const int4*>(from);
-    int4* t = reinterpret_cast<int4*>(to);
-    for (int i = threadIdx.x; i < n_words / 4; i += blockDim.x) t[i] = f[i];
-  } else {
-    for (int i = threadIdx.x; i < n_words; i += blockDim.x) to[i] = from[i];
-  }
-}
-
-// Copies the descriptor into shared memory at `to` when kSharedDesc (the
-// caller's next barrier makes it visible) and returns where to read it.
-template <bool kSharedDesc>
-__device__ __forceinline__ const int* scatter_desc(const int* desc,
-                                                   int desc_len, int* to) {
-  if constexpr (!kSharedDesc) return desc;
-  for (int i = threadIdx.x; i < desc_len; i += blockDim.x) to[i] = desc[i];
-  return to;
 }
 
 // Stage 1: per-tile member copies per device, th[src, d, tile].
@@ -376,17 +322,6 @@ scatter_rank_kernel(const int* rows, long long n_loc, int w,
     for (int d = threadIdx.x; d < n_dev; d += blockDim.x)
       run_base[d] += (d + 1 < n_dev ? dev_start[d + 1] : n) - dev_start[d];
   }
-}
-
-// Lets `fn` take `bytes` of dynamic shared memory; a refusal (past the
-// card's limit) is returned and cleared, so it does not surface at the next
-// launch of another kernel.
-static cudaError_t scatter_allow_smem(const void* fn, size_t bytes) {
-  if (bytes <= 48 * 1024) return cudaSuccess;
-  const cudaError_t err = cudaFuncSetAttribute(
-      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (err != cudaSuccess) cudaGetLastError();
-  return err;
 }
 
 extern "C" int scatter_pack_launch(const int* rows, int n_src, long long n_loc,

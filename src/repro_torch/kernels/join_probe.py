@@ -20,8 +20,8 @@ buckets digit by digit, low digit first (digits of at most MAX_DIGIT_BITS
 bits, counters in shared memory, tiles of RANK_TILE_ROWS rows), so its
 scratch grows with B·n and not with the table size; it takes 1 ≤ n_bits ≤
 MAX_BUILD_BITS.  The CUDA probe numbers each bucket's keys in one walk of
-the packed table and orders the groups by a stable rank of their rounds
-(the build's digit passes), with no host sync; the reference leaves the
+the packed table and orders the groups, not the slots, by a stable
+counting sort of their rounds, with no host sync; the reference leaves the
 probe to XLA.
 """
 from __future__ import annotations
@@ -42,9 +42,16 @@ _SEED_STEP = 0x85EBCA77
 RANK_TILE_ROWS = 4096
 MAX_DIGIT_BITS = 10
 MAX_BUILD_BITS = 30
-# The CUDA probe's scans of long rows: items a block scans
-# (csrc/probe_tables.cu's SCAN_CHUNK).
+# The CUDA probe (csrc/probe_tables.cu): items a block scans in its scans
+# of long rows (SCAN_CHUNK), the rank's digits (RANK_DIGIT_BITS bits, at
+# most PROBE_MAX_PASSES of them) and the items a warp ranks per digit
+# pass (RANK_TILE); the most right rows a batch row it takes.
 SCAN_CHUNK = 4096
+RANK_DIGIT_BITS = 8
+RANK_BINS = 1 << RANK_DIGIT_BITS
+RANK_TILE_SLOTS = 1024
+PROBE_MAX_PASSES = 4
+MAX_PROBE_ROWS = 1 << 29
 
 
 def col_seeds(w: int) -> tuple[int, ...]:
@@ -251,17 +258,35 @@ def probe_tables_host(lk: torch.Tensor, l_bkt: torch.Tensor,
                         torch.gather(starts, 1, l_safe), l_miss, fpos0)
 
 
+def probe_passes(n_r: int) -> int:
+    """Digit passes of the CUDA probe's rank of the groups by round: as
+    many RANK_DIGIT_BITS-bit digits as rounds 0 .. n_r - 1 need (a bucket
+    has no more keys than rows).  The kernels read the real number of
+    rounds on the card and skip the passes it does not need.  Raises
+    `KernelError` past MAX_PROBE_ROWS rows a batch row."""
+    if n_r > MAX_PROBE_ROWS:
+        raise _build.KernelError(
+            f"probe_tables: {n_r} right rows a batch, past {MAX_PROBE_ROWS}")
+    return max(1, -(-max(n_r - 1, 1).bit_length() // RANK_DIGIT_BITS))
+
+
 def probe_tables_cuda(lk: torch.Tensor, l_bkt: torch.Tensor,
                       rk: torch.Tensor, r_bkt: torch.Tensor,
                       rank: torch.Tensor, hist: torch.Tensor, n_bits: int
                       ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Launch csrc/probe_tables.cu: (counts (B, n_l), lo (B, n_l), perm
-    (B, n_r)) int32, equal to `probe_tables_host`'s.  Scratch: the
-    (B, P + 1) starts, eight (B, n_r) arrays, the digit passes of a stable
-    rank over 2^rbits rounds (rbits covers n_r - 1: a bucket has no more
-    keys than rows) with their (B, 2^rbits + 1) histogram, and a sum per
-    SCAN_CHUNK items of the longer of the two scanned rows.  Raises
-    `KernelError` outside 1 ≤ n_bits ≤ MAX_BUILD_BITS or past 2^30 rows."""
+    (B, n_r)) int32, equal to `probe_tables_host`'s.  A walk of the packed
+    table numbers each bucket's keys and keeps each tile's piece of a
+    bucket as entries (a key's rows in the piece); a stable counting sort
+    of the entries by round, whose last digit pass sums their rows, gives
+    every entry its final base; the left probe reads one 16-byte record a
+    group.  What holds it above its bound: stores at random slots (place,
+    perm), the walk's key gathers and the left probe's dependent loads.
+    Scratch: the (B, P + 1) starts; per (B, n_r) slot a (row, bucket) pair,
+    a 16-byte record and four int32 words; the (B, 256, n_r / 1,024) digit
+    counts; a sum per SCAN_CHUNK items of the longer scanned row.  Raises
+    `KernelError` outside 1 ≤ n_bits ≤ MAX_BUILD_BITS or past
+    MAX_PROBE_ROWS right rows."""
     lk, rk = _build.as_i32(lk, "lk"), _build.as_i32(rk, "rk")
     l_bkt, r_bkt = _build.as_i32(l_bkt, "l_bkt"), _build.as_i32(r_bkt, "r_bkt")
     rank = _build.as_i32(rank, "rank")
@@ -288,28 +313,24 @@ def probe_tables_cuda(lk: torch.Tensor, l_bkt: torch.Tensor,
         z = torch.zeros((b, n_l), dtype=torch.int32, device=dev)
         return z, z.clone(), torch.zeros((b, n_r), dtype=torch.int32,
                                          device=dev)
-    rbits = max(1, (n_r - 1).bit_length())
-    passes, digit_bits = build_digits(rbits)
-    n_tiles = -(-n_r // RANK_TILE_ROWS)
-    nb = (1 << digit_bits) + 1
+    passes = probe_passes(n_r)
+    th_len = RANK_BINS * -(-n_r // RANK_TILE_SLOTS)
     i32 = dict(dtype=torch.int32, device=dev)
     st = torch.empty((b, p + 1), **i32)
-    slots = torch.empty((8, b, n_r), **i32)
-    th = torch.empty(b * nb * n_tiles, **i32)
-    tot = torch.empty(b * nb, **i32)
-    n_pairs = 2 * min(passes - 1, 2)
-    pairs = torch.empty((n_pairs, b, n_r), **i32)
-    pair_ptrs = [x.data_ptr() for x in pairs] + [0] * (4 - n_pairs)
-    rtab = torch.empty((b, (1 << rbits) + 1), **i32)
-    csum = torch.empty(b * -(-(max(p, 1 << rbits) + 1) // SCAN_CHUNK), **i32)
+    pr = torch.empty((b, n_r, 2), **i32)
+    rec = torch.empty((b, n_r, 4), **i32)
+    slots = torch.empty((4, b, n_r), **i32)
+    th = torch.empty((b, th_len), **i32)
+    csum = torch.empty(b * -(-max(p + 1, th_len) // SCAN_CHUNK), **i32)
+    ctl = torch.empty(1 + b, **i32)
     counts = torch.empty((b, n_l), **i32)
     lo = torch.empty((b, n_l), **i32)
     perm = torch.empty((b, n_r), **i32)
     _build.call("probe_tables_launch", lk.data_ptr(), l_bkt.data_ptr(), b,
                 n_l, rk.data_ptr(), r_bkt.data_ptr(), rank.data_ptr(),
-                hist.data_ptr(), hist.stride(0), n_r, w, n_bits, rbits,
-                digit_bits, n_tiles, st.data_ptr(), slots.data_ptr(),
-                th.data_ptr(), tot.data_ptr(), *pair_ptrs, rtab.data_ptr(),
-                csum.data_ptr(), counts.data_ptr(), lo.data_ptr(),
-                perm.data_ptr(), _build.stream(lk))
+                hist.data_ptr(), hist.stride(0), n_r, w, n_bits, passes,
+                st.data_ptr(), pr.data_ptr(), rec.data_ptr(), slots.data_ptr(),
+                th.data_ptr(), csum.data_ptr(), ctl.data_ptr(),
+                counts.data_ptr(), lo.data_ptr(), perm.data_ptr(),
+                _build.stream(lk))
     return counts, lo, perm

@@ -8,7 +8,9 @@ core.executor: one entry per residual route,
 on torch tensors (any leading batch axes) and gives every (row, copy) its
 unwrapped LOGICAL cell id, -1 on non-members; copies are ordered row-major
 over (row, route, rep).  `route_desc` packs the same recipe into the int64
-descriptor the CUDA kernels walk (layout in csrc/common.cuh).
+descriptor the CUDA kernels walk (layout in csrc/common.cuh), and
+`scatter_desc_tensor` into the int32 one of scatter_pack's and map_count's
+kernels.
 
 `map_count` counts routed copies per (source shard, wrapped cell): rows
 [i·(n/n_src), (i+1)·(n/n_src)) are source i.  `map_count_host` is its plain
@@ -104,6 +106,21 @@ def route_desc_tensor(routes: RouteSpec, device: torch.device) -> torch.Tensor:
     return torch.tensor(route_desc(routes), dtype=torch.int64, device=device)
 
 
+@functools.lru_cache(maxsize=256)
+def scatter_desc_tensor(routes: RouteSpec, device: torch.device
+                        ) -> torch.Tensor:
+    """The int32 descriptor of csrc/scatter_pack.cu and of map_count
+    (csrc/map_pack.cu), uploaded once per (recipe, device): `route_desc`'s
+    words wrapped to int32 (what the routing truncates them to), then each
+    route's first copy (n_routes + 1 words)."""
+    first = [0]
+    for _, reps, _, _, _ in routes:
+        first.append(first[-1] + len(reps))
+    words = [(x + (1 << 31)) % (1 << 32) - (1 << 31)
+             for x in route_desc(routes) + first]
+    return torch.tensor(words, dtype=torch.int32, device=device)
+
+
 def count_scatter(dest: torch.Tensor, n: int, k: int, n_src: int
                   ) -> torch.Tensor:
     """(n_src, k) histogram of flat per-copy wrapped cells (row-major copy
@@ -131,15 +148,22 @@ def map_count_host(rows: torch.Tensor, routes: RouteSpec, k: int,
 
 def map_count_cuda(rows: torch.Tensor, routes: RouteSpec, k: int,
                    n_src: int) -> torch.Tensor:
-    """Launch csrc/map_pack.cu: rows (n, w) int32 on the card -> (n_src, k)."""
+    """Launch csrc/map_pack.cu: rows (n, w) int32 on the card -> (n_src, k).
+    A block takes 2,048 rows of one source, staged in shared memory a tile
+    at a time; a thread a row tests each route once and hashes a member
+    route once (a heavy route's reps spread over the warp), and the warp's
+    cells go to counters in shared memory (device memory past 8,192 cells)
+    with one add a distinct cell; each block flushes its non-zero counters
+    with one atomic each.  What holds it above its bound: those atomics and
+    each tile's load before its count."""
     rows = _build.as_i32(rows, "rows")
     n, w = rows.shape
     if n == 0 or route_fanout(routes) == 0:
         return torch.zeros((n_src, k), dtype=torch.int32, device=rows.device)
     counts = torch.empty((n_src, k), dtype=torch.int32, device=rows.device)
-    desc = route_desc_tensor(routes, rows.device)
+    desc = scatter_desc_tensor(routes, rows.device)
     _build.call("map_count_launch", rows.data_ptr(), n, w, desc.data_ptr(),
-                route_fanout(routes), k, n_src, max(n // n_src, 1),
+                desc.numel(), len(routes), k, n_src, max(n // n_src, 1),
                 counts.data_ptr(), _build.stream(rows))
     return counts
 

@@ -26,13 +26,13 @@ memory and writes each device's records as one contiguous run.
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import torch
 
 from . import _build
 from .map_pack import (MAX_PACK_BINS, RouteSpec, empty_pack, pack_overflow,
-                       pack_slots, route_desc, route_fanout, route_streams)
+                       pack_slots, route_fanout, route_streams,
+                       scatter_desc_tensor)
 from .ref import INVALID
 
 
@@ -69,21 +69,6 @@ def scatter_tile_rows(w: int) -> int:
     """Rows per tile of csrc/scatter_pack.cu for rows of w words: as many
     as fit the kernels' shared-memory copy of the tile, at least one."""
     return max(1, min(SCATTER_TILE_ROWS, SCATTER_ROW_WORDS // max(w, 1)))
-
-
-@functools.lru_cache(maxsize=256)
-def scatter_desc_tensor(routes: RouteSpec, device: torch.device
-                        ) -> torch.Tensor:
-    """The int32 descriptor of csrc/scatter_pack.cu, uploaded once per
-    (recipe, device): `route_desc`'s words wrapped to int32 (what the
-    routing truncates them to), then each route's first copy (n_routes + 1
-    words)."""
-    first = [0]
-    for _, reps, _, _, _ in routes:
-        first.append(first[-1] + len(reps))
-    words = [(x + (1 << 31)) % (1 << 32) - (1 << 31)
-             for x in route_desc(routes) + first]
-    return torch.tensor(words, dtype=torch.int32, device=device)
 
 
 def scatter_scratch(rows: torch.Tensor, n_dev: int

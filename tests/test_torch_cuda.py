@@ -74,6 +74,45 @@ def test_map_count_kernel(dev, k, n, make_specs):
         _eq(got, mp.map_count_host(rows, routes, k, 8))
 
 
+def _map_count_case(case, rng):
+    """(rows (n, w), routes, k, n_src) of a map_count card case."""
+    if case in ("cell-routes", "eq-reps-40", "eq-reps-5000"):
+        rows, specs, _, k, n_dev, _ = _scatter_case(case, rng)
+        return rows.reshape(-1, rows.shape[-1]), specs[0], k, rows.shape[0]
+    if case.startswith("k-"):
+        # 8,192 cells: the kernel's last shared-memory counter; 8,193:
+        # counters in device memory (and a wrap past k that is not a power
+        # of two).
+        k = int(case[2:])
+        return _rows(rng, 50000, 2, 1 << 20), _synthetic_specs(k)["T"], k, 8
+    if case == "n-odd":         # rows past 8 * (50001 // 8) count nowhere
+        return _rows(rng, 50001, 2, 50), _specs(64)["R"], 64, 8
+    if case == "n-lt-src":      # one row a source, sources 3..7 empty
+        return _rows(rng, 3, 2, 50), _specs(64)["R"], 64, 8
+    if case == "all-padding":
+        return np.full((30000, 2), -1, np.int32), _specs(64)["R"], 64, 8
+    raise ValueError(case)
+
+
+@pytest.mark.parametrize("case", [
+    "cell-routes", "eq-reps-40", "eq-reps-5000", "k-8192", "k-8193",
+    "n-odd", "n-lt-src", "all-padding"])
+def test_map_count_kernel_cases(dev, case):
+    """map_count at the edges of its tiles and counters: the full-size
+    cell's two route shapes at 8 x 2^18 rows; fanout 42, and an eq route
+    of 5,000 reps (its descriptor read in place); k at the shared counters'
+    limit and one past it; n no multiple of n_src, n < n_src, and only
+    padding rows.  One launch a call."""
+    rng = np.random.default_rng(sum(map(ord, case)))
+    rows, routes, k, n_src = _map_count_case(case, rng)
+    rows = torch.from_numpy(rows).to(dev)
+    ops.reset_launches()
+    got = ops.map_count(rows, routes, k, n_src)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["map_count"] == 1
+    _eq(got, mp.map_count_host(rows, routes, k, n_src))
+
+
 def _cell_routes(k=256):
     """The full-size cell's two route shapes on R(A, B): a 1-rep tail route
     hashed on B at share 128 for B not in {0}, and a 16-rep heavy-hitter
@@ -218,9 +257,11 @@ def _probe_inputs(dev, b, n_l, n_r, w, bits, recipe, seed):
     build_table's plain versions.  Keys: "few" (31 values a column, so
     buckets hold several keys), "wide" (30-bit values, mostly distinct),
     "hot" / "hot2" (every valid right row one key, or two keys of one
-    bucket interleaved; a third of the left rows carry them), "none" (no
-    valid row on either side); valid rows 26 % on the right (the cell's
-    share), 80 % on the left."""
+    bucket interleaved; a third of the left rows carry them), "late" (four
+    keys of one bucket, new ones in later tiles), "collide" (pairs of keys
+    of one hash in the walk's match), "one_empty" (batch row 1
+    without valid rows), "none" (no valid row on either side); valid rows
+    26 % on the right (the cell's share), 80 % on the left."""
     gen = torch.Generator(device=dev).manual_seed(seed)
     high = 31 if recipe == "few" else 1 << 30
     lk = torch.randint(0, high, (b, n_l, w), generator=gen, device=dev,
@@ -248,6 +289,45 @@ def _probe_inputs(dev, b, n_l, n_r, w, bits, recipe, seed):
         rk[:] = two[which]
         lk[:, ::3] = two[torch.randint(0, 2, lk[:, ::3].shape[:2],
                                        generator=gen, device=dev)]
+    if recipe == "late":
+        # One bucket (at 8 bits) holds every valid right row: its first
+        # third one key, then two keys alternating, then four in turn, so
+        # the first key's group spans the bucket's tiles and keys first
+        # appear in later pieces.
+        cand = torch.randint(0, 1 << 30, (1, 1 << 16, w), generator=gen,
+                             device=dev, dtype=torch.int32)
+        ones = torch.ones(cand.shape[:2], dtype=torch.bool, device=dev)
+        h = jp.join_hash_host(cand, ones, bits)[0]
+        vals, counts = torch.unique(h, return_counts=True)
+        four = torch.unique(cand[0, h == vals[counts.argmax()]], dim=0)[:4]
+        assert four.shape[0] == 4
+        j = torch.arange(n_r, device=dev)
+        which = torch.where(j < n_r // 3, 0, torch.where(
+            j < 2 * n_r // 3, j % 2, j % 4))
+        rk[:] = four[which]
+        lk[:, ::3] = four[torch.randint(0, 4, lk[:, ::3].shape[:2],
+                                        generator=gen, device=dev)]
+    if recipe == "collide":
+        # 64 keys and, beside each, a key of the same hash in the walk's
+        # match ((k0 + 0x85EBCA77, k1 - 0x9E3779B1) mod 2^32): lanes of
+        # different keys that the hash puts together must be told apart.
+        base = torch.randint(0, 1 << 30, (64, 2), generator=gen, device=dev,
+                             dtype=torch.int64)
+        twin = torch.stack([(base[:, 0] + 0x85EBCA77) % (1 << 32),
+                            (base[:, 1] - 0x9E3779B1) % (1 << 32)], 1)
+        both = torch.cat([base, twin])
+        both = torch.where(both >= 1 << 31, both - (1 << 32), both).to(
+            torch.int32)
+        rk[:] = both[torch.randint(0, 128, rk.shape[:2], generator=gen,
+                                   device=dev)]
+        lk[:] = both[torch.randint(0, 128, lk.shape[:2], generator=gen,
+                                   device=dev)]
+    if recipe == "one_empty":
+        # Batch row 1 has no valid row on either side; the others' right
+        # sides are all valid.
+        rv[:] = True
+        rv[1] = False
+        lv[1] = False
     if recipe == "none":
         lv[:] = False
         rv[:] = False
@@ -281,7 +361,19 @@ def _probe_case(b, n_l, n_r, w, bits, recipe, id_=None):
     _probe_case(4, 20000, 30000, 2, 12, "few"),
     _probe_case(4, 20000, 30000, 3, 7, "wide"),
     _probe_case(4, 20000, 30000, 9, 10, "wide"),
-    _probe_case(2, 5000, 300, 2, 16, "wide")])
+    _probe_case(2, 5000, 300, 2, 16, "wide"),
+    # a bucket of more than 1,024 keys (rounds past one 8-bit digit pass
+    # and past 1,023); a group over at least 3 walk tiles with keys new in
+    # later pieces; B = 4 with a batch row of no valid rows beside full
+    # ones; the hot bucket's key in every batch row
+    _probe_case(2, 3000, 20000, 2, 1, "wide"),
+    _probe_case(2, 5000, 20000, 2, 8, "late"),
+    _probe_case(3, 4000, 40000, 3, 8, "late"),
+    _probe_case(4, 20000, 30000, 2, 12, "one_empty"),
+    # keys whose hashes collide in the walk's match, at 1 and 2 bits
+    _probe_case(2, 3000, 8000, 2, 1, "collide"),
+    _probe_case(2, 3000, 8000, 2, 2, "collide"),
+    _probe_case(8, 1 << 18, 1 << 20, 2, 16, "hot")])
 def test_probe_tables_kernel(dev, b, n_l, n_r, w, bits, recipe):
     """probe_tables' kernels against the plain version: one launch a call
     (none for n_r = 0)."""

@@ -86,6 +86,22 @@ def test_build_digits_refuse_bits_past_the_range(n_bits):
         tjp.build_digits(n_bits)
 
 
+@pytest.mark.parametrize("n_r,passes", [
+    (1, 1), (2, 1), (256, 1), (257, 2), (1 << 16, 2), ((1 << 16) + 1, 3),
+    (1 << 20, 3), (1 << 24, 3), ((1 << 24) + 1, 4), (1 << 29, 4)])
+def test_probe_passes_cover_every_round(n_r, passes):
+    """The CUDA probe's digit plan: enough RANK_DIGIT_BITS-bit digits for
+    rounds 0 .. n_r - 1 (a bucket has no more keys than rows)."""
+    assert tjp.probe_passes(n_r) == passes
+    assert passes <= tjp.PROBE_MAX_PASSES
+    assert (n_r - 1) >> (tjp.RANK_DIGIT_BITS * passes) == 0
+
+
+def test_probe_passes_refuse_rows_past_the_range():
+    with pytest.raises(KernelError, match="past"):
+        tjp.probe_passes(tjp.MAX_PROBE_ROWS + 1)
+
+
 @pytest.mark.parametrize("multi_pass", [False, True])
 def test_build_table_matches_interpret_kernel(multi_pass):
     rng = np.random.default_rng(4)
