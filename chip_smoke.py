@@ -36,13 +36,17 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      scatter_pack is recorded on R (the entry) and S with their device
      times (each of its kernels' share printed), and on R with every
      member copy on one device (a placement table of zeros) at a cap that
-     holds them all and at the cell's cap, which must overflow;
+     holds them all and at the cell's cap, which must overflow; join_hash
+     with its device time;
   4c. the kernel library (the executor does not call it) on that cell's
      data, launch counts zeroed just before and read just after: map_pack
      on R's and S's (8, 2^18, 2) shards, `torch.equal` to scatter_pack,
      with its time beside scatter_pack's and the staged route -> fold ->
-     pack's; hash_partition on R's B column at the tail residual's B share
-     (ids equal to numpy's multiply_shift) and at 2^20 buckets;
+     pack's, its device time and each kernel's share (streams, assembly,
+     fill), its streams' device time, and a profile of one call that must
+     hold no aten scatter, gather, cat or arange; hash_partition on R's B
+     column at the tail residual's B share (ids equal to numpy's
+     multiply_shift) and at 2^20 buckets;
      match_counts and first_match on the B columns of one tail cell's and
      one heavy cell's routed fragments (Σ counts over the tail cell = the
      cell's Σ_v c_R(v)·c_S(v); every heavy pair matches) and on a random
@@ -56,7 +60,8 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
   4b. the staged arm's kernels (route_cells, fold_cells, bucket_pack,
      segment_scan / run_lengths) against their plain versions at the
      shapes of that run, bit for bit, with kernel, plain, bound and (where
-     one PyTorch call computes the function) library times; bucket_pack
+     one PyTorch call computes the function) library times, and the
+     device times of route_cells and fold_cells; bucket_pack
      on R (the entry) and S, segment_scan and run_lengths also with their
      device time and each of their kernels' share;
   5. the paper's running example and a 4-way chain at a few thousand rows,
@@ -79,9 +84,11 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
          median tick, decode tokens/s, prefill time, peak memory, the bound
          of a tick and a profile of decode steps;
      7c. segment_histogram against its plain version, bit for bit, on this
-         run's decode and prefill inputs (8 bins) and on 2^24 values at 384
-         bins and 2^22 at 2^16 bins, with kernel, device, plain, library
-         and bound times;
+         run's decode and prefill inputs (8 bins; one block) and on 2^24
+         values at 384 bins (the grid) and 2^22 and 2^16 at 2^16 bins (the
+         cluster arm, several clusters and one), with its arm and kernel,
+         device, plain, library and bound times; a profile of the decode
+         call must show one device operation;
   8. one JSON line of per-kernel results (each with the path its launches
      were counted on), then the last line {"ok": true, "device": {...}}.
 
@@ -167,6 +174,8 @@ PROBE_KERNELS = ("probe_starts_kernel", "probe_place_kernel",
                  "probe_rank_kernel", "probe_perm_kernel",
                  "probe_left_kernel")
 TORCH_SCAN = "tensor_kernel_scan_innermost_dim"
+# Torch ops that map_pack's card path must not run (the plain assembly's).
+BANNED_PACK_OPS = ("scatter", "gather", "cat", "arange")
 # The CUDA kernels of segment_scan / run_lengths (csrc/build_probe.cu) and
 # of bucket_pack (csrc/bucket_pack.cu; its -1 fill is common.cuh's), each of
 # which must appear in the staged + sort profile.
@@ -179,9 +188,10 @@ MOE = dict(arch="mixtral-8x22b", n_layers=4, seed=0, prefill_batch=4,
            prefill_len=2048, prefill_reps=3, slots=8, max_seq=512,
            n_requests=24, prompt_len=(16, 128), new_tokens=(16, 64),
            profile_ticks=5)
-# Phase 7c's larger histograms: (values, bins) — kimi-k2's 384 experts, and
-# 2^16 bins (past the shared-memory arm).
-HIST_SHAPES = [(1 << 24, 384), (1 << 22, 1 << 16)]
+# Phase 7c's larger histograms: (values, bins) — kimi-k2's 384 experts
+# (the grid arm), and 2^16 bins (past one block's shared memory: the
+# cluster arm, at 2^22 values on several clusters, at 2^16 on one).
+HIST_SHAPES = [(1 << 24, 384), (1 << 22, 1 << 16), (1 << 16, 1 << 16)]
 # The kernel library phase's random pair: the shape and key range the JAX
 # package's `kernel_throughput` table times match_counts at.
 RANDOM_PAIR = dict(n_keys=1 << 20, n_probe=1 << 14, n_build=1 << 12,
@@ -297,6 +307,30 @@ def device_ms(fn, iters: int = 20, split: str = "") -> float:
         for key, ms in sorted(per_call.items(), key=lambda kv: -kv[1]):
             print(f"[kernel] {split}: {ms:.4f} ms a call, {key[:70]}")
     return sum(per_call.values())
+
+
+def call_profile(fn, calls: int = 10) -> tuple[set[str], dict[str, int]]:
+    """(names of every op, CPU and device; launches of each device operation
+    (kernel or memset) by name) in a torch.profiler trace of `calls` warm
+    calls of `fn`: several, since the profiler can drop a call's device
+    events.  A trace that holds no device event is taken again, up to three
+    times in all, and then fails."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        events = prof.key_averages()
+        device = {e.key: e.count for e in events
+                  if "CUDA" in str(getattr(e, "device_type", ""))
+                  and e.self_device_time_total > 0}
+        if device:
+            return {e.key for e in events}, device
+    fail("call_profile: three traces held no device event")
 
 
 def out_capacity_from_fragments(frag_l, frag_r, lcols, rcols, quantize):
@@ -688,6 +722,10 @@ def kernel_checks(cell):
     (bl,) = record(out, "join_hash", jp.join_hash_cuda, jp.join_hash_host,
                    (lk, lv, bits), lv.numel() + n_lv * w_key * 4
                    + lv.numel() * 4, n_lv * (2 * w_key + 1), 20)
+    out["join_hash"]["device_ms"] = device_ms(
+        lambda: jp.join_hash_cuda(lk, lv, bits))
+    print(f"[kernel] join_hash: device {out['join_hash']['device_ms']:.4f} "
+          f"ms (bound {out['join_hash']['bound_ms']:.4f} ms)")
     build_bytes = (rv.numel() + n_rv * w_key * 4 + 2 * rv.numel() * 4
                    + n_dev * (1 << bits) * 4)
     build_ops = n_rv * (2 * w_key + 1) + rv.numel()
@@ -877,7 +915,7 @@ def library_checks(cell):
     # Each kernel against its plain version; the kept row of each is
     # map_pack on R, hash_partition at the tail share, match_counts and
     # first_match on the tail cell.
-    out, extra = {}, {}
+    out, extra, packs = {}, {}, {}
     for name, rows3 in shards.items():
         spec, cap = specs[name], s.caps[name]
         args = (rows3, spec, s._ptable, k, n_dev, cap)
@@ -893,11 +931,26 @@ def library_checks(cell):
             return exm._pack_buckets(phys, tagged, n_dev, cap, True)
         t_scatter = time_ms(lambda: sp.scatter_pack_cuda(*args), 10)
         t_staged = time_ms(staged, 5)
-        t_streams = device_ms(lambda: mp.map_pack_streams_cuda(*args[:5]), 5)
-        print(f"[library] {name}: map_pack {out['map_pack']['ms']:.4f} ms "
-              f"(device time of its streams kernel {t_streams:.4f} ms), "
-              f"scatter_pack {t_scatter:.4f} ms, staged route -> fold -> "
-              f"pack {t_staged:.4f} ms")
+        # The card path's device time, each kernel's share (streams:
+        # pack_count, scan, pack_rank; assembly: pack_assemble; fill:
+        # scatter_fill; overflow), and its streams alone.
+        rec = dict(out["map_pack"])
+        rec["device_ms"] = device_ms(lambda: mp.map_pack_cuda(*args), 5,
+                                     split=f"map_pack {name}")
+        rec["streams_device_ms"] = device_ms(
+            lambda: mp.map_pack_streams_cuda(*args[:5]), 5)
+        names, device = call_profile(lambda: mp.map_pack_cuda(*args), 1)
+        torch_ops = sorted(n for n in names if any(
+            n.startswith(f"aten::{op}") for op in BANNED_PACK_OPS))
+        check(not torch_ops, f"map_pack on {name}: torch ops {torch_ops} on "
+              f"the card path")
+        packs[name] = rec
+        print(f"[library] {name}: map_pack {rec['ms']:.4f} ms, device "
+              f"{rec['device_ms']:.4f} ms in {len(device)} device operations "
+              f"(streams {rec['streams_device_ms']:.4f} ms; no aten "
+              f"{'/'.join(BANNED_PACK_OPS)}), scatter_pack {t_scatter:.4f} "
+              f"ms, staged route -> fold -> pack {t_staged:.4f} ms")
+    out["map_pack"] = dict(packs["R"], S=packs["S"])
     # The small kernels' event times sit near the host's per-call floor;
     # their device times are printed beside them.
     n = b_keys.shape[0]
@@ -1005,6 +1058,10 @@ def staged_kernel_checks(cell):
     record(out, "route_cells", rc.route_cells_cuda, rc.route_cells_host,
            (rows_r, recipe), n * len({x[0] for x in axes}) * 4 + n * 4,
            n * 5 * len(axes), 20)
+    out["route_cells"]["device_ms"] = device_ms(
+        lambda: rc.route_cells_cuda(rows_r, recipe))
+    print(f"[kernel] route_cells: device "
+          f"{out['route_cells']['device_ms']:.4f} ms")
     # fold_cells and bucket_pack on the staged map's copies.  fold: bytes
     # the dests in and out and the table, one select per copy; library:
     # table[dest] on clamped dests (leaves out the -1 pass-through).  pack:
@@ -1022,6 +1079,10 @@ def staged_kernel_checks(cell):
                          rc.fold_cells_host, (dest, s._ptable),
                          2 * m * 4 + k * 4, m, 20,
                          library=lambda: s._ptable[clamped])
+        out["fold_cells"]["device_ms"] = device_ms(
+            lambda: rc.fold_cells_cuda(dest, s._ptable))
+        print(f"[kernel] fold_cells {name}: device "
+              f"{out['fold_cells']['device_ms']:.4f} ms")
         del clamped, dest
         cap, w1 = s.caps[name], tagged.shape[2]
         n_kept = int(((phys >= 0) & (phys < n_dev)).sum())
@@ -1297,10 +1358,22 @@ def histogram_checks(dev, serve):
                       torch.randint(-2, bins + 2, (n,), generator=gen,
                                     device=dev, dtype=torch.int32), bins))
     out, extra = {}, {}
+    arms = {sh.SH_ONE: "one block", sh.SH_GRID: "grid",
+            sh.SH_CLUSTER: "cluster", sh.SH_GLOBAL: "device atomics"}
     for label, vals, bins in cases:
         n = vals.numel()
         n_valid = int(((vals >= 0) & (vals < bins)).sum())
-        print(f"[histogram] {label}: {n} values, {bins} bins")
+        plan = sh.histogram_plan(n, bins)
+        print(f"[histogram] {label}: {n} values, {bins} bins, "
+              f"{arms[plan[0]]} arm {plan}")
+        if label == "decode":
+            _, device = call_profile(
+                lambda: sh.segment_histogram_cuda(vals, bins))
+            check(len(device) == 1 and max(device.values()) <= 10,
+                  f"segment_histogram decode call: device operations "
+                  f"{device} in 10 calls, not one a call")
+            print(f"[histogram] decode: one device operation a call "
+                  f"({device} in 10 calls)")
 
         def library(vals=vals, bins=bins):   # two calls: a mask, a bincount
             return torch.bincount(vals[(vals >= 0) & (vals < bins)],
@@ -1312,9 +1385,11 @@ def histogram_checks(dev, serve):
                sh.segment_histogram_cuda, sh.segment_histogram_host,
                (vals, bins), 4 * n + 4 * bins, n + n_valid, 20,
                library=library)
+        dst = out if label == "prefill" else extra
+        dst["segment_histogram"]["device_ms"] = device_ms(
+            lambda: sh.segment_histogram_cuda(vals, bins))
         print(f"[histogram] {label}: device "
-              f"{device_ms(lambda: sh.segment_histogram_cuda(vals, bins)):.4f}"
-              f" ms")
+              f"{dst['segment_histogram']['device_ms']:.4f} ms")
     return out
 
 

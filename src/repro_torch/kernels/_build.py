@@ -45,11 +45,12 @@ SIGNATURES = {
     "fold_cells_launch": [P, LL, P, I, P, P],
     "bucket_pack_launch": [P, P, I, LL, I, I, I, I, LL, I, P, P, P, P, P, P],
     "segment_scan_launch": [P, I, LL, I, I, LL, P, P, P, P, P, P],
-    "map_pack_launch": [P, I, LL, I, P, I, P, I, I, LL, LL, P, P, P, P],
+    "map_pack_launch": [P, I, LL, I, P, I, I, I, P, I, I, I, LL, P, P, P, I,
+                        I, P, P, P, P],
     "hash_partition_launch": [P, LL, LL, I, P, P, P],
     "match_counts_launch": [P, LL, P, LL, P, P],
     "first_match_launch": [P, LL, P, LL, P, P],
-    "segment_histogram_launch": [P, LL, I, P, P],
+    "segment_histogram_launch": [P, LL, I, I, I, I, P, P, P],
 }
 
 

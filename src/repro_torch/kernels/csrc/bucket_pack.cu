@@ -326,10 +326,10 @@ extern "C" int bucket_pack_launch(const int* dest, const int* rows, int B,
                        / (8LL * BUCKET_THREADS);
     chunks = chunks < 1 ? 1 : (chunks > 64 ? 64 : chunks);
     scatter_fill_kernel<<<(unsigned)(n_pairs * chunks), BUCKET_THREADS, 0,
-                          s>>>(hist, n_pairs, cap, w, (int)chunks, buf);
+                          s>>>(hist, n_pairs, k, k, cap, w, (int)chunks, buf);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   }
-  bins_overflow_kernel<<<blocks_for(B, 128), 128, 0, s>>>(hist, B, k, cap,
+  bins_overflow_kernel<<<blocks_for(B, 128), 128, 0, s>>>(hist, B, k, k, cap,
                                                          overflow);
   return (int)cudaGetLastError();
 }

@@ -13,7 +13,8 @@
 #define REPRO_FULL_MASK 0xffffffffu
 #define REPRO_WARPS_PER_BLOCK 8
 
-// Route descriptor, built by kernels/map_pack.py::route_desc (int64 words):
+// Route descriptor, built by kernels/map_pack.py::route_desc (int64 words;
+// the kernels read it wrapped to int32, scatter_desc below):
 //   [0] F (copies per row)      [1] n_routes
 //   [2 + 2j], [3 + 2j]          copy j: route index, rep + offset
 //   [2 + 2F + r]                word index of route r's record
@@ -34,22 +35,6 @@ __device__ __forceinline__ uint32_t hashed_cell(const int* row,
     base += (h >> (32 - (int)p[2])) * (uint32_t)p[3];
   }
   return base;
-}
-
-__device__ __forceinline__ bool route_copy(const int* row, const long long* desc,
-                                           int j, int* logical) {
-  const int F = (int)desc[0];
-  const int r = (int)desc[2 + 2 * j];
-  const uint32_t add = (uint32_t)desc[3 + 2 * j];
-  const long long* rec = desc + desc[2 + 2 * F + r];
-  const int nh = (int)rec[0], ne = (int)rec[1], nn = (int)rec[2];
-  const long long* p = rec + 3;
-  *logical = (int)(hashed_cell(row, p, nh) + add);
-  p += 4 * nh;
-  bool member = row[0] != -1;
-  for (int i = 0; i < ne; ++i, p += 2) member &= row[p[0]] == (int)p[1];
-  for (int i = 0; i < nn; ++i, p += 2) member &= row[p[0]] != (int)p[1];
-  return member;
 }
 
 __device__ __forceinline__ unsigned lanemask_lt() {
@@ -155,6 +140,89 @@ static __device__ __forceinline__ const int* scatter_desc(const int* desc,
   return to;
 }
 
+// Calls emit(a, b, c, j) for j in [lo, hi) of every lane of the warp with
+// `mine` (its tokens a, b, c); all 32 lanes call it.  When the warp's runs
+// are few and long (a heavy-hitter route's reps), each lane's run is spread
+// over the lanes instead of one lane looping over it while the others wait.
+template <class Emit>
+__device__ __forceinline__ void warp_runs(bool mine, int lo, int hi, int reps,
+                                          int a, int b, int c, Emit emit) {
+  const unsigned lanes = __ballot_sync(REPRO_FULL_MASK, mine);
+  if (!lanes) return;
+  if (__popc(lanes) * ((reps + 31) / 32) >= reps) {
+    if (mine)
+      for (int j = lo; j < hi; ++j) emit(a, b, c, j);
+    return;
+  }
+  const int lane = threadIdx.x & 31;
+  for (unsigned m = lanes; m; m &= m - 1) {
+    const int from = __ffs(m) - 1;
+    const int l = __shfl_sync(REPRO_FULL_MASK, lo, from);
+    const int h = __shfl_sync(REPRO_FULL_MASK, hi, from);
+    const int aa = __shfl_sync(REPRO_FULL_MASK, a, from);
+    const int bb = __shfl_sync(REPRO_FULL_MASK, b, from);
+    const int cc = __shfl_sync(REPRO_FULL_MASK, c, from);
+    for (int j = l + lane; j < h; j += 32) emit(aa, bb, cc, j);
+  }
+}
+
+// Calls emit(r, at, j, logical) for reps j in [j_lo, j_hi) of one route for
+// every lane of the warp with `mine` (its row `row`, its tokens r and at);
+// logical = the route's hashed base of the row + adds[2 * j].  All 32 lanes
+// call it with the same route; a member row is hashed once.
+template <class Emit>
+__device__ __forceinline__ void scatter_reps(bool mine, const int* row,
+                                             const int* rec, const int* adds,
+                                             int reps, int j_lo, int j_hi,
+                                             int r, int at, Emit emit) {
+  const int base = mine ? (int)scatter_base(row, rec) : 0;
+  warp_runs(mine, j_lo, j_hi, reps, r, at, base,
+            [&](int rr, int aa, int b, int j) {
+    emit(rr, aa, j, (int)((uint32_t)b + (uint32_t)adds[2 * j]));
+  });
+}
+
+// In-place exclusive scan of a[0, len) in shared memory by the whole block
+// (each thread a contiguous run); returns the total.  Starts and ends with
+// the block in step (barriers inside).
+__device__ __forceinline__ int scatter_block_scan(int* a, int len,
+                                                  int* warp_sums) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int n_warps = blockDim.x >> 5;
+  const int per = (len + blockDim.x - 1) / blockDim.x;
+  const int b = threadIdx.x * per;
+  const int e = b + per < len ? b + per : len;
+  int s = 0;
+  for (int i = b; i < e; ++i) s += a[i];
+  int x = s;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int y = __shfl_up_sync(REPRO_FULL_MASK, x, o);
+    if (lane >= o) x += y;
+  }
+  if (lane == 31) warp_sums[warp] = x;
+  __syncthreads();
+  if (warp == 0) {
+    int v = lane < n_warps ? warp_sums[lane] : 0;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int y = __shfl_up_sync(REPRO_FULL_MASK, v, o);
+      if (lane >= o) v += y;
+    }
+    if (lane < n_warps) warp_sums[lane] = v;
+  }
+  __syncthreads();
+  int run = (warp > 0 ? warp_sums[warp - 1] : 0) + x - s;
+  for (int i = b; i < e; ++i) {
+    const int v = a[i];
+    a[i] = run;
+    run += v;
+  }
+  const int total = warp_sums[n_warps - 1];
+  __syncthreads();
+  return total;
+}
+
 // Lets `fn` take `bytes` of dynamic shared memory; a refusal (past the
 // card's limit) is returned and cleared, so it does not surface at the next
 // launch of another kernel.
@@ -175,30 +243,35 @@ static __device__ __forceinline__ void bucket_count_warp(int d, int* cnt) {
     atomicAdd(&cnt[d], __popc(same));
 }
 
-// overflow[r] = sum over the n_bins bins of row r of max(hist - cap, 0).
+// overflow[r] = sum over the first n_bins bins of row r of hist (rows
+// `hist_stride` ints apart) of max(hist - cap, 0).
 static __global__ void bins_overflow_kernel(const int* hist, int n_rows,
-                                            int n_bins, int cap,
-                                            int* overflow) {
+                                            int n_bins, int hist_stride,
+                                            int cap, int* overflow) {
   const int r = blockIdx.x * blockDim.x + threadIdx.x;
   if (r >= n_rows) return;
   int o = 0;
   for (int d = 0; d < n_bins; ++d) {
-    const int h = hist[(long long)r * n_bins + d];
+    const int h = hist[(long long)r * hist_stride + d];
     if (h > cap) o += h - cap;
   }
   overflow[r] = o;
 }
 
 // -1 into words [min(hist, cap) * wp1, cap * wp1) of each of the n_pairs
-// slabs of cap records of wp1 words (scatter_pack's (source, device)
-// pairs, bucket_pack's (batch row, bin) pairs): the only slots no record
-// lands in.  `chunks` blocks per pair, 16-byte stores in the aligned middle.
+// slabs of cap records of wp1 words (scatter_pack's and map_pack's (source,
+// device) pairs, bucket_pack's (batch row, bin) pairs): the only slots no
+// record lands in.  Pair p's count is bin p % bins of hist's row p / bins
+// (rows `hist_stride` ints apart: map_pack's hold the sentinel bin too).
+// `chunks` blocks per pair, 16-byte stores in the aligned middle.
 static __global__ void scatter_fill_kernel(const int* hist, long long n_pairs,
+                                           int bins, int hist_stride,
                                            int cap, int wp1, int chunks,
                                            int* buf) {
   const long long pair = blockIdx.x / chunks;
   if (pair >= n_pairs) return;
-  const int h = hist[pair] < cap ? hist[pair] : cap;
+  const int hp = hist[(pair / bins) * hist_stride + pair % bins];
+  const int h = hp < cap ? hp : cap;
   const long long slab = pair * cap * (long long)wp1;
   const long long gb = slab + (long long)h * wp1;
   const long long ge = slab + (long long)cap * wp1;

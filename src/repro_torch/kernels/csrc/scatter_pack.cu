@@ -68,39 +68,6 @@
 #define SCATTER_FILL_THREADS 256
 #define SCATTER_SHARED_DESC_WORDS 4096
 
-// Calls emit(r, at, j, logical) for reps j in [j_lo, j_hi) of one route for
-// every lane of the warp with `mine` (its row `row`, its tokens r and at);
-// logical = the route's hashed base of the row + adds[2 * j].  All 32 lanes
-// call it with the same route.  When the warp's member rows are few and
-// their reps many (a heavy-hitter route), each row's reps are spread over
-// the lanes instead of one lane looping over them while the others wait.
-template <class Emit>
-__device__ __forceinline__ void scatter_reps(bool mine, const int* row,
-                                             const int* rec, const int* adds,
-                                             int reps, int j_lo, int j_hi,
-                                             int r, int at, Emit emit) {
-  const unsigned members = __ballot_sync(REPRO_FULL_MASK, mine);
-  if (!members) return;
-  const uint32_t base = mine ? scatter_base(row, rec) : 0;
-  if (__popc(members) * ((reps + 31) / 32) >= reps) {
-    if (mine)
-      for (int j = j_lo; j < j_hi; ++j)
-        emit(r, at, j, (int)(base + (uint32_t)adds[2 * j]));
-    return;
-  }
-  const int lane = threadIdx.x & 31;
-  for (unsigned m = members; m; m &= m - 1) {
-    const int from = __ffs(m) - 1;
-    const uint32_t b = __shfl_sync(REPRO_FULL_MASK, base, from);
-    const int lo = __shfl_sync(REPRO_FULL_MASK, j_lo, from);
-    const int hi = __shfl_sync(REPRO_FULL_MASK, j_hi, from);
-    const int rr = __shfl_sync(REPRO_FULL_MASK, r, from);
-    const int aa = __shfl_sync(REPRO_FULL_MASK, at, from);
-    for (int j = lo + lane; j < hi; j += 32)
-      emit(rr, aa, j, (int)(b + (uint32_t)adds[2 * j]));
-  }
-}
-
 // Stage 1: per-tile member copies per device, th[src, d, tile].
 template <bool kSharedDesc>
 static __global__ void __launch_bounds__(SCATTER_THREADS)
@@ -140,47 +107,6 @@ scatter_count_kernel(const int* rows, long long n_loc, int w,
   int* col = th + src * n_dev * n_tiles + t;  // th[src, d, t] = col[d * n_tiles]
   for (int d = threadIdx.x; d < n_dev; d += blockDim.x)
     col[(long long)d * n_tiles] = cnt[d];
-}
-
-// In-place exclusive scan of a[0, len) in shared memory by the whole block
-// (each thread a contiguous run); returns the total.  Starts and ends with
-// the block in step (barriers inside).
-__device__ __forceinline__ int scatter_block_scan(int* a, int len,
-                                                  int* warp_sums) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int n_warps = blockDim.x >> 5;
-  const int per = (len + blockDim.x - 1) / blockDim.x;
-  const int b = threadIdx.x * per;
-  const int e = b + per < len ? b + per : len;
-  int s = 0;
-  for (int i = b; i < e; ++i) s += a[i];
-  int x = s;
-#pragma unroll
-  for (int o = 1; o < 32; o <<= 1) {
-    const int y = __shfl_up_sync(REPRO_FULL_MASK, x, o);
-    if (lane >= o) x += y;
-  }
-  if (lane == 31) warp_sums[warp] = x;
-  __syncthreads();
-  if (warp == 0) {
-    int v = lane < n_warps ? warp_sums[lane] : 0;
-#pragma unroll
-    for (int o = 1; o < 32; o <<= 1) {
-      const int y = __shfl_up_sync(REPRO_FULL_MASK, v, o);
-      if (lane >= o) v += y;
-    }
-    if (lane < n_warps) warp_sums[lane] = v;
-  }
-  __syncthreads();
-  int run = (warp > 0 ? warp_sums[warp - 1] : 0) + x - s;
-  for (int i = b; i < e; ++i) {
-    const int v = a[i];
-    a[i] = run;
-    run += v;
-  }
-  const int total = warp_sums[n_warps - 1];
-  __syncthreads();
-  return total;
 }
 
 // Stage 3: rank every member copy of the tile and write its record, a
@@ -376,11 +302,11 @@ extern "C" int scatter_pack_launch(const int* rows, int n_src, long long n_loc,
   chunks = chunks < 1 ? 1 : (chunks > 64 ? 64 : chunks);
   if (cap > 0) {
     scatter_fill_kernel<<<(unsigned)(n_pairs * chunks), SCATTER_FILL_THREADS,
-                          0, s>>>(hist, n_pairs, cap, w + 1, (int)chunks, buf);
+                          0, s>>>(hist, n_pairs, n_dev, n_dev, cap, w + 1,
+                                  (int)chunks, buf);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   }
-  bins_overflow_kernel<<<blocks_for(n_src, 128), 128, 0, s>>>(hist, n_src,
-                                                               n_dev, cap,
-                                                               overflow);
+  bins_overflow_kernel<<<blocks_for(n_src, 128), 128, 0, s>>>(
+      hist, n_src, n_dev, n_dev, cap, overflow);
   return (int)cudaGetLastError();
 }

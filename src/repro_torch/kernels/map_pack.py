@@ -7,25 +7,27 @@ core.executor: one entry per residual route,
 ``hashed = ((col, seed, share, stride), ...)``.  `_route_block` evaluates it
 on torch tensors (any leading batch axes) and gives every (row, copy) its
 unwrapped LOGICAL cell id, -1 on non-members; copies are ordered row-major
-over (row, route, rep).  `route_desc` packs the same recipe into the int64
-descriptor the CUDA kernels walk (layout in csrc/common.cuh), and
-`scatter_desc_tensor` into the int32 one of scatter_pack's and map_count's
-kernels.
+over (row, route, rep).  `route_desc` packs the same recipe into a
+descriptor (layout in csrc/common.cuh), and `scatter_desc_tensor` uploads
+it, wrapped to int32, for the CUDA kernels (map_count, map_pack,
+scatter_pack).
 
 `map_count` counts routed copies per (source shard, wrapped cell): rows
 [i·(n/n_src), (i+1)·(n/n_src)) are source i.  `map_count_host` is its plain
 version; `map_count_cuda` launches csrc/map_pack.cu.
 
-`map_pack` is the map phase per source shard (leading axis) in two steps:
-the kernel routes and folds every (row, copy) and emits three per-copy
-streams — d (the copy's device through the (k,) placement table, n_dev for
-non-members), tag (its unwrapped logical cell, -1 for non-members) and
-rank (its stable arrival rank within d) — plus the (n_dev + 1,) histogram;
-`_assemble_tagged` then gathers the original rows into the
-(n_src, n_dev, cap, w+1) buffer, ranks ≥ cap dropped and counted as
-overflow.  The buffer equals `scatter_pack`'s bit for bit.
-`route_streams` is the plain version of the streams (one stable sort);
-`map_pack_cuda` launches csrc/map_pack.cu and assembles with torch ops.
+`map_pack` is the map phase per source shard (leading axis) in two
+stages, as the reference's: the streams — d (each (row, copy)'s device
+through the (k,) placement table, n_dev for non-members), tag (its
+unwrapped logical cell, -1 for non-members) and rank (its stable arrival
+rank within d) — plus the (n_dev + 1,) histogram; then the assembly of the
+(n_src, n_dev, cap, w+1) buffer from them, ranks ≥ cap dropped and counted
+as overflow.  The buffer equals `scatter_pack`'s bit for bit.
+`route_streams` is the plain version of the streams (one stable sort) and
+`_assemble_tagged` of the assembly (torch gathers);
+`map_pack_streams_cuda` launches csrc/map_pack.cu's streams kernels and
+`map_pack_cuda` those and its assembly kernels: no torch op touches the
+buffer on the card.
 """
 from __future__ import annotations
 
@@ -38,9 +40,8 @@ from .ref import INVALID, mulshift
 
 RouteSpec = tuple
 
-# Copies one warp ranks per tile (the pack walk's count and rank passes).
-TILE_COPIES = 2048
-# Device bins one warp keeps in shared memory (8 warps a block, 48 KB).
+# One more than the devices map_pack's and scatter_pack's kernels take
+# (their per-warp device counters sit in shared memory).
 MAX_PACK_BINS = 1536
 
 
@@ -98,12 +99,6 @@ def route_desc(routes: RouteSpec) -> list[int]:
         head += len(rec)
     return [fanout, len(routes), *copies, *starts,
             *(x for rec in records for x in rec)]
-
-
-@functools.lru_cache(maxsize=256)
-def route_desc_tensor(routes: RouteSpec, device: torch.device) -> torch.Tensor:
-    """`route_desc` uploaded once per (recipe, device)."""
-    return torch.tensor(route_desc(routes), dtype=torch.int64, device=device)
 
 
 @functools.lru_cache(maxsize=256)
@@ -263,52 +258,101 @@ def map_pack_host(rows: torch.Tensor, routes: RouteSpec,
 def pack_scratch(rows: torch.Tensor, fanout: int, n_dev: int
                  ) -> tuple[int, int, torch.Tensor]:
     """(rows per tile, tiles per source, per-tile counts (n_src, n_dev + 1,
-    tiles)) of map_pack's walk (csrc/map_pack.cu::pack_tile_kernel)."""
-    if n_dev + 1 > MAX_PACK_BINS:
-        raise ValueError(f"map_pack takes n_dev < {MAX_PACK_BINS}")
-    s, n, _ = rows.shape
-    tile_rows = max(1, TILE_COPIES // fanout)
+    tiles)) of csrc/map_pack.cu's streams: scatter_pack's tiles; bin n_dev
+    holds each tile's non-member copies.  Raises on what the kernels do not
+    take: n_dev ≥ MAX_PACK_BINS, or a source of 2^31 copies or more."""
+    from .scatter_pack import scatter_tile_rows
+    s, n, w = rows.shape
+    if not 1 <= n_dev < MAX_PACK_BINS:
+        raise ValueError(f"map_pack takes 1 <= n_dev < {MAX_PACK_BINS}, "
+                         f"got {n_dev}")
+    if n * fanout >= 1 << 31:
+        raise ValueError(f"map_pack: {n} rows x fanout {fanout} copies a "
+                         f"source, past int32")
+    if w < 1:
+        raise ValueError("map_pack: rows need at least one column")
+    tile_rows = scatter_tile_rows(w)
     n_tiles = -(-n // tile_rows)
     th = torch.empty((s, n_dev + 1, n_tiles), dtype=torch.int32,
                      device=rows.device)
     return tile_rows, n_tiles, th
 
 
-def map_pack_streams_cuda(rows: torch.Tensor, routes: RouteSpec,
-                          ptable: torch.Tensor, k: int, n_dev: int
-                          ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor,
-                                     torch.Tensor]:
-    """Launch csrc/map_pack.cu's map_pack on rows (n_src, n_loc, w) int32
-    on the card: (tag, d, rank) (n_src, n_loc·F) and hist (n_src, n_dev+1)."""
+def _launch_map_pack(rows: torch.Tensor, routes: RouteSpec,
+                     ptable: torch.Tensor, k: int, n_dev: int,
+                     cap: int | None):
+    """Launch csrc/map_pack.cu on rows (n_src, n_loc, w) with n_loc·F > 0:
+    ((d, tag, rank) planes (3, n_src, n_loc·F), hist (n_src, n_dev + 1),
+    buf, overflow); with cap None only the streams (buf, overflow None).
+    The assembly's scratch is the (n_src, n_dev, cap) slot map of (copy,
+    tag) pairs."""
+    s, n, w = rows.shape
+    fanout = route_fanout(routes)
+    tile_rows, n_tiles, th = pack_scratch(rows, fanout, n_dev)
+    dev = rows.device
+    streams = torch.empty((3, s, n * fanout), dtype=torch.int32, device=dev)
+    hist = torch.empty((s, n_dev + 1), dtype=torch.int32, device=dev)
+    buf = overflow = slots = None
+    if cap is not None:
+        buf = torch.empty((s, n_dev, cap, w + 1), dtype=torch.int32,
+                          device=dev)
+        overflow = torch.empty(s, dtype=torch.int32, device=dev)
+        slots = torch.empty((s, n_dev, cap, 2), dtype=torch.int32,
+                            device=dev)
+    desc = scatter_desc_tensor(routes, dev)
+    _build.call("map_pack_launch", rows.data_ptr(), s, n, w, desc.data_ptr(),
+                desc.numel(), len(routes), fanout, ptable.data_ptr(), k,
+                n_dev, tile_rows, n_tiles, th.data_ptr(), hist.data_ptr(),
+                streams.data_ptr(), int(cap is not None),
+                0 if cap is None else cap,
+                None if buf is None else buf.data_ptr(),
+                None if overflow is None else overflow.data_ptr(),
+                None if slots is None else slots.data_ptr(),
+                _build.stream(rows))
+    return streams, hist, buf, overflow
+
+
+def _card_args(rows: torch.Tensor, ptable: torch.Tensor, k: int
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """rows and ptable as the kernels take them, or raise."""
     rows = _build.as_i32(rows, "rows")
     ptable = _build.as_i32(ptable, "ptable")
     if rows.dim() != 3 or ptable.shape != (k,):
         raise ValueError(f"map_pack: rows must be (n_src, n_loc, w) and "
                          f"ptable ({k},), got {tuple(rows.shape)} and "
                          f"{tuple(ptable.shape)}")
-    s, n, w = rows.shape
+    return rows, ptable
+
+
+def map_pack_streams_cuda(rows: torch.Tensor, routes: RouteSpec,
+                          ptable: torch.Tensor, k: int, n_dev: int
+                          ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                                     torch.Tensor]:
+    """Launch csrc/map_pack.cu's streams on rows (n_src, n_loc, w) int32 on
+    the card: (tag, d, rank) (n_src, n_loc·F) and hist (n_src, n_dev+1)."""
+    rows, ptable = _card_args(rows, ptable, k)
+    s, n, _ = rows.shape
     fanout = route_fanout(routes)
-    dev = rows.device
-    streams = torch.empty((3, s, n * fanout), dtype=torch.int32, device=dev)
-    hist = torch.zeros((s, n_dev + 1), dtype=torch.int32, device=dev)
     if n * fanout == 0:
-        return streams[1], streams[0], streams[2], hist
-    tile_rows, n_tiles, th = pack_scratch(rows, fanout, n_dev)
-    desc = route_desc_tensor(routes, dev)
-    _build.call("map_pack_launch", rows.data_ptr(), s, n, w, desc.data_ptr(),
-                fanout, ptable.data_ptr(), k, n_dev, tile_rows, n_tiles,
-                th.data_ptr(), hist.data_ptr(), streams.data_ptr(),
-                _build.stream(rows))
-    d, tag, rank = streams
+        empty = torch.empty((s, 0), dtype=torch.int32, device=rows.device)
+        hist = torch.zeros((s, n_dev + 1), dtype=torch.int32,
+                           device=rows.device)
+        return empty, empty, empty, hist
+    (d, tag, rank), hist, _, _ = _launch_map_pack(rows, routes, ptable, k,
+                                                  n_dev, None)
     return tag, d, rank, hist
 
 
 def map_pack_cuda(rows: torch.Tensor, routes: RouteSpec,
                   ptable: torch.Tensor, k: int, n_dev: int, cap: int
                   ) -> tuple[torch.Tensor, torch.Tensor]:
-    """The kernel's streams, assembled: (buf (n_src, n_dev, cap, w+1),
-    overflow (n_src,))."""
-    streams = map_pack_streams_cuda(rows, routes, ptable, k, n_dev)
-    if streams[0].shape[1] == 0:
+    """Launch csrc/map_pack.cu (streams, then the assembly: records, -1
+    fill, overflow): (buf (n_src, n_dev, cap, w+1), overflow (n_src,))."""
+    rows, ptable = _card_args(rows, ptable, k)
+    if cap < 0:
+        raise ValueError(f"map_pack: cap {cap} < 0")
+    if rows.shape[1] == 0 or route_fanout(routes) == 0:
         return empty_pack(rows, n_dev, cap)
-    return _assemble_tagged(rows, *streams, n_dev, cap, route_fanout(routes))
+    _, _, buf, overflow = _launch_map_pack(rows, routes, ptable, k, n_dev,
+                                           cap)
+    return buf, overflow

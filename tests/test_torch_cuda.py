@@ -161,6 +161,18 @@ def _scatter_case(case, rng):
     if case == "all-padding":
         rows = np.full((8, 3000, 2), -1, np.int32)
         return rows, [_specs(64)["R"]], rng.integers(0, 8, 64), 64, 8, 16
+    if case == "no-members":
+        # Valid rows that every route refuses (B in its not-in set).
+        rows = _rows(rng, 4 * 3000, 2, 50, 0).reshape(4, 3000, 2)
+        rows[..., 1] = rng.choice([7, 13], (4, 3000))
+        return (rows, [_synthetic_specs(32)["T"]], rng.integers(0, 8, 32),
+                32, 8, 64)
+    if case == "heavy-only":
+        # Every row the heavy hitter B = 0: only the 16-rep route's copies
+        # are members.
+        rows = _rows(rng, 8 * 5000, 2, 1 << 20, 0).reshape(8, 5000, 2)
+        rows[..., 1] = 0
+        return rows, [_cell_routes()], rng.integers(0, 8, 256), 256, 8, 4096
     if case == "cell-routes":
         # 8 x 2^18 rows of R(A, B): 1 in 171 rows the heavy hitter B = 0
         # (12,288 of 2^21 at the cell), the rest a tail of 2^20 values.
@@ -737,6 +749,70 @@ def test_match_kernels(dev, n_p, n_b, case):
     _eq(ops.first_match(probe, build), bpr.first_match_host(probe, build))
 
 
+@pytest.mark.parametrize("case", [
+    "specs-8-1-4", "specs-64-700-8", "specs-256-2049-300", "one-device-fits",
+    "one-device-overflow", "eq-reps-40", "eq-reps-5000", "w5", "w9", "w9000",
+    "max-devices", "all-padding", "no-members", "heavy-only", "cell-routes"])
+def test_map_pack_kernel_cases(dev, case):
+    """map_pack's streams equal route_streams, and its buffer and overflow
+    map_pack_host's and scatter_pack's, at the edges of its tiles and
+    windows: fewer rows than a tile and ragged last tiles; every cell on
+    one device with a cap that fits and one below the counts; fanout above
+    32 and a row of 5,002 copies over several 4,096-copy windows; w = 5, 9
+    and a tile of one row wider than 8,192 words; the most devices; every
+    copy a non-member (padding, or rows every route refuses); only the heavy
+    route's members; the cell's route shapes at 8 x 2^18 rows.  One launch
+    a call."""
+    rng = np.random.default_rng(sum(map(ord, case)))
+    rows, specs, ptable, k, n_dev, cap = _scatter_case(case, rng)
+    rows = torch.from_numpy(rows).to(dev)
+    ptable = torch.from_numpy(ptable.astype(np.int32)).to(dev)
+    for routes in specs:
+        if rows.shape[1]:
+            ops.reset_launches()
+            got = mp.map_pack_streams_cuda(rows, routes, ptable, k, n_dev)
+            torch.cuda.synchronize()
+            assert ops.LAUNCHES["map_pack"] == 1
+            for g, want in zip(got, mp.route_streams(rows, routes, ptable, k,
+                                                     n_dev)):
+                _eq(g, want)
+        ops.reset_launches()
+        buf, over = ops.map_pack(rows, routes, ptable, k, n_dev, cap)
+        torch.cuda.synchronize()
+        assert ops.LAUNCHES["map_pack"] == int(rows.shape[1] > 0)
+        for want in (mp.map_pack_host(rows, routes, ptable, k, n_dev, cap),
+                     sp.scatter_pack_cuda(rows, routes, ptable, k, n_dev,
+                                          cap)):
+            _eq(buf, want[0])
+            _eq(over, want[1])
+    if case.endswith("overflow") or case == "eq-reps-5000":
+        assert int(over.sum()) > 0
+    if case in ("all-padding", "no-members"):
+        assert not (buf != -1).any() and not over.any()
+
+
+def test_map_pack_card_path_allocates_no_index_tensor(dev):
+    """The card path holds no (n_src, n_loc·F) int64 index: its peak is the
+    int32 streams, the buffer, its slot map (two words a record) and small
+    scratch."""
+    rng = np.random.default_rng(4)
+    rows, specs, ptable, k, n_dev, cap = _scatter_case("specs-64-700-8", rng)
+    rows = torch.from_numpy(rows).to(dev)
+    ptable = torch.from_numpy(ptable.astype(np.int32)).to(dev)
+    routes = specs[0]
+    s, n, w = rows.shape
+    m = n * mp.route_fanout(routes)
+    mp.map_pack_cuda(rows, routes, ptable, k, n_dev, cap)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    buf, _ = mp.map_pack_cuda(rows, routes, ptable, k, n_dev, cap)
+    torch.cuda.synchronize()
+    extra = torch.cuda.max_memory_allocated() - base
+    slots = 2 * 4 * buf.numel() // (w + 1)
+    assert extra < 3 * 4 * s * m + 4 * buf.numel() + slots + (1 << 20)
+
+
 def _library_spec(k):
     """The kernel library tests' recipe: a hashed route of fanout 2 with a
     not-in constraint and a two-axis route with an eq constraint (one
@@ -752,10 +828,11 @@ def _library_spec(k):
 
 @pytest.mark.parametrize("k,n_dev,n_loc,cap", [
     (1, 1, 1, 4), (8, 4, 700, 8), (256, 8, 5000, 40), (256, 8, 5000, 4096),
-    (8, 4, 0, 2), (256, 8, 100000, 20000)])
+    (8, 4, 0, 2), (256, 8, 100000, 20000), (8, 4, 700, 0)])
 def test_map_pack_kernel(dev, k, n_dev, n_loc, cap):
     """Streams, buffer and overflow equal the plain version's and the
-    buffer equals scatter_pack's; small caps force overflow."""
+    buffer equals scatter_pack's; small caps force overflow (cap 0: every
+    member copy)."""
     rng = np.random.default_rng(k * n_loc + cap)
     spec = _library_spec(k)
     ptable = torch.from_numpy(rng.integers(0, n_dev, k).astype(np.int32))
@@ -797,6 +874,15 @@ def test_library_wrappers_reject_shapes_and_dtypes_they_do_not_take(dev):
     rows = torch.zeros((2, 4, 3), dtype=torch.int32, device=dev)
     with pytest.raises(ValueError):
         mp.map_pack_cuda(rows, spec, keys[:, 0], 8, 4, 4)    # (4,) table
+    table = torch.zeros(8, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError):
+        mp.map_pack_cuda(rows, spec, table, 8, mp.MAX_PACK_BINS, 4)
+    with pytest.raises(ValueError):
+        mp.map_pack_streams_cuda(rows, spec, table, 8, 0)    # no device
+    with pytest.raises(ValueError):
+        mp.map_pack_cuda(rows, spec, table, 8, 4, -1)        # cap < 0
+    with pytest.raises(KernelError):
+        mp.map_pack_cuda(rows.float(), spec, table, 8, 4, 4)
     assert all(v == 0 for v in ops.LAUNCHES.values())
 
 
@@ -856,6 +942,58 @@ def test_segment_histogram_kernel(dev, n, n_bins):
     assert ops.LAUNCHES["segment_histogram"] == 1
     _eq(got, sh.segment_histogram_host(vals, n_bins))
     assert got.dtype == torch.int32
+
+
+def _hist_arm_cases():
+    """(n, n_bins) at each arm's edges: one block up to its threshold and
+    one value past it; 12,288 and 12,289 bins (one block's counters, the
+    cluster's); 2^16 bins with one cluster and with several; a cluster's
+    bins and one past them (device atomics)."""
+    one, shared = sh.ONE_BLOCK_VALUES, sh.SHARED_BINS
+    cluster = sh.CLUSTER_BLOCKS * sh.CLUSTER_BLOCK_BINS
+    return [(1, 8), (16, 8), (one, 8), (one + 1, 8), (one, shared),
+            (one + 1, shared), (5, shared + 1), (1 << 20, shared + 1),
+            (1, 1 << 16), (1 << 22, 1 << 16), (300001, cluster),
+            (300001, cluster + 1)]
+
+
+@pytest.mark.parametrize("n,n_bins", _hist_arm_cases())
+@pytest.mark.parametrize("values", ["random", "one bin", "out of range"])
+def test_segment_histogram_kernel_arms(dev, n, n_bins, values):
+    """Every arm equals the plain version with values spread over the bins
+    and the padding around them, all in one bin, and all out of range; one
+    launch a call."""
+    rng = np.random.default_rng(n + n_bins)
+    if values == "random":
+        v = rng.integers(-3, n_bins + 3, n)
+    elif values == "one bin":
+        v = np.full(n, n_bins - 1)
+    else:
+        v = rng.choice([-1, -5, n_bins, n_bins + 9], n)
+    vals = torch.from_numpy(v.astype(np.int32)).to(dev)
+    ops.reset_launches()
+    got = ops.segment_histogram(vals, n_bins)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["segment_histogram"] == 1
+    _eq(got, sh.segment_histogram_host(vals, n_bins))
+    if values == "out of range":
+        assert not got.any()
+
+
+def test_segment_histogram_kernel_refuses_plans_its_arms_do_not_take(dev):
+    vals = torch.arange(100, dtype=torch.int32, device=dev)
+    for n_bins, plan in (
+            (8, (sh.SH_ONE, 2, 32)),                          # one block
+            (sh.SHARED_BINS + 1, (sh.SH_ONE, 1, 128)),        # past it
+            (sh.SHARED_BINS + 1, (sh.SH_GRID, 4, 256)),       # past shared
+            (1 << 16, (sh.SH_CLUSTER, 12, 512)),              # part cluster
+            (1 << 16, (sh.SH_CLUSTER, 8, 1024)),              # 1,024 threads
+            (sh.CLUSTER_BLOCKS * sh.CLUSTER_BLOCK_BINS + 1,
+             (sh.SH_CLUSTER, 8, 512)),                        # past a cluster
+            (8, (sh.SH_GRID, 4, 48)),                         # 48 threads
+            (8, (7, 1, 32))):                                 # no such arm
+        with pytest.raises(KernelError):
+            sh.segment_histogram_cuda(vals, n_bins, plan=plan)
 
 
 def test_segment_histogram_kernel_edges(dev):

@@ -149,3 +149,37 @@ def test_property_matches_jax_oracle_and_numpy(n, n_bins, seed):
     for got in (plain, port_oracle):
         np.testing.assert_array_equal(got, oracle)
         np.testing.assert_array_equal(got, want)
+
+
+_CLUSTER_BINS = sh.CLUSTER_BLOCKS * sh.CLUSTER_BLOCK_BINS
+
+
+@pytest.mark.parametrize("n,n_bins,want", [
+    (1, 8, (sh.SH_ONE, 1, 32)),                   # a decode call's shape
+    (16, 8, (sh.SH_ONE, 1, 32)),
+    (16384, 8, (sh.SH_ONE, 1, 1024)),             # a prefill call's
+    (1024, 384, (sh.SH_ONE, 1, 256)),
+    (sh.ONE_BLOCK_VALUES, sh.SHARED_BINS, (sh.SH_ONE, 1, 1024)),
+    (sh.ONE_BLOCK_VALUES + 1, 8,
+     (sh.SH_GRID, -(-(sh.ONE_BLOCK_VALUES + 1) // (8 * sh.GRID_THREADS)),
+      sh.GRID_THREADS)),
+    (1 << 24, 384, (sh.SH_GRID, sh.MAX_GRID_BLOCKS, sh.GRID_THREADS)),
+    (5, sh.SHARED_BINS + 1,
+     (sh.SH_CLUSTER, sh.CLUSTER_BLOCKS, sh.CLUSTER_THREADS)),
+    (1 << 18, 1 << 16, (sh.SH_CLUSTER, 4 * sh.CLUSTER_BLOCKS,
+                        sh.CLUSTER_THREADS)),
+    (1 << 30, 1 << 16, (sh.SH_CLUSTER, sh.MAX_CLUSTERS * sh.CLUSTER_BLOCKS,
+                        sh.CLUSTER_THREADS)),
+    (1 << 24, 1 << 18, (sh.SH_CLUSTER, sh.MAX_CLUSTERS // 2
+                        * sh.CLUSTER_BLOCKS, sh.CLUSTER_THREADS)),
+    (1 << 17, _CLUSTER_BINS,
+     (sh.SH_CLUSTER, sh.CLUSTER_BLOCKS, sh.CLUSTER_THREADS)),
+    (1 << 20, _CLUSTER_BINS + 1, (sh.SH_GLOBAL, 512, sh.GRID_THREADS)),
+])
+def test_histogram_plan_picks_each_arm(n, n_bins, want):
+    """Few values and bins in one block's shared memory: one block, no
+    memset (the decode and prefill calls); more values: the grid; bins
+    past one block: a cluster per n_bins values, at most MAX_CLUSTERS (half
+    as many past 2^17 bins, one block an SM); bins past a cluster: device
+    atomics."""
+    assert sh.histogram_plan(n, n_bins) == want

@@ -193,3 +193,25 @@ def test_scatter_tile_rows(w, want):
     would pass the kernels' 8,192-word shared-memory copy, one at least."""
     assert tsp.scatter_tile_rows(w) == want
     assert want == 1 or want * w <= tsp.SCATTER_ROW_WORDS
+
+
+def test_map_pack_scratch_geometry_and_refusals():
+    """The CUDA map_pack's tiles are scatter_pack's, with a sentinel bin
+    (each tile's non-member copies) past the devices; it refuses what its
+    kernels do not take: n_dev outside [1, MAX_PACK_BINS), a source of
+    2^31 copies or more, rows of no column."""
+    rows = torch.empty((3, 2049, 2), dtype=torch.int32)
+    tile_rows, n_tiles, th = tmp.pack_scratch(rows, 17, 8)
+    assert (tile_rows, n_tiles, tuple(th.shape)) == (1024, 3, (3, 9, 3))
+    wide = torch.empty((1, 5, 9000), dtype=torch.int32)
+    assert tmp.pack_scratch(wide, 2, 4)[:2] == (1, 5)
+    for n_dev in (0, tmp.MAX_PACK_BINS):
+        with pytest.raises(ValueError):
+            tmp.pack_scratch(rows, 17, n_dev)
+    tmp.pack_scratch(rows, 17, tmp.MAX_PACK_BINS - 1)
+    huge = torch.empty((1, 1 << 27, 1), dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError):
+        tmp.pack_scratch(huge, 16, 8)                    # 2^31 copies
+    tmp.pack_scratch(huge, 15, 8)
+    with pytest.raises(ValueError):
+        tmp.pack_scratch(torch.empty((1, 5, 0), dtype=torch.int32), 2, 4)
