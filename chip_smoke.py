@@ -50,7 +50,12 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      match_counts and first_match on the B columns of one tail cell's and
      one heavy cell's routed fragments (Σ counts over the tail cell = the
      cell's Σ_v c_R(v)·c_S(v); every heavy pair matches) and on a random
-     16,384 × 4,096 pair; then each against its plain version, as in 4;
+     16,384 × 4,096 pair; then each against its plain version, as in 4,
+     bound by bytes with the nested loop's 2·n_p·n_b operations beside it,
+     and each pair's arm (`match_plan`'s), device time and device
+     operations a call; then both on the cell's B columns, R's valid rows
+     against S's (2^21 × 2^21, the device arm), held against numpy (Σ
+     counts = the cell's exact join size; the plain version is not run);
   3b. the same cell on the staged map + sort-merge reduce
      (`fuse_map=False, hash_reduce=False`), counts zeroed just before its
      `prepare` + first `run_batch` and read just after: zero overflow, the
@@ -109,8 +114,10 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM memory rate (NVIDIA data sheet)
-# H100 SXM float32 rate outside the tensor cores (NVIDIA data sheet); the
-# kernels' int32 scalar operations issue on the same cores.
+# H100 SXM float32 rate outside the tensor cores (NVIDIA data sheet), an
+# FMA counted as two operations.  int32 operations issue at a quarter of it
+# (64 INT32 lanes an SM): a bound by operations here understates an int32
+# loop's floor by up to 4x.
 OPS_PER_S = 67e12
 
 FULL = dict(n=1 << 21, hh_rows=12288, tail_domain=1 << 20, k=256, n_dev=8)
@@ -914,7 +921,8 @@ def library_checks(cell):
 
     # Each kernel against its plain version; the kept row of each is
     # map_pack on R, hash_partition at the tail share, match_counts and
-    # first_match on the tail cell.
+    # first_match on the tail cell (the heavy, random and B-column pairs
+    # under it).
     out, extra, packs = {}, {}, {}
     for name, rows3 in shards.items():
         spec, cap = specs[name], s.caps[name]
@@ -960,24 +968,94 @@ def library_checks(cell):
                hp.hash_partition_host, args, 8 * n + 4 * nb, 4 * n, 20)
         print(f"[library] hash_partition nb={nb}: device "
               f"{device_ms(lambda: hp.hash_partition_cuda(*args)):.4f} ms")
-    for label, dst in (("heavy", extra), ("random", extra), ("tail", out)):
+    recs = {}
+    for label in ("heavy", "random", "tail"):
         probe, build = pairs[label]
         n_p, n_b = probe.shape[0], build.shape[0]
-        io = 4 * (2 * n_p + n_b)
         print(f"[library] {label} pair: {n_p} x {n_b}")
-        record(dst, "match_counts", bpr.match_counts_cuda,
-               bpr.match_counts_host, (probe, build), io, 2 * n_p * n_b, 20)
-        # first_match needs each probe's pairs up to its first match.
-        first = matched[label][1].long()
-        needed = int(torch.where(first >= 0, first + 1, n_b).sum())
-        record(dst, "first_match", bpr.first_match_cuda,
-               bpr.first_match_host, (probe, build), io, 2 * needed, 20)
-        print(f"[library] {label} pair: device match_counts "
-              f"{device_ms(lambda: bpr.match_counts_cuda(probe, build)):.4f}"
-              f" ms, first_match "
-              f"{device_ms(lambda: bpr.first_match_cuda(probe, build)):.4f} "
-              f"ms")
+        dst = recs[label] = {}
+        for name, kern, plain in (
+                ("match_counts", bpr.match_counts_cuda, bpr.match_counts_host),
+                ("first_match", bpr.first_match_cuda, bpr.first_match_host)):
+            record(dst, name, kern, plain, (probe, build),
+                   *match_work(n_p, n_b), 20)
+            dst[name].update(match_device(name, kern, probe, build, label))
+    b_cols = b_column_pair(rows_r, rows_s, cell["exact"])
+    for name in ("match_counts", "first_match"):
+        out[name] = dict(recs["tail"][name], heavy=recs["heavy"][name],
+                         random=recs["random"][name],
+                         b_columns=b_cols[name])
     return out, launches
+
+
+def match_work(n_p: int, n_b: int) -> tuple[int, int]:
+    """(bytes, operations) of match_counts / first_match: each key read
+    once and each output written once; a hash (two multiplies, a shift)
+    and a compare a key."""
+    return 4 * (2 * n_p + n_b), 4 * (n_p + n_b)
+
+
+def match_device(name, kern, probe, build, label) -> dict:
+    """The match kernel's arm (match_plan's), its device time and device
+    operations a call, and the nested loop's 2 n_p n_b operations (the
+    first version's work) beside them."""
+    from repro_torch.kernels import build_probe as bpr
+    n_p, n_b = probe.shape[0], build.shape[0]
+    arm, slots, pbits, blocks = bpr.match_plan(n_p, n_b)
+    arm = "shared" if arm == bpr.MATCH_SHARED else "device"
+    ms = device_ms(lambda: kern(probe, build), split=f"{name} {label}")
+    _, device = call_profile(lambda: kern(probe, build), 10)
+    # Launches a call of each device operation, rounded as in device_ms.
+    ops_a_call = {key[:40]: max(1, round(count / 10))
+                  for key, count in device.items()}
+    n_ops = sum(ops_a_call.values())
+    print(f"[library] {label} pair: {name} arm {arm} ({slots} slots, "
+          f"{1 << pbits} partitions, {blocks} blocks), device {ms:.4f} ms "
+          f"in {n_ops} device operations a call {ops_a_call}; nested loop "
+          f"{2 * n_p * n_b} operations")
+    return dict(arm=arm, slots=slots, partitions=1 << pbits, device_ms=ms,
+                device_ops=n_ops, nested_ops=2 * n_p * n_b)
+
+
+def b_column_pair(rows_r, rows_s, exact: int) -> dict:
+    """match_counts and first_match on the cell's B columns, R's valid rows
+    against S's (the device arm), held against numpy: Σ counts must be the
+    cell's exact join size.  The plain version's (n_p, n_b) equality tiles
+    would take hours here, so it is neither run nor timed."""
+    from repro_torch.core.executor import INVALID
+    from repro_torch.kernels import build_probe as bpr
+    probe = rows_r[rows_r[:, 0] != INVALID][:, 1].contiguous()
+    build = rows_s[rows_s[:, 0] != INVALID][:, 0].contiguous()
+    n_p, n_b = probe.shape[0], build.shape[0]
+    counts = bpr.match_counts_cuda(probe, build)
+    first = bpr.first_match_cuda(probe, build)
+    check(int(counts.long().sum()) == exact,
+          f"B columns: Σ match_counts {int(counts.long().sum())} != {exact}")
+    p, b = probe.cpu().numpy(), build.cpu().numpy()
+    uniq, first_idx, cnt = np.unique(b, return_index=True, return_counts=True)
+    pos = np.clip(np.searchsorted(uniq, p), 0, len(uniq) - 1)
+    hit = uniq[pos] == p
+    check(np.array_equal(counts.cpu().numpy(), np.where(hit, cnt[pos], 0))
+          and np.array_equal(first.cpu().numpy(),
+                             np.where(hit, first_idx[pos], -1)),
+          "B columns: matches differ from numpy's")
+    print(f"[library] B columns pair: {n_p} x {n_b}, Σ counts = {exact} "
+          f"(the exact join size), counts and first indices == numpy")
+    n_bytes, n_ops = match_work(n_p, n_b)
+    bound_ms, bound_by = bound(n_bytes, n_ops)
+    res = {}
+    for name, kern in (("match_counts", bpr.match_counts_cuda),
+                       ("first_match", bpr.first_match_cuda)):
+        ms = time_ms(lambda: kern(probe, build), 10)
+        res[name] = dict(n_p=n_p, n_b=n_b, ms=ms, bound_ms=bound_ms,
+                         bound_by=bound_by,
+                         **match_device(name, kern, probe, build,
+                                        "B columns"))
+        print(f"[kernel] {name} B columns: {ms:.4f} ms (device "
+              f"{res[name]['device_ms']:.4f} ms; bound {bound_ms:.4f} ms by "
+              f"{bound_by}: {n_bytes} bytes, {n_ops} operations; plain not "
+              f"run)")
+    return res
 
 
 def staged_cell(dev, cell):

@@ -48,8 +48,8 @@ SIGNATURES = {
     "map_pack_launch": [P, I, LL, I, P, I, I, I, P, I, I, I, LL, P, P, P, I,
                         I, P, P, P, P],
     "hash_partition_launch": [P, LL, LL, I, P, P, P],
-    "match_counts_launch": [P, LL, P, LL, P, P],
-    "first_match_launch": [P, LL, P, LL, P, P],
+    "match_counts_launch": [P, LL, P, LL, I, LL, I, I, P, P, P],
+    "first_match_launch": [P, LL, P, LL, I, LL, I, I, P, P, P],
     "segment_histogram_launch": [P, LL, I, I, I, I, P, P, P],
 }
 

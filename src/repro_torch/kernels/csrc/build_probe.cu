@@ -1,5 +1,5 @@
 // segment_scan / run_lengths (the grouping pass of the sort-merge reduce)
-// and match_counts / first_match (blocked nested-loop equality).
+// and match_counts / first_match (a hash table of the build side).
 //
 // Replaces the Pallas `_seg_scan_kernel` (src/repro/kernels/build_probe.py:69,
 // launched by `segment_scan` at :152/:167) and `run_lengths` (:190), which
@@ -309,134 +309,254 @@ extern "C" int segment_scan_launch(const int* keys, int B, long long n, int w,
 //
 // Replace the Pallas `_match_counts_kernel` and `_first_match_kernel`
 // (src/repro/kernels/build_probe.py:45 and :56, launched by `match_counts`
-// at :99/:112 and `first_match` at :127/:136).  probe (n_p,) and build
-// (n_b,) are int32; counts[i] = |{j : build[j] == probe[i]}|, first[i] =
-// the least such j, or -1.  The TPU kernels pad both sides to their blocks
-// (build with -1, probe with -2), so there a probe key of -1 also counts
-// the pads; nothing is padded here, and every key is data.
+// at :99/:112 and `first_match` at :127/:136), a grid of (probe block x
+// build block) equality tiles that suits the TPU's vector unit.  probe
+// (n_p,) and build (n_b,) are int32; counts[i] = |{j : build[j] ==
+// probe[i]}|, first[i] = the least such j, or -1.  The TPU kernels pad both
+// sides (build with -1, probe with -2); nothing is padded here, and every
+// key value is data.
 //
-// Bound: 2 * n_p * n_b integer operations (a compare and an add or a
-// select per pair; first_match needs only the pairs up to each first
-// match); the bytes are the two key arrays and the output.  Each block
-// owns MATCH_PROBES probe keys, MATCH_PER_THREAD per thread in registers,
-// and walks its share of the build side in tiles of MATCH_TILE keys staged
-// in shared memory; each int4 read from a tile (a broadcast: every thread
-// reads the same address) serves 4 * MATCH_PER_THREAD compares.  The
-// TPU's grid runs the build blocks in order over one output tile; here the
-// build side splits over blockIdx.y so that enough blocks fill the card,
-// and the splits combine by atomics, which are exact for both: atomicAdd
-// of counts, atomicMin of indices as unsigned on an output filled with
-// 0xFFFFFFFF (-1 where nothing matches).  first_match's block stops when
-// every key it owns has a match: later indices cannot be smaller.
-#define MATCH_THREADS 256
-#define MATCH_PER_THREAD 4
-#define MATCH_PROBES (MATCH_THREADS * MATCH_PER_THREAD)
-#define MATCH_TILE 2048
-#define MATCH_TARGET_BLOCKS (132 * 4)
+// Bound: bytes, each key read once and each output written once (4 (2 n_p
+// + n_b)).  The nested loop's 2 n_p n_b compares, on the SM's 64 INT32
+// lanes, go: a hash table of the build side takes their place.
+//   - Slot word: (uint32(key) << 32) | value, value = the key's count
+//     (match_counts) or its least j + 1 (first_match).  An occupied word is
+//     never 0, so 0 marks an empty slot and no key is reserved.
+//   - A key's hash is uint32(key) * MULT; its partition the top pbits bits,
+//     its home slot the fast range of the bits below them over the table's
+//     S slots (kernels/build_probe.py::match_slot / match_partition).  A
+//     collision probes linearly and wraps at S > n_b, so a probe ends at its
+//     key or at an empty slot.
+//   - Inserts commute: a 64-bit CAS from 0 claims a slot, a slot's key never
+//     changes after, and a key's later inserts add their count or take the
+//     min of the values with a 32-bit atomic on the word's low half, which
+//     never carries into the key (n_b < 2^31).  So the table does not depend
+//     on the order of the atomics.
+// Two arms; the wrapper's match_plan picks the arm, S, pbits and the grid:
+//   shared (a table of load <= 0.7 fits MATCH_SHARED_BYTES; S up to 4 n_b
+//     while it fits): one launch, no memset.  Block b takes partition b % P (P = 2^pbits) and probe slice
+//     b / P: it clears its table in shared memory, scans the whole build side
+//     (16-byte loads where the address allows) and inserts its partition's
+//     keys, then looks up its slice's probe keys of its partition.  The
+//     partitions cut each block's inserts to n_b / P and its table's load to
+//     a P-th; the slices spread a long probe side over the card.  A
+//     partition's table still holds every build key, so keys that all share
+//     one partition stay correct (one block then does the work).
+//   device: one table of S = 10 n_b / 7 + 1 words in the wrapper's scratch
+//     (resident in the 50 MB L2 up to a few million slots): a memset clears
+//     it, one kernel inserts and one probes, all behind one C entry point.
+//     A warp merges its equal keys before the L2 atomics (__match_any_sync:
+//     the group's popcount, or its first lane's j, the least of a round), so
+//     a heavy key costs an atomic a warp and not one a copy.
+// Tried on an H100 (scripts/time_match_plans.py times the plans around the
+// kept one): the first version of this kernel had every block build the
+// whole table (P = 1) at load 0.7, with a warp merge and 64-bit atomics for
+// the values.  __match_any_sync issues slowly on Hopper, 64-bit atomicAdd /
+// atomicMin on shared memory compile to CAS loops (ATOMS.CAST.SPIN), and at
+// load 0.7 one slow lane's probe run holds its warp.  The shared arm keeps
+// no merge: a heavy key's copies are native 32-bit shared atomics on one
+// word.
+#define MATCH_SHARED 0
+#define MATCH_DEVICE 1
+#define MATCH_SHARED_THREADS 1024
+#define MATCH_DEVICE_THREADS 256
+#define MATCH_SHARED_BYTES (200 * 1024)
+#define MATCH_MAX_PART_BITS 7
 
+typedef unsigned long long match_word;
+
+// A key's multiply-shift hash; its partition is the top `pbits` bits and
+// its home slot the fast range of the bits below them.
+__device__ __forceinline__ uint32_t match_hash(int key) {
+  return (uint32_t)key * REPRO_MULT;
+}
+
+__device__ __forceinline__ uint32_t match_home(uint32_t h, int pbits,
+                                               uint32_t slots) {
+  return (uint32_t)(((uint64_t)(h << pbits) * slots) >> 32);
+}
+
+__device__ __forceinline__ uint32_t match_part(uint32_t h, int pbits) {
+  return pbits ? h >> (32 - pbits) : 0;
+}
+
+// Inserts `value` (a count, or a build index + 1) for `key` from its home
+// slot.  The claim is one 64-bit CAS from 0; a claimed word's key never
+// changes, and its value is updated by a 32-bit atomic on the word's low
+// half (little-endian), which never carries into the key.  A stale read
+// shows an older word: 0 (the CAS then returns the slot's word) or the
+// same key with a larger first index.
 template <bool kFirst>
-__device__ __forceinline__ void match_one(int key, int b, int j, int& acc) {
-  if constexpr (kFirst) {
-    if (acc < 0 && key == b) acc = j;
-  } else {
-    acc += key == b;
+__device__ __forceinline__ void match_insert(match_word* table,
+                                             uint32_t slots, uint32_t home,
+                                             int key, uint32_t value) {
+  const match_word word = ((match_word)(uint32_t)key << 32) | value;
+  for (uint32_t h = home;; h = h + 1 == slots ? 0 : h + 1) {
+    match_word cur = *(volatile match_word*)&table[h];
+    if (cur == 0) {
+      cur = atomicCAS(&table[h], (match_word)0, word);
+      if (cur == 0) return;
+    }
+    if ((uint32_t)(cur >> 32) != (uint32_t)key) continue;
+    unsigned* low = reinterpret_cast<unsigned*>(&table[h]);
+    if constexpr (kFirst) {
+      if (value < (uint32_t)cur) atomicMin(low, value);
+    } else {
+      atomicAdd(low, value);
+    }
+    return;
+  }
+}
+
+// counts: the key's count (0 if absent); first: its least j, or -1.
+template <bool kFirst>
+__device__ __forceinline__ int match_lookup(const match_word* table,
+                                            uint32_t slots, uint32_t home,
+                                            int key) {
+  for (uint32_t h = home;; h = h + 1 == slots ? 0 : h + 1) {
+    const match_word w = table[h];
+    if (w == 0) return kFirst ? -1 : 0;
+    if ((uint32_t)(w >> 32) == (uint32_t)key)
+      return (int)(uint32_t)w - (kFirst ? 1 : 0);
+  }
+}
+
+// Calls fn(j, key) for every build key j of [0, n_b) that thread `t` of
+// `n_t` owns: 16-byte loads where the address allows.
+template <class Fn>
+__device__ __forceinline__ void match_each_build(const int* build,
+                                                 long long n_b, long long t,
+                                                 long long n_t, Fn fn) {
+  long long body = 0;
+  if ((((uintptr_t)build) & 15) == 0) {
+    body = n_b & ~3LL;
+    for (long long q = t; q < body / 4; q += n_t) {
+      const int4 v = reinterpret_cast<const int4*>(build)[q];
+      fn(4 * q, v.x);
+      fn(4 * q + 1, v.y);
+      fn(4 * q + 2, v.z);
+      fn(4 * q + 3, v.w);
+    }
+  }
+  for (long long j = body + t; j < n_b; j += n_t) fn(j, build[j]);
+}
+
+// Shared arm.  Block b owns partition b % P (P = 2^pbits) of the keys and
+// slice b / P of the probe side: it clears its table, inserts the build
+// keys of its partition, and looks up the probe keys of its slice that fall
+// in its partition.
+template <bool kFirst>
+static __global__ void __launch_bounds__(MATCH_SHARED_THREADS)
+match_shared_kernel(const int* probe, long long n_p, const int* build,
+                    long long n_b, uint32_t slots, int pbits, int* out) {
+  extern __shared__ match_word match_table[];
+  for (uint32_t i = threadIdx.x; i < slots; i += blockDim.x)
+    match_table[i] = 0;
+  __syncthreads();
+  const uint32_t part = blockIdx.x & ((1u << pbits) - 1);
+  match_each_build(build, n_b, threadIdx.x, blockDim.x,
+                   [&](long long j, int key) {
+    const uint32_t h = match_hash(key);
+    if (match_part(h, pbits) == part)
+      match_insert<kFirst>(match_table, slots, match_home(h, pbits, slots),
+                           key, kFirst ? (uint32_t)(j + 1) : 1u);
+  });
+  __syncthreads();
+  const long long stride = (long long)(gridDim.x >> pbits) * blockDim.x;
+  for (long long i = (long long)(blockIdx.x >> pbits) * blockDim.x
+                     + threadIdx.x; i < n_p; i += stride) {
+    const int key = probe[i];
+    const uint32_t h = match_hash(key);
+    if (match_part(h, pbits) == part)
+      out[i] = match_lookup<kFirst>(match_table, slots,
+                                    match_home(h, pbits, slots), key);
+  }
+}
+
+// Device arm: one table of `slots` words in device memory.  A warp merges
+// its equal keys before the atomics (__match_any_sync: the group's
+// popcount, or its first lane's j, the least of the round), so a heavy key
+// costs an L2 atomic a warp and not one a copy.
+template <bool kFirst>
+static __global__ void match_insert_kernel(const int* build, long long n_b,
+                                           match_word* table,
+                                           uint32_t slots) {
+  const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const long long n_t = (long long)gridDim.x * blockDim.x;
+  const int lane = threadIdx.x & 31;
+  for (long long c = t - lane; c < n_b; c += n_t) {   // warp-uniform
+    const long long j = c + lane;
+    const bool live = j < n_b;
+    const int key = live ? build[j] : 0;
+    const unsigned same = __match_any_sync(REPRO_FULL_MASK, key)
+                          & __ballot_sync(REPRO_FULL_MASK, live);
+    if (live && lane == __ffs(same) - 1)
+      match_insert<kFirst>(table, slots, match_home(match_hash(key), 0, slots),
+                           key, kFirst ? (uint32_t)(j + 1) : __popc(same));
   }
 }
 
 template <bool kFirst>
-static __global__ void match_kernel(const int* probe, long long n_p,
-                                    const int* build, long long n_b,
-                                    long long tiles_per_split, int* out) {
-  __shared__ __align__(16) int tile[MATCH_TILE];
-  int key[MATCH_PER_THREAD], acc[MATCH_PER_THREAD];
-  bool live[MATCH_PER_THREAD];
-  const long long p0 = (long long)blockIdx.x * MATCH_PROBES + threadIdx.x;
-#pragma unroll
-  for (int q = 0; q < MATCH_PER_THREAD; ++q) {
-    const long long i = p0 + (long long)q * MATCH_THREADS;
-    live[q] = i < n_p;
-    key[q] = live[q] ? probe[i] : 0;
-    acc[q] = kFirst ? -1 : 0;
-  }
-  const long long n_tiles = (n_b + MATCH_TILE - 1) / MATCH_TILE;
-  const long long t0 = (long long)blockIdx.y * tiles_per_split;
-  long long t1 = t0 + tiles_per_split;
-  if (t1 > n_tiles) t1 = n_tiles;
-  for (long long t = t0; t < t1; ++t) {
-    // The barrier also keeps the previous tile until every thread read it.
-    bool done = true;
-    if constexpr (kFirst) {
-#pragma unroll
-      for (int q = 0; q < MATCH_PER_THREAD; ++q)
-        done &= !live[q] || acc[q] >= 0;
-    } else {
-      done = false;
-    }
-    if (__syncthreads_and(done)) break;
-    const long long base = t * MATCH_TILE;
-    const int len = (int)(n_b - base < MATCH_TILE ? n_b - base : MATCH_TILE);
-    for (int i = threadIdx.x; i < len; i += MATCH_THREADS)
-      tile[i] = build[base + i];
-    __syncthreads();
-    int i = 0;
-    for (; i + 4 <= len; i += 4) {
-      const int4 b = *reinterpret_cast<const int4*>(&tile[i]);
-      const int j = (int)base + i;
-#pragma unroll
-      for (int q = 0; q < MATCH_PER_THREAD; ++q) {
-        match_one<kFirst>(key[q], b.x, j, acc[q]);
-        match_one<kFirst>(key[q], b.y, j + 1, acc[q]);
-        match_one<kFirst>(key[q], b.z, j + 2, acc[q]);
-        match_one<kFirst>(key[q], b.w, j + 3, acc[q]);
-      }
-    }
-    for (; i < len; ++i) {
-#pragma unroll
-      for (int q = 0; q < MATCH_PER_THREAD; ++q)
-        match_one<kFirst>(key[q], tile[i], (int)base + i, acc[q]);
-    }
-  }
-#pragma unroll
-  for (int q = 0; q < MATCH_PER_THREAD; ++q) {
-    if (!live[q]) continue;
-    int* o = out + p0 + (long long)q * MATCH_THREADS;
-    if constexpr (kFirst) {
-      if (acc[q] >= 0) atomicMin((unsigned*)o, (unsigned)acc[q]);
-    } else {
-      if (acc[q] > 0) atomicAdd(o, acc[q]);
-    }
+static __global__ void match_probe_kernel(const int* probe, long long n_p,
+                                          const match_word* table,
+                                          uint32_t slots, int* out) {
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+       i < n_p; i += stride) {
+    const int key = probe[i];
+    out[i] = match_lookup<kFirst>(table, slots,
+                                  match_home(match_hash(key), 0, slots), key);
   }
 }
 
+// (arm, slots, pbits, blocks) come from the wrapper's match_plan; `table`
+// is its scratch of `slots` words for the device arm (null for the shared
+// arm).  A plan the arms cannot run is refused with cudaErrorInvalidValue.
 template <bool kFirst>
 static int match_launch(const int* probe, long long n_p, const int* build,
-                        long long n_b, int* out, void* stream) {
+                        long long n_b, int arm, long long slots, int pbits,
+                        int blocks, match_word* table, int* out,
+                        void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  // counts start at 0; first indices at 0xFFFFFFFF (-1, the unsigned max).
-  cudaError_t err = cudaMemsetAsync(out, kFirst ? 0xFF : 0,
-                                    sizeof(int) * (size_t)n_p, s);
+  if (n_p < 1 || n_b < 1 || slots <= n_b || slots >= (1LL << 31)
+      || blocks < 1)
+    return (int)cudaErrorInvalidValue;
+  if (arm == MATCH_SHARED) {
+    const size_t bytes = sizeof(match_word) * (size_t)slots;
+    if (bytes > MATCH_SHARED_BYTES || table != nullptr || pbits < 0
+        || pbits > MATCH_MAX_PART_BITS || blocks % (1 << pbits) != 0)
+      return (int)cudaErrorInvalidValue;
+    const cudaError_t err = scatter_allow_smem(
+        (const void*)match_shared_kernel<kFirst>, bytes);
+    if (err != cudaSuccess) return (int)err;
+    match_shared_kernel<kFirst><<<blocks, MATCH_SHARED_THREADS, bytes, s>>>(
+        probe, n_p, build, n_b, (uint32_t)slots, pbits, out);
+    return (int)cudaGetLastError();
+  }
+  if (arm != MATCH_DEVICE || table == nullptr || pbits != 0)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaMemsetAsync(table, 0, sizeof(match_word) * slots, s);
   if (err != cudaSuccess) return (int)err;
-  const long long p_blocks = (n_p + MATCH_PROBES - 1) / MATCH_PROBES;
-  const long long n_tiles = (n_b + MATCH_TILE - 1) / MATCH_TILE;
-  long long splits = (MATCH_TARGET_BLOCKS + p_blocks - 1) / p_blocks;
-  if (splits > n_tiles) splits = n_tiles;
-  if (splits < 1) splits = 1;
-  const long long per_split = (n_tiles + splits - 1) / splits;
-  splits = (n_tiles + per_split - 1) / per_split;
-  const dim3 grid((unsigned)p_blocks, (unsigned)splits);
-  match_kernel<kFirst><<<grid, MATCH_THREADS, 0, s>>>(probe, n_p, build, n_b,
-                                                      per_split, out);
+  match_insert_kernel<kFirst><<<blocks, MATCH_DEVICE_THREADS, 0, s>>>(
+      build, n_b, table, (uint32_t)slots);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  match_probe_kernel<kFirst><<<blocks, MATCH_DEVICE_THREADS, 0, s>>>(
+      probe, n_p, table, (uint32_t)slots, out);
   return (int)cudaGetLastError();
 }
 
 extern "C" int match_counts_launch(const int* probe, long long n_p,
-                                   const int* build, long long n_b, int* out,
-                                   void* stream) {
-  return match_launch<false>(probe, n_p, build, n_b, out, stream);
+                                   const int* build, long long n_b, int arm,
+                                   long long slots, int pbits, int blocks,
+                                   void* table, int* out, void* stream) {
+  return match_launch<false>(probe, n_p, build, n_b, arm, slots, pbits,
+                             blocks, (match_word*)table, out, stream);
 }
 
 extern "C" int first_match_launch(const int* probe, long long n_p,
-                                  const int* build, long long n_b, int* out,
-                                  void* stream) {
-  return match_launch<true>(probe, n_p, build, n_b, out, stream);
+                                  const int* build, long long n_b, int arm,
+                                  long long slots, int pbits, int blocks,
+                                  void* table, int* out, void* stream) {
+  return match_launch<true>(probe, n_p, build, n_b, arm, slots, pbits,
+                            blocks, (match_word*)table, out, stream);
 }

@@ -27,6 +27,7 @@ from repro_torch.kernels._build import KernelError
 from test_torch_kernels_expand import (EXPAND_CASES, composed_cols,
                                        expand_inputs, random_probe)
 from test_torch_kernels_expand import rows as expand_rows_of
+from test_torch_kernels_match import keys_with_home, shared_limit
 
 pytestmark = pytest.mark.cuda
 
@@ -718,6 +719,9 @@ def test_hash_partition_kernel_key_dtypes(dev):
                 _eq(got, want)
 
 
+MATCH_LIM = shared_limit()        # the shared arm's largest build side
+
+
 def _match_case(rng, n_p, n_b, case):
     if case == "all_equal":
         return np.full(n_p, 7, np.int32), np.full(n_b, 7, np.int32)
@@ -727,6 +731,23 @@ def _match_case(rng, n_p, n_b, case):
     if case == "pads":                 # the padding values on both sides
         probe = rng.integers(-2, 3, n_p).astype(np.int32)
         return probe, rng.integers(-2, 3, n_b).astype(np.int32)
+    if case == "edge":                 # traps for the empty slot word
+        edge = [-2**31, 2**31 - 1, 0, -1, -2]
+        return (rng.choice(edge + [5, 6], n_p).astype(np.int32),
+                rng.choice(edge + [5], n_b).astype(np.int32))
+    if case == "one_slot":             # one partition, one home slot
+        keys = np.repeat(keys_with_home(n_b // 2, n_p, n_b, rng), 2)
+        probe = np.concatenate([keys, rng.integers(0, 99, n_p)])[:n_p]
+        return rng.permutation(probe).astype(np.int32), keys
+    if case == "heavy":                # one key n_b times
+        probe = rng.choice([-5, 0, 1], n_p).astype(np.int32)
+        return probe, np.zeros(n_b, np.int32)
+    if case == "spread":               # one key's copies far apart
+        build = rng.integers(100, 2**30, n_b).astype(np.int32)
+        build[rng.choice(n_b, 300, replace=False)] = 42
+        probe = rng.integers(100, 2**30, n_p).astype(np.int32)
+        probe[::3] = 42
+        return probe, build
     dom = max(n_b // 4, 2)
     return (rng.integers(0, dom, n_p).astype(np.int32),
             rng.integers(0, dom, n_b).astype(np.int32))
@@ -737,16 +758,92 @@ def _match_case(rng, n_p, n_b, case):
     (1023, 2047, "random"), (1024, 2048, "random"), (1025, 2049, "pads"),
     (3000, 70001, "random"), (16384, 16384, "random"), (16384, 4096, "pads"),
     (1536, 768, "all_equal"), (5000, 6000, "all_distinct"),
-    (200, 300000, "random")])
+    (200, 300000, "random"),
+    (5000, MATCH_LIM, "random"), (5000, MATCH_LIM + 1, "random"),
+    (1 << 21, 1 << 21, "random"), (4096, MATCH_LIM, "edge"),
+    (4096, 100000, "edge"), (3000, 2000, "one_slot"),
+    (5000, 300000, "heavy"), (20000, 16000, "spread"),
+    (20000, 1 << 20, "spread"), (1, MATCH_LIM, "random"),
+    (1, 1 << 20, "random"), (1 << 21, 3, "random"),
+    (300000, MATCH_LIM, "random"), (5000, 4099, "unaligned"),
+    (5000, 70001, "unaligned")])
 def test_match_kernels(dev, n_p, n_b, case):
-    """Probe blocks of 1,024 keys, build tiles of 2,048, the build side
-    split over blocks (atomics), first_match's early stop; -1 and -2 are
-    data on both sides."""
+    """Both arms of the hash join (a block's table of its partition in
+    shared memory up to MATCH_LIM build keys, one table in device memory
+    past it): keys on the empty-word traps (INT_MIN, INT_MAX, 0, -1, -2)
+    on both sides, build keys that all share one partition and one home
+    slot, one key 300,000 times (contended atomics), one key's copies
+    spread over many blocks (first_match's least index), n_p far below and
+    far above n_b (partitions only, slices only), and a build side that
+    starts off a 16-byte boundary (scalar loads)."""
     rng = np.random.default_rng(n_p + n_b)
-    probe, build = (torch.from_numpy(x).to(dev)
-                    for x in _match_case(rng, n_p, n_b, case))
+    if case == "unaligned":
+        probe, build = _match_case(rng, n_p, n_b + 1, "random")
+        probe = torch.from_numpy(probe).to(dev)
+        build = torch.from_numpy(build).to(dev)[1:]
+        assert build.data_ptr() % 16
+    else:
+        probe, build = (torch.from_numpy(x).to(dev)
+                        for x in _match_case(rng, n_p, n_b, case))
+    assert build.shape[0] == n_b
     _eq(ops.match_counts(probe, build), bpr.match_counts_host(probe, build))
     _eq(ops.first_match(probe, build), bpr.first_match_host(probe, build))
+
+
+@pytest.mark.parametrize("n_b,arm,want", [
+    (4096, bpr.MATCH_SHARED, {"match_shared_kernel"}),
+    (70001, bpr.MATCH_DEVICE, {"Memset", "match_insert_kernel",
+                               "match_probe_kernel"})])
+def test_match_kernels_one_call_a_wrapper_call(dev, monkeypatch, n_b, arm,
+                                               want):
+    """One wrapper call is one `_build.call`; the shared arm is one kernel
+    on the card and no memset, the device arm a memset and two kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import _build
+    rng = np.random.default_rng(n_b)
+    probe, build = (torch.from_numpy(x).to(dev)
+                    for x in _match_case(rng, 16384, n_b, "random"))
+    assert bpr.match_plan(16384, n_b)[0] == arm
+    calls = []
+    real = _build.call
+    monkeypatch.setattr(_build, "call",
+                        lambda *a: calls.append(a[0]) or real(*a))
+    for fn in (ops.match_counts, ops.first_match):
+        fn(probe, build)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                fn(probe, build)
+            torch.cuda.synchronize()
+        names = {e.key for e in prof.key_averages()
+                 if e.self_device_time_total > 0}
+        assert {w for w in want if any(w in n for n in names)} == want
+        assert len(names) == len(want), names
+    assert calls == ["match_counts_launch"] * 4 + ["first_match_launch"] * 4
+
+
+def test_match_kernels_refuse_plans_their_arms_do_not_take(dev):
+    """A table no larger than the build side, a shared table past its
+    bytes, partitions past the limit, a grid that is no whole number of
+    them or is empty, partitions on the device arm and an arm that does
+    not exist are refused; plans they take give the plain answer, a
+    nearly full table included."""
+    S, D = bpr.MATCH_SHARED, bpr.MATCH_DEVICE
+    probe = torch.arange(100, dtype=torch.int32, device=dev)
+    build = torch.arange(0, 600, 3, dtype=torch.int32, device=dev)
+    big = bpr.MATCH_SHARED_BYTES // 8 + 1
+    for plan in ((S, 200, 0, 1), (S, big, 0, 1), (S, 400, 8, 256),
+                 (S, 400, 2, 6), (S, 400, 0, 0), (D, 400, 1, 2),
+                 (7, 400, 0, 1)):
+        for fn in (bpr.match_counts_cuda, bpr.first_match_cuda):
+            with pytest.raises(KernelError):
+                fn(probe, build, plan=plan)
+    for plan in ((S, 201, 0, 1), (S, 400, 3, 24), (D, 4096, 0, 3)):
+        _eq(bpr.match_counts_cuda(probe, build, plan=plan),
+            bpr.match_counts_host(probe, build))
+        _eq(bpr.first_match_cuda(probe, build, plan=plan),
+            bpr.first_match_host(probe, build))
 
 
 @pytest.mark.parametrize("case", [
