@@ -69,9 +69,33 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      device times of route_cells and fold_cells; bucket_pack
      on R (the entry) and S, segment_scan and run_lengths also with their
      device time and each of their kernels' share;
+  6. self-healing on the full-size cell (fused + hash), each sub-phase
+     held to the exact join size and to phase 3's rows as a multiset
+     (sorted int64 words A·2^42 + B·2^21 + C, compared on the card):
+     6a. the chunked exchange, `overlap_shuffle = 4`: per-chunk caps
+         ⌈phase 3's / 4⌉, zero overflow, launches of prepare + the first
+         batch zeroed just before and read just after (scatter_pack 8,
+         the rest as phase 3's), no new step on a second batch, the warm
+         median beside phase 3's, and a profile of one warm batch whose
+         Chrome trace must show the exchange's copies on a stream that
+         runs no scatter_pack kernel (device time summed and busy);
+     6b. overflow: a `SelfHealingSession` with caps squeezed to an eighth
+         (`ChaosInjector.squeeze_caps`) heals by retry (retries ≥ 1, the
+         failed attempts' dropped copies in `stats`), its wall time (the
+         time to recover) beside a clean warm batch's; a second session
+         walks the ladder with no step built; `max_retries=0` raises
+         `RetryBudgetExceededError` naming a device;
+     6c. device loss: device 3's heartbeats dropped (timeouts 2.5 s and
+         1.5 s on the injector's clock, 1 s a batch): evicted within 16
+         batches, one re-fold, then nothing received by device 3 and
+         something by every survivor, no step built beyond what
+         `refold_compiles` counts, the degraded warm median;
+     6d. a straggler: device 5 reports 30 s more a step, evicted after 2
+         strikes, then receives nothing;
   5. the paper's running example and a 4-way chain at a few thousand rows,
      k ∈ {64, 256}, n_dev = 8, under all four arms (fused | staged map ×
-     hash | sort-merge reduce), against the numpy reference join, with the
+     hash | sort-merge reduce) and, with `overlap_shuffle = 3`, on fused +
+     hash and staged + sort, against the numpy reference join, with the
      exact launch counts of each run checked;
   7. the MoE serving path of the LM scaffold: mixtral-8x22b at its
      published widths with its depth cut from 56 to 4 layers, bf16 weights
@@ -94,8 +118,9 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
          cluster arm, several clusters and one), with its arm and kernel,
          device, plain, library and bound times; a profile of the decode
          call must show one device operation;
-  8. one JSON line of per-kernel results (each with the path its launches
-     were counted on), then the last line {"ok": true, "device": {...}}.
+  8. one JSON line of phase 6's numbers, one JSON line of per-kernel
+     results (each with the path its launches were counted on), then the
+     last line {"ok": true, "device": {...}}.
 
 Exits non-zero without printing a result when no CUDA device is present or
 when the repository's `src/repro_torch` is not beside this script.
@@ -125,6 +150,13 @@ MODERATE = [  # (query name, rows per relation, domain, skew)
     ("running_example", 3000, 1 << 16, {"B": 1.5}),
     ("chain4", 3000, 1 << 16, {"X2": 1.5}),
 ]
+# Phase 6 on the full-size cell: the chunked exchange's C, the cap squeeze
+# of the overflow fault, the device whose heartbeats stop and the
+# straggler.
+HEALING = dict(chunks=4, squeeze=0.125, dead=3, slow=5)
+# Phase 5's chunked exchange (overlap_shuffle) on fused + hash and
+# staged + sort.
+MODERATE_CHUNKS = 3
 FUSED_HASH, STAGED_SORT = "fused+hash", "staged+sort"
 LIBRARY = "library"
 MOE_SERVE = "moe_serve"
@@ -405,24 +437,25 @@ def profile_calls(fn, label: str, calls: int = 1, top: int = 12,
     return found
 
 
-def expected_launches(ex, fields) -> dict[str, int]:
+def expected_launches(ex, fields, chunks: int = 1) -> dict[str, int]:
     """Kernel launches of one prepare (one counting pass, as k > n_dev) and
-    one run_batch under the arm `fields`: the fused map counts and packs
-    each relation once; the staged map routes once per (relation, route
-    with hashed attributes) in prepare and again in the step, and folds
-    and packs each relation once; each cascade step hashes, builds, probes
-    and expands once (hash), or scans twice (group ids, run lengths) and
-    expands once (sort-merge)."""
+    one run_batch under the arm `fields`: the fused map counts each
+    relation once and packs it once a chunk; the staged map routes once
+    per (relation, route with hashed attributes) in prepare and again in
+    each chunk of the step, and folds and packs each relation once a
+    chunk; each cascade step hashes, builds, probes and expands once
+    (hash), or scans twice (group ids, run lengths) and expands once
+    (sort-merge)."""
     n_rel = len(ex.query.relations)
     steps = n_rel - 1
     want = dict.fromkeys(KERNEL_SITES, 0)
     if fields.get("fuse_map", True):
-        want.update(map_count=n_rel, scatter_pack=n_rel)
+        want.update(map_count=n_rel, scatter_pack=chunks * n_rel)
     else:
         hashed = sum(1 for spec in ex.route_specs.values()
                      for route in spec if route[0])
-        want.update(route_cells=2 * hashed, fold_cells=n_rel,
-                    bucket_pack=n_rel)
+        want.update(route_cells=(1 + chunks) * hashed,
+                    fold_cells=chunks * n_rel, bucket_pack=chunks * n_rel)
     if fields.get("hash_reduce", True):
         want.update(join_hash=steps, build_table=steps, probe_tables=steps,
                     expand_rows=steps)
@@ -431,8 +464,8 @@ def expected_launches(ex, fields) -> dict[str, int]:
     return want
 
 
-def warm_batches(ex, s, label: str, exact: int) -> None:
-    """No new step on a second batch; the warm run_batch median of 7."""
+def warm_batches(ex, s, label: str, exact: int) -> float:
+    """No new step on a second batch; the warm run_batch median of 7 (s)."""
     compiles = ex.compile_count
     res2 = s.run_batch()
     check(ex.compile_count == compiles, f"{label}: second run_batch built "
@@ -450,6 +483,7 @@ def warm_batches(ex, s, label: str, exact: int) -> None:
     print(f"[{label}] warm run_batch median {t_batch * 1e3:.1f} ms of "
           f"{len(times)} ({', '.join(f'{t * 1e3:.1f}' for t in times)}); "
           f"{exact / t_batch:.4g} joined rows/s")
+    return t_batch
 
 
 def full_cell(dev):
@@ -537,7 +571,7 @@ def full_cell(dev):
           f"(measured) {peak / 1e9:.2f} GB")
 
     print(f"[cell] prepare {t_prepare * 1e3:.1f} ms")
-    warm_batches(ex, s, "cell", exact)
+    t_warm = warm_batches(ex, s, "cell", exact)
     must = BUILD_KERNELS + SCATTER_KERNELS + PROBE_KERNELS
     named = profile_calls(s.run_batch, "warm run_batch", named=must,
                           banned=(TORCH_SCAN,))
@@ -564,7 +598,7 @@ def full_cell(dev):
     torch.cuda.empty_cache()
     return dict(plan=plan, ex=ex, session=s, launches=launches,
                 cap_out=cap_out, exact=exact, data=data, rows=out_k,
-                valid=valid_k)
+                valid=valid_k, t_warm=t_warm)
 
 
 def record(out, name, kern, plain, args, n_bytes, n_ops, iters,
@@ -1219,6 +1253,258 @@ def staged_kernel_checks(cell):
     return out
 
 
+def packed_rows(rows, valid):
+    """The valid rows (A, B, C) of a result as sorted int64 words
+    A·2^42 + B·2^21 + C, on the card: a multiset that `torch.equal`
+    compares (each value must be < 2^21)."""
+    r = rows[valid].long()
+    check(int(r.min()) >= 0 and int(r.max()) < 1 << 21,
+          "a joined value outside [0, 2^21): the packed multiset would alias")
+    return torch.sort((r[:, 0] << 42) | (r[:, 1] << 21) | r[:, 2]).values
+
+
+def same_rows(res, cell, label: str) -> None:
+    """The exact join size, no delivered overflow, and phase 3's rows as a
+    multiset."""
+    check(int(res["shuffle_overflow"].sum()) == 0
+          and int(res["join_overflow"].sum()) == 0,
+          f"{label}: delivered overflow")
+    n_valid = int(res.tensors[1].sum())
+    check(n_valid == cell["exact"], f"{label}: valid rows {n_valid} != "
+          f"exact {cell['exact']}")
+    check(torch.equal(packed_rows(res.tensors[0], res.tensors[1]),
+                      cell["sorted"]),
+          f"{label}: rows differ from phase 3's as a multiset")
+
+
+def stream_trace(fn, n_rel: int, chunks: int) -> dict:
+    """One warm call of `fn` under torch.profiler, read from its Chrome
+    trace: each device operation's stream.  The chunked exchange's copies
+    must run on a stream that runs no scatter_pack kernel (`n_rel` x
+    `chunks` of them a call).  Returns the device time summed over
+    operations and the device busy time (the union of their intervals:
+    less than the sum where the streams overlap), in ms."""
+    import os
+    import tempfile
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            r = fn()
+            torch.cuda.synchronize()
+        del r
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "trace.json")
+            prof.export_chrome_trace(path)
+            with open(path) as f:
+                events = json.load(f)["traceEvents"]
+        device = [e for e in events
+                  if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")
+                  and "stream" in e.get("args", {})]
+        pack = {e["args"]["stream"] for e in device
+                if any(name in e["name"] for name in SCATTER_KERNELS)}
+        copies: dict = {}
+        for e in device:
+            if "copy" in e["name"]:
+                st = e["args"]["stream"]
+                copies[st] = copies.get(st, 0) + 1
+        side = {st: n for st, n in copies.items() if st not in pack}
+        if pack and side:
+            break
+    check(bool(pack) and bool(side), f"chunked exchange: no copy on a stream "
+          f"other than scatter_pack's (scatter_pack on {pack}, copies "
+          f"{copies})")
+    check(sorted(side.values()) == [n_rel * chunks],
+          f"chunked exchange: copies a stream {side}, expected one side "
+          f"stream with {n_rel * chunks}")
+    spans = sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"]))
+                   for e in device)
+    busy, end = 0.0, float("-inf")
+    for t0, t1 in spans:
+        if t1 > end:
+            busy += t1 - max(t0, end)
+            end = t1
+    total = sum(t1 - t0 for t0, t1 in spans)
+    print(f"[healing] 6a streams: scatter_pack's kernels on {sorted(pack)}, "
+          f"the exchange's {n_rel * chunks} copies on side stream "
+          f"{sorted(side)}; device time {total / 1e3:.2f} ms summed over "
+          f"{len(spans)} operations, busy {busy / 1e3:.2f} ms (union)")
+    return dict(device_sum_ms=total / 1e3, device_busy_ms=busy / 1e3,
+                copies_on_side=n_rel * chunks)
+
+
+def self_healing(dev, cell):
+    """Phase 6: the chunked exchange and the self-healing loop on the
+    full-size cell (fused + hash), each sub-phase held to the exact join
+    size and phase 3's rows as a multiset."""
+    from repro_torch.core.executor import (ExecutorConfig,
+                                           RetryBudgetExceededError,
+                                           RetryPolicy, ShardedJoinExecutor)
+    from repro_torch.ft import ChaosInjector
+    from repro_torch.kernels import ops
+    from repro_torch.serve import SelfHealingSession
+
+    n_dev, data, plan = FULL["n_dev"], cell["data"], cell["plan"]
+    chunks = HEALING["chunks"]
+    out = {}
+
+    # 6a. The chunked exchange: counts zeroed just before prepare + the
+    # first batch, read just after.
+    ex = ShardedJoinExecutor(plan, n_dev, ExecutorConfig(
+        out_capacity=cell["cap_out"], overlap_shuffle=chunks), device=dev)
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    s = ex.session().prepare(data)
+    res = s.run_batch()
+    torch.cuda.synchronize()
+    launches = dict(ops.LAUNCHES)
+    want = expected_launches(ex, ARMS[FUSED_HASH], chunks)
+    check(launches == want, f"6a launches {launches}, expected {want}")
+    serial_caps = cell["caps"]
+    check(s.caps == {r: -(-c // chunks) for r, c in serial_caps.items()},
+          f"6a caps {s.caps} are not ⌈{serial_caps} / {chunks}⌉")
+    same_rows(res, cell, "6a")
+    del res
+    t_chunked = warm_batches(ex, s, "healing 6a", cell["exact"])
+    n_rel = len(plan.query.relations)
+    trace = stream_trace(s.run_batch, n_rel, chunks)
+    out["chunked"] = dict(chunks=chunks, caps=s.caps, launches={
+        k: v for k, v in launches.items() if v},
+        median_ms=t_chunked * 1e3, serial_median_ms=cell["t_warm"] * 1e3,
+        **trace)
+    print(f"[healing] 6a overlap_shuffle={chunks}: caps {s.caps} = "
+          f"⌈{serial_caps} / {chunks}⌉, scatter_pack launched "
+          f"{launches['scatter_pack']} times, rows == phase 3's (multiset), "
+          f"zero overflow; warm median {t_chunked * 1e3:.1f} ms against the "
+          f"serial {cell['t_warm'] * 1e3:.1f} ms of phase 3")
+    del s, ex
+    torch.cuda.empty_cache()
+
+    # 6b. Overflow: caps squeezed to an eighth heal by bounded retry.
+    ex = ShardedJoinExecutor(plan, n_dev, ExecutorConfig(
+        out_capacity=cell["cap_out"]), device=dev)
+    clean = ex.session().prepare(data)
+    clean.run_batch()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    r = clean.run_batch()
+    torch.cuda.synchronize()
+    t_clean = time.perf_counter() - t0
+    del r, clean
+
+    def squeezed(**kw):
+        chaos = ChaosInjector(n_dev, seed=0)
+        chaos.squeeze_caps(HEALING["squeeze"])
+        return SelfHealingSession(ex, chaos=chaos, **kw).prepare(data)
+
+    eng = squeezed()
+    caps = dict(eng.session.caps)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = eng.run_batch()
+    torch.cuda.synchronize()
+    t_healed = time.perf_counter() - t0
+    st = eng.stats
+    check(st["retries"] >= 1 and int(st["shuffle_overflow"].sum()) > 0,
+          f"6b: squeezed caps {caps} did not overflow (stats {st})")
+    same_rows(res, cell, "6b")
+    del res
+    compiles = ex.compile_count
+    again = squeezed()
+    res = again.run_batch()
+    check(ex.compile_count == compiles, "6b: a second session walking the "
+          "same ladder built a step")
+    check(again.stats["retries"] == st["retries"]
+          and int(res.tensors[1].sum()) == cell["exact"],
+          "6b: the second session's ladder or rows differ")
+    del res, again
+    try:
+        squeezed(retry=RetryPolicy(max_retries=0)).run_batch()
+        fail("6b: max_retries=0 did not raise RetryBudgetExceededError")
+    except RetryBudgetExceededError as err:
+        check("retry budget exhausted" in str(err) and "dev " in str(err),
+              f"6b: the budget error names no device: {err}")
+    out["overflow"] = dict(squeeze=HEALING["squeeze"], caps=caps,
+                           healed_caps=dict(eng.session.caps),
+                           retries=st["retries"],
+                           escalations=st["escalations"],
+                           dropped_copies=int(st["shuffle_overflow"].sum()),
+                           healed_ms=t_healed * 1e3, clean_ms=t_clean * 1e3)
+    print(f"[healing] 6b caps squeezed x{HEALING['squeeze']} {caps} -> "
+          f"{dict(eng.session.caps)}: {st['retries']} retries, "
+          f"{st['escalations']} escalations, "
+          f"{int(st['shuffle_overflow'].sum())} copies dropped by the failed "
+          f"attempts, rows == phase 3's; time to recover (the healed batch) "
+          f"{t_healed * 1e3:.1f} ms against a clean warm batch's "
+          f"{t_clean * 1e3:.1f} ms; a second session walked the ladder with "
+          f"no step built; max_retries=0 raised RetryBudgetExceededError")
+    del eng
+    torch.cuda.empty_cache()
+
+    # 6c. Device loss: device 3's heartbeats stop.
+    dead = HEALING["dead"]
+    chaos = ChaosInjector(n_dev, seed=0)
+    chaos.drop_heartbeats(dead)
+    eng = SelfHealingSession(ex, chaos=chaos, heartbeat_timeout_s=2.5,
+                             suspect_timeout_s=1.5,
+                             step_seconds=1.0).prepare(data)
+    while eng.evicted == [] and eng.session.stats["batches"] < 16:
+        res = eng.run_batch()
+        check(int(res.tensors[1].sum()) == cell["exact"],
+              "6c: a batch before the eviction is not exact")
+        del res
+    check(eng.evicted == [dead] and eng.refolds == 1,
+          f"6c: evicted {eng.evicted}, refolds {eng.refolds}")
+    batches = eng.session.stats["batches"]
+    compiles = ex.compile_count
+    res = eng.run_batch()
+    check(ex.compile_count == compiles + eng.refold_compiles,
+          "6c: the degraded batch built a step the re-fold did not count")
+    recv = res["recv_counts"]
+    live = np.delete(recv, dead)
+    check(recv[dead] == 0 and (live > 0).all(),
+          f"6c: recv_counts {recv.tolist()}")
+    same_rows(res, cell, "6c")
+    del res
+    t_degraded = warm_batches(ex, eng.session, "healing 6c", cell["exact"])
+    out["device_loss"] = dict(
+        evicted=list(eng.evicted), batches_to_evict=batches,
+        refolds=eng.refolds, refold_compiles=eng.refold_compiles,
+        median_ms=t_degraded * 1e3, recv_counts=recv.tolist(),
+        survivors_max_over_mean=float(live.max() / live.mean()))
+    print(f"[healing] 6c device {dead} evicted after {batches} batches, "
+          f"{eng.refolds} re-fold, refold_compiles {eng.refold_compiles}; "
+          f"degraded batch rows == phase 3's, recv_counts {recv.tolist()} "
+          f"(survivors max / mean {live.max() / live.mean():.3f}); degraded "
+          f"warm median {t_degraded * 1e3:.1f} ms on 7 survivors")
+    del eng
+    torch.cuda.empty_cache()
+
+    # 6d. A straggler: device 5 reports 30 s more a step.
+    slow = HEALING["slow"]
+    chaos = ChaosInjector(n_dev, seed=0)
+    chaos.delay_device(slow, 30.0)
+    eng = SelfHealingSession(ex, chaos=chaos, evict_after=2).prepare(data)
+    while eng.evicted == [] and eng.session.stats["batches"] < 8:
+        eng.run_batch()
+    check(eng.evicted == [slow], f"6d: evicted {eng.evicted}")
+    res = eng.run_batch()
+    check(res["recv_counts"][slow] == 0,
+          f"6d: recv_counts {res['recv_counts'].tolist()}")
+    same_rows(res, cell, "6d")
+    out["straggler"] = dict(evicted=list(eng.evicted),
+                            batches_to_evict=eng.session.stats["batches"] - 1,
+                            recv_counts=res["recv_counts"].tolist())
+    print(f"[healing] 6d device {slow} evicted as a straggler after "
+          f"{out['straggler']['batches_to_evict']} batches; rows == phase "
+          f"3's, it received nothing")
+    del res, eng, ex
+    torch.cuda.empty_cache()
+    return out
+
+
 def moderate_checks(dev):
     """Phase 5: moderate queries on the kernels vs the reference join."""
     from repro_torch.core import (JoinQuery, canonical, plan_skew_join,
@@ -1239,16 +1525,21 @@ def moderate_checks(dev):
                       for i in range(2, len(rels) + 1))
         for k in (64, 256):
             plan = plan_skew_join(q, data, k)
-            for arm, fields in ARMS.items():
+            runs = [(arm, fields, 0) for arm, fields in ARMS.items()]
+            runs += [(arm, ARMS[arm], MODERATE_CHUNKS)
+                     for arm in (FUSED_HASH, STAGED_SORT)]
+            for arm, fields, chunks in runs:
                 cfg = ExecutorConfig(out_capacity=quantize_capacity(biggest),
-                                     **fields)
+                                     overlap_shuffle=chunks, **fields)
                 ex = ShardedJoinExecutor(plan, 8, cfg, device=dev)
+                if chunks:
+                    arm = f"{arm} overlap_shuffle={chunks}"
                 # Counts zeroed just before prepare + run_batch, read just
                 # after.
                 ops.reset_launches()
                 res = ex.session().prepare(data).run_batch()
                 launches = dict(ops.LAUNCHES)
-                want = expected_launches(ex, fields)
+                want = expected_launches(ex, fields, max(chunks, 1))
                 check(launches == want, f"{name} k={k} {arm}: launches "
                       f"{launches}, expected {want}")
                 check(int(res["shuffle_overflow"].sum()) == 0
@@ -1504,13 +1795,18 @@ def main() -> int:
     del s, cell["ex"]
     torch.cuda.empty_cache()
     staged = staged_cell(dev, cell)
-    del cell["rows"], cell["valid"]
+    cell["sorted"] = packed_rows(cell.pop("rows"), cell.pop("valid"))
     torch.cuda.empty_cache()
     results.update(staged_kernel_checks(staged))
     path_launches = {FUSED_HASH: cell["launches"],
                      STAGED_SORT: staged["launches"],
                      LIBRARY: library_launches}
     del staged
+    torch.cuda.empty_cache()
+    t6 = time.perf_counter()
+    healing = self_healing(dev, cell)
+    print(f"[healing] phase 6 took {time.perf_counter() - t6:.1f} s")
+    del cell["sorted"]
     torch.cuda.empty_cache()
     moderate_checks(dev)
     del cell
@@ -1533,6 +1829,7 @@ def main() -> int:
     check(all(kn["launches"] > 0 for kn in kernels), "a kernel never launched")
     print(f"[done] all phases passed in {t_end - t_start:.1f} s (phase 7 "
           f"{t_end - t7:.1f} s)")
+    print(json.dumps({"self_healing": healing}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

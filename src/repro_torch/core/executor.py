@@ -30,10 +30,23 @@ membership as torch ops, the (n_src, n_loc·F, w+1) tagged copies made),
 `_fold_dests` (`fold_cells`) and `_pack_buckets` (`bucket_pack`);
 `hash_reduce=False` is the sort-merge reduce: `_lexsort_rows` (torch's
 stable sorts), `_group_ids` (`segment_scan`) and `_probe_sort`
-(`run_lengths`, `searchsorted`).  Every arm gives the same bits.  The
-chunked exchange (`overlap_shuffle` ≥ 2) is not ported.  `use_kernels=False`
-runs the kernels' plain versions on the same device.  Entry points take
-`device=` and default to the card; with no card they raise.
+(`run_lengths`, `searchsorted`).  Every arm gives the same bits.
+
+`overlap_shuffle = C ≥ 2` is the chunked exchange: each source's rows,
+padded with -1 to C·tile (tile = ⌈n_loc/C⌉), are packed a chunk of tile
+rows at a time with per-chunk caps, and each chunk's send buffer is copied
+into its slice of the fragments while the next chunk packs (a second CUDA
+stream on the card); fragments arrive chunk-major, then source-major, as
+the reference's concatenated all_to_alls do.  `use_kernels=False` runs the
+kernels' plain versions on the same device.  Entry points take `device=`
+and default to the card; with no card they raise.
+
+Sessions heal overflow by bounded retry (`run_with_retry`: the failing
+caps escalate on the `cap_bucket` grid), re-place cells over surviving
+devices without building a step (`cell_loads`, `refold`), observe any
+resident batch (`count_batch`) and keep lifetime fault counters (`stats`,
+drained lazily so a warm loop never waits on the card);
+`serve.engine.SelfHealingSession` drives them.
 """
 from __future__ import annotations
 
@@ -87,7 +100,8 @@ class CapacityOverflowError(ExecutorError):
     @classmethod
     def from_result(cls, result: Mapping[str, np.ndarray],
                     relations: tuple[str, ...],
-                    hint: str = "raise capacity_factor/out_capacity"
+                    hint: str = "raise capacity_factor/out_capacity or "
+                                "retry via run_with_retry()"
                     ) -> "CapacityOverflowError":
         sh = np.asarray(result["shuffle_overflow_by_rel"], np.int64)
         jo = np.asarray(result["join_overflow"], np.int64)
@@ -103,6 +117,23 @@ class CapacityOverflowError(ExecutorError):
                f"join={int(jo.sum())}; per-device breakdown:\n"
                + "\n".join(lines) + f"\n{hint}")
         return cls(msg, sh, jo, relations)
+
+
+class RetryBudgetExceededError(CapacityOverflowError):
+    """Bounded retry spent its budget and the last attempt still
+    overflowed: capacities escalated `attempts` times without absorbing the
+    load."""
+
+    def __init__(self, msg: str, shuffle_by_rel: np.ndarray,
+                 join_overflow: np.ndarray, relations: tuple[str, ...],
+                 attempts: int):
+        super().__init__(msg, shuffle_by_rel, join_overflow, relations)
+        self.attempts = attempts
+
+
+class DeviceLossError(ExecutorError):
+    """Degraded mode cannot shrink further (no surviving device to re-fold
+    onto, or an eviction target is unknown)."""
 
 
 # ---------------------------------------------------------------------------
@@ -122,6 +153,16 @@ def quantize_capacity(cap: int, ratio: float = 2.0) -> int:
 
 
 @dataclass(frozen=True)
+class RetryPolicy:
+    """Bounded overflow retry: escalate the overflowing capacities by
+    `escalation` (quantized to the config's `cap_bucket` grid, so a ladder
+    walked once builds no step again) and re-run the same chunk, at most
+    `max_retries` times; then raise `RetryBudgetExceededError`."""
+    max_retries: int = 4
+    escalation: float = 2.0
+
+
+@dataclass(frozen=True)
 class ExecutorConfig:
     capacity_factor: float = 2.0       # shuffle slack over the max observed load
     out_capacity: int = 4096           # per-device join output rows (static)
@@ -130,13 +171,10 @@ class ExecutorConfig:
     hash_reduce: bool = True           # hash join (else sort-merge)
     hash_bits: int | None = None       # hash-table bits; None -> ~2·n_r buckets
     cap_bucket: float = 2.0            # grid derived capacities are quantized to
-    overlap_shuffle: int = 0           # chunked exchange; not ported (≤ 1 only)
+    overlap_shuffle: int = 0           # C ≥ 2: map in C chunks, each copied
+                                       # to the fragments while the next
+                                       # packs (per-chunk caps); ≤ 1 serial
     max_cached_steps: int = 32         # step-cache LRU bound per executor
-
-
-def _check_config(cfg: ExecutorConfig) -> None:
-    if int(cfg.overlap_shuffle) > 1:
-        raise NotImplementedError("overlap_shuffle >= 2 is not ported")
 
 
 @dataclass(frozen=True)
@@ -303,6 +341,27 @@ def _pack_buckets(dest: torch.Tensor, rows: torch.Tensor, k: int, cap: int,
     return ops.bucket_pack(dest, rows, k, cap, use_kernels=use_kernels)
 
 
+def _pack_buckets_argsort(dest: torch.Tensor, rows: torch.Tensor, k: int,
+                          cap: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Full-argsort pack, the tests' oracle of `_pack_buckets`: per batch
+    row a stable sort of the dests (invalid last), each copy's position in
+    its bucket's run, copies at positions ≥ cap dropped and counted."""
+    b, m, w = rows.shape
+    big = torch.where(dest < 0, k, dest.long())
+    sd, order = torch.sort(big, dim=1, stable=True)
+    sr = _rows_at(rows.to(torch.int32), order)
+    start = torch.searchsorted(sd, sd, side="left")
+    pos = torch.arange(m, device=dest.device) - start
+    valid = sd < k
+    overflow = ((pos >= cap) & valid).sum(1).to(torch.int32)
+    slot = torch.where(valid & (pos < cap), sd * cap + pos, k * cap)
+    buf = torch.full((b, k * cap + 1, w), INVALID, dtype=torch.int32,
+                     device=rows.device)
+    batch = torch.arange(b, device=rows.device)[:, None].expand(b, m)
+    buf[batch, slot] = sr                        # trash slot k·cap dropped
+    return buf[:, :k * cap].reshape(b, k, cap, w), overflow
+
+
 # ---------------------------------------------------------------------------
 # Exchange and reduce
 # ---------------------------------------------------------------------------
@@ -451,6 +510,55 @@ def _local_join(frags: dict[str, torch.Tensor], query: JoinQuery,
     return acc, acc_valid, overflow
 
 
+def _local_join_dense(frags: dict[str, torch.Tensor], query: JoinQuery,
+                      cap_out: int
+                      ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """O(n_l·n_r) match-matrix cascade, the tests' exactness oracle of
+    `_local_join`: per destination the first `cap_out` matches in
+    (left row, right row) order.  Same outputs, bit for bit."""
+    rels = list(query.relations)
+    acc = frags[rels[0].name]
+    acc_attrs = list(rels[0].attrs) + ["__cell__"]
+    acc_valid = acc[..., -1] != INVALID
+    b = acc.shape[0]
+    overflow = torch.zeros(b, dtype=torch.int64, device=acc.device)
+    slots = torch.arange(cap_out, device=acc.device)
+    for rel in rels[1:]:
+        right = frags[rel.name]
+        right_attrs = list(rel.attrs) + ["__cell__"]
+        n_r = right.shape[1]
+        match = acc_valid[:, :, None] & (right[..., -1] != INVALID)[:, None, :]
+        for a in right_attrs:
+            if a in acc_attrs:
+                match &= (acc[..., acc_attrs.index(a)][:, :, None]
+                          == right[..., right_attrs.index(a)][:, None, :])
+        flat = match.reshape(b, -1)
+        n_match = flat.sum(1)
+        overflow = overflow + torch.clamp(n_match - cap_out, min=0)
+        # The flat index of each batch row's t-th match at slot t (0 past
+        # the matches, as jnp.nonzero's fill).
+        rank = torch.cumsum(flat, 1) - 1
+        keep = flat & (rank < cap_out)
+        idx = torch.zeros((b, cap_out + 1), dtype=torch.int64,
+                          device=acc.device)
+        pos = torch.arange(flat.shape[1], device=acc.device).expand(b, -1)
+        idx.scatter_(1, torch.where(keep, rank, cap_out), pos)
+        first = idx[:, :cap_out]
+        li, ri = first // max(n_r, 1), first % max(n_r, 1)
+        extra = [a for a in rel.attrs if a not in acc_attrs]
+        left_rows = _rows_at(acc, li)
+        pieces = [left_rows[..., :-1]]
+        if extra:
+            pieces.append(_rows_at(right, ri)[
+                ..., [right_attrs.index(a) for a in extra]])
+        pieces.append(left_rows[..., -1:])
+        acc_valid = slots[None, :] < n_match[:, None]
+        acc = torch.where(acc_valid[..., None], torch.cat(pieces, -1), INVALID)
+        acc_attrs = acc_attrs[:-1] + extra + ["__cell__"]
+    order = [acc_attrs.index(a) for a in query.attributes]
+    return acc[..., order], acc_valid, overflow
+
+
 # ---------------------------------------------------------------------------
 # Executor and session
 # ---------------------------------------------------------------------------
@@ -486,7 +594,6 @@ class ShardedJoinExecutor:
 
     def _setup(self, query, k, route_specs, n_devices, config, placement,
                placement_strategy, device):
-        _check_config(config)
         check_fold(k, n_devices)
         if placement is not None:
             _check_placement_compat(placement, k, n_devices)
@@ -501,6 +608,7 @@ class ShardedJoinExecutor:
         self.compile_count = 0          # step builds (one per distinct key)
         self.step_hits = 0              # warm step lookups (no build)
         self.evicted_steps = 0          # steps dropped by the LRU bound
+        self._copy_stream = None        # the chunked exchange's side stream
 
     # -- control plane ------------------------------------------------------
     def _shard(self, arr: np.ndarray) -> np.ndarray:
@@ -559,22 +667,18 @@ class ShardedJoinExecutor:
     def _step(self, ptable: torch.Tensor, arrs, caps: tuple[int, ...],
               cap_out: int):
         n_dev, cfg = self.n_devices, self.config
+        chunks = max(int(cfg.overlap_shuffle), 1)
         frags, overs = {}, []
         recv = torch.zeros(n_dev, dtype=torch.int64, device=ptable.device)
         for rel, a, cap in zip(self.query.relations, arrs, caps):
             rows = a.view(n_dev, -1, a.shape[1])          # source shards
             spec = self.route_specs[rel.name]
-            if cfg.fuse_map:
-                buf, over = ops.scatter_pack(rows, spec, ptable, self.k,
-                                             n_dev, cap,
-                                             use_kernels=cfg.use_kernels)
+            if chunks == 1:
+                buf, over = self._pack(rows, spec, ptable, cap)
+                frag = exchange(buf)
             else:
-                dest, tagged = _route_relation(rows, spec, self.k,
-                                               cfg.use_kernels)
-                phys = _fold_dests(dest, ptable, cfg.use_kernels)
-                buf, over = _pack_buckets(phys, tagged, n_dev, cap,
-                                          cfg.use_kernels)
-            frag = exchange(buf)
+                frag, over = self._chunked_exchange(rows, spec, ptable, cap,
+                                                    chunks)
             overs.append(over)
             recv = recv + (frag[..., -1] != INVALID).sum(1)
             frags[rel.name] = frag
@@ -583,6 +687,57 @@ class ShardedJoinExecutor:
                                          cfg.use_kernels, cfg.hash_reduce,
                                          cfg.hash_bits)
         return out, valid, sh_over, j_over, recv
+
+    def _pack(self, rows: torch.Tensor, spec, ptable: torch.Tensor, cap: int
+              ) -> tuple[torch.Tensor, torch.Tensor]:
+        """The map of source shards rows (n_src, n, w): send buffers
+        (n_src, n_dev, cap, w+1) and overflow (n_src,)."""
+        cfg, n_dev = self.config, self.n_devices
+        if cfg.fuse_map:
+            return ops.scatter_pack(rows, spec, ptable, self.k, n_dev, cap,
+                                    use_kernels=cfg.use_kernels)
+        dest, tagged = _route_relation(rows, spec, self.k, cfg.use_kernels)
+        phys = _fold_dests(dest, ptable, cfg.use_kernels)
+        return _pack_buckets(phys, tagged, n_dev, cap, cfg.use_kernels)
+
+    def _chunked_exchange(self, rows: torch.Tensor, spec,
+                          ptable: torch.Tensor, cap: int, chunks: int
+                          ) -> tuple[torch.Tensor, torch.Tensor]:
+        """The map and exchange in `chunks` chunks: each source's rows
+        padded with -1 to chunks·tile (tile = ⌈n_loc/chunks⌉), chunk ci
+        rows [ci·tile, (ci+1)·tile) of every source, packed at the
+        per-chunk cap.  Fragments (n_dst, chunks·n_src·cap, w+1) arrive
+        chunk-major, then source-major; overflow (n_src,) is summed over
+        chunks.  On the card each chunk's copy into its slice of the
+        fragments runs on a side stream while the next chunk packs."""
+        n_src, n_loc, w = rows.shape
+        tile = -(-n_loc // chunks)
+        if chunks * tile > n_loc:
+            rows = torch.nn.functional.pad(
+                rows, (0, 0, 0, chunks * tile - n_loc), value=INVALID)
+        parts = rows.view(n_src, chunks, tile, w).transpose(0, 1).contiguous()
+        frag = torch.empty((self.n_devices, chunks * n_src * cap, w + 1),
+                           dtype=torch.int32, device=rows.device)
+        slices = frag.view(self.n_devices, chunks, n_src, cap, w + 1)
+        over = None
+        if rows.is_cuda:
+            if self._copy_stream is None:
+                self._copy_stream = torch.cuda.Stream(device=rows.device)
+            cur = torch.cuda.current_stream(rows.device)
+            side = self._copy_stream
+        for ci in range(chunks):
+            buf, o = self._pack(parts[ci], spec, ptable, cap)
+            over = o if over is None else over + o
+            if not rows.is_cuda:
+                slices[:, ci].copy_(buf.transpose(0, 1))
+                continue
+            side.wait_stream(cur)          # an event after chunk ci's pack
+            with torch.cuda.stream(side):
+                slices[:, ci].copy_(buf.transpose(0, 1))
+            buf.record_stream(side)        # not reused before the copy ends
+        if rows.is_cuda:
+            cur.wait_stream(side)          # the reduce reads every slice
+        return frag, over
 
     # -- data plane ----------------------------------------------------------
     def session(self) -> "ExecutorSession":
@@ -648,21 +803,60 @@ class ExecutorSession:
     whose count matrices give the placement (LPT when k > n_devices,
     identity when equal, or `placement=`) and the shuffle capacities (worst
     (source, destination device) count after the fold, times
-    `capacity_factor`, quantized to `cap_bucket`; explicit `caps=` are
-    taken as given).  `run_batch(chunks)` streams same-schema batches
-    through the cached step, padding smaller ones to the prepared shapes."""
+    `capacity_factor`, quantized to `cap_bucket`, ceil-divided by C under
+    `overlap_shuffle = C ≥ 2`; explicit `caps=` are taken as given).
+    `run_batch(chunks)` streams same-schema batches through the cached
+    step, padding smaller ones to the prepared shapes; `run_with_retry`
+    heals overflow; `refold` re-places cells without building a step.
+
+    `stats` holds the session's lifetime fault counters: every attempt of
+    every chunk counted once, so a retried chunk keeps the overflow its
+    failed attempts saw (the delivered result's own counters are zero).
+    run_batch parks each batch's overflow tensors on the device and `stats`
+    drains them on access, so a warm loop never waits on the card."""
+
+    # Undrained per-batch overflow pairs before run_batch folds them in
+    # itself: an unread streaming session pins no more buffers than this.
+    _PENDING_MAX = 64
 
     def __init__(self, executor: ShardedJoinExecutor):
         self.executor = executor
         self.caps: dict[str, int] = {}
         self.cap_out: int = int(executor.config.out_capacity)
         self.placement: CellPlacement | None = None
-        self.count_passes = 0           # routing passes run by prepare
+        self.count_passes = 0           # routing passes run (prepare + hooks)
         self._prepared = False
         self._device_args: list[torch.Tensor] | None = None
+        self._last_args: list[torch.Tensor] | None = None  # last batch run
         self._ptable: torch.Tensor | None = None
         self._shapes: tuple | None = None
         self._count_mats: list[np.ndarray] | None = None
+        n_rel = len(executor.query.relations)
+        self._stats: dict = {
+            "batches": 0,               # run_batch calls (attempts included)
+            "retries": 0,               # re-runs forced by overflow
+            "escalations": 0,           # capacity bumps applied by retries
+            "shuffle_overflow": np.zeros((executor.n_devices, n_rel),
+                                         np.int64),
+            "join_overflow": np.zeros(executor.n_devices, np.int64),
+        }
+        self._pending: list[tuple] = []     # undrained (sh_over, j_over)
+
+    def _drain_stats(self) -> None:
+        pending, self._pending = self._pending, []
+        for sh_over, j_over in pending:
+            self._stats["shuffle_overflow"] += sh_over.cpu().numpy()
+            self._stats["join_overflow"] += j_over.cpu().numpy()
+
+    @property
+    def stats(self) -> dict:
+        """Session-lifetime fault counters, pending overflow drained."""
+        self._drain_stats()
+        return self._stats
+
+    def _check_prepared(self, what: str) -> None:
+        if not self._prepared:
+            raise RuntimeError(f"ExecutorSession.{what} before prepare()")
 
     def prepare(self, data: Mapping[str, np.ndarray],
                 caps: Mapping[str, int] | None = None,
@@ -701,28 +895,84 @@ class ExecutorSession:
             counts = counts if counts is not None else self._counts()
             caps = self._derive_caps(counts, placement)
         self.caps = dict(caps)
-        self._count_mats = counts
+        self._count_mats = counts       # None when caps + placement given
         return self
 
-    def _counts(self) -> list[np.ndarray]:
-        """Per-relation (n_devices, k) routed-copy count matrices (host)."""
+    def _counts(self, args: list[torch.Tensor] | None = None
+                ) -> list[np.ndarray]:
+        """Per-relation (n_devices, k) routed-copy count matrices (host) of
+        `args`, by default the prepared relations."""
+        args = self._device_args if args is None else args
+        if args is None:
+            raise RuntimeError("no resident batch to count: prepare(data) or "
+                               "run_batch(chunks) first")
         self.count_passes += 1
         return [c.cpu().numpy().astype(np.int64)
-                for c in self.executor._count_pass(self._device_args)]
+                for c in self.executor._count_pass(args)]
+
+    def count_batch(self) -> list[np.ndarray]:
+        """Count matrices of the last batch run (the prepared relations
+        until a run_batch(chunks)): one more counting pass over tensors
+        already on the device.  Column sums are the batch's per-cell
+        loads; folded through a placement they give its capacities."""
+        self._check_prepared("count_batch")
+        if not self.executor.has_residuals:
+            return []
+        return self._counts(self._last_args)
 
     def _derive_caps(self, counts: list[np.ndarray],
                      placement: CellPlacement) -> dict[str, int]:
         """Worst per-(source, destination device) routed-copy count after
         folding the count matrices through `placement`, times
-        `capacity_factor`, quantized to the cap grid."""
+        `capacity_factor`, quantized to the cap grid; under
+        `overlap_shuffle = C ≥ 2` that serial cap ceil-divided by C (not
+        quantized again), so C chunks' buffers hold the serial buffer's
+        rows."""
         ex = self.executor
+        chunks = max(int(ex.config.overlap_shuffle), 1)
         fold = np.zeros((ex.k, ex.n_devices), np.int64)
         fold[np.arange(ex.k), placement.table] = 1
-        return {r.name: quantize_capacity(
-                    int(np.ceil(max(int((c @ fold).max()), 1)
-                                * ex.config.capacity_factor)),
-                    ex.config.cap_bucket)
-                for r, c in zip(ex.query.relations, counts)}
+        caps = {}
+        for r, c in zip(ex.query.relations, counts):
+            serial = quantize_capacity(
+                int(np.ceil(max(int((c @ fold).max()), 1)
+                            * ex.config.capacity_factor)),
+                ex.config.cap_bucket)
+            caps[r.name] = -(-serial // chunks)
+        return caps
+
+    def cell_loads(self) -> np.ndarray:
+        """Per-logical-cell routed-copy loads (k,) from the prepare-time
+        count matrices, the LPT input of a degraded-mode re-fold; one
+        counting pass if prepare() never counted."""
+        self._check_prepared("cell_loads")
+        if self._count_mats is None:
+            self._count_mats = self._counts()
+        return np.sum([c.sum(axis=0) for c in self._count_mats], axis=0)
+
+    def refold(self, placement: CellPlacement,
+               counts: list[np.ndarray] | None = None) -> "ExecutorSession":
+        """Re-place logical cells without touching shapes or resident data.
+
+        Uploads the new table (a step argument: no step is built) and
+        re-derives capacities from the prepare-time count matrices folded
+        through it, or from `counts` (e.g. `count_batch()`'s).  Evicting a
+        device is `refold(lpt_placement(cell_loads(), n_devices,
+        devices=survivors))`: it keeps its slot and receives no cell, and
+        rows stay exact because correctness never depends on placement."""
+        ex = self.executor
+        self._check_prepared("refold")
+        _check_placement_compat(placement, ex.k, ex.n_devices)
+        self.placement = placement
+        if not ex.has_residuals:
+            return self
+        self._ptable = ex._upload_table(placement)
+        if counts is None:
+            if self._count_mats is None:
+                self._count_mats = self._counts()
+            counts = self._count_mats
+        self.caps = self._derive_caps(counts, placement)
+        return self
 
     def run_batch(self, chunks: Mapping[str, np.ndarray] | None = None):
         """Run one batch through the warm step.
@@ -731,13 +981,13 @@ class ExecutorSession:
         relation maps to a fresh tuple array, padded up to the session
         shapes when smaller.  A session made by `session_from_numpy` takes
         its shapes from its first batch.  Returns a `BatchResult`."""
-        if not self._prepared:
-            raise RuntimeError("ExecutorSession.run_batch before prepare()")
+        self._check_prepared("run_batch")
         ex = self.executor
         query, n_dev = ex.query, ex.n_devices
         n_rel = len(query.relations)
         if not ex.has_residuals:
             w = len(query.attributes)
+            self._stats["batches"] += 1
             return {"rows": np.zeros((0, w), np.int32),
                     "valid": np.zeros((0,), bool),
                     "shuffle_overflow": np.zeros(n_dev, np.int64),
@@ -761,6 +1011,7 @@ class ExecutorSession:
                                   INVALID, sh.dtype)
                     sh = np.concatenate([sh, pad])
                 args.append(ex._upload(sh))
+        self._last_args = args          # count_batch()'s observation target
         shapes = tuple(tuple(a.shape) for a in args)
         if self._shapes is None:
             self._shapes = shapes
@@ -772,7 +1023,53 @@ class ExecutorSession:
                 f"re-prepare() to re-derive shapes/placement/capacities",
                 UserWarning, stacklevel=2)
         f = ex._compiled_step(shapes, self.caps, self.cap_out)
-        return BatchResult(*f(self._ptable, *args))
+        out, valid, sh_over, j_over, recv = f(self._ptable, *args)
+        self._stats["batches"] += 1
+        self._pending.append((sh_over, j_over))
+        if len(self._pending) >= self._PENDING_MAX:
+            self._drain_stats()
+        return BatchResult(out, valid, sh_over, j_over, recv)
+
+    def run_with_retry(self, chunks: Mapping[str, np.ndarray] | None = None,
+                       policy: RetryPolicy | None = None):
+        """Run one batch, healing capacity overflow by bounded retry.
+
+        Each overflowing attempt escalates exactly the failing capacities
+        (the shuffle cap of each relation that dropped copies, `cap_out`
+        when the cascade dropped rows) by `policy.escalation`, quantized to
+        the config's `cap_bucket` grid, and re-runs the same chunk.  After
+        `policy.max_retries` escalations a result that still overflows
+        raises `RetryBudgetExceededError` with the last attempt's
+        per-device breakdown."""
+        policy = policy or RetryPolicy()
+        ex = self.executor
+        rels = tuple(r.name for r in ex.query.relations)
+        res = self.run_batch(chunks)
+        attempt = 1
+        while res["shuffle_overflow"].sum() or res["join_overflow"].sum():
+            if attempt > policy.max_retries:
+                base = CapacityOverflowError.from_result(res, rels)
+                raise RetryBudgetExceededError(
+                    f"retry budget exhausted: {attempt} attempts "
+                    f"({policy.max_retries} retries) and the last still "
+                    f"overflowed — {base}", base.shuffle_by_rel,
+                    base.join_overflow, rels, attempt)
+            per_rel = res["shuffle_overflow_by_rel"].sum(axis=0)
+            for i, rel in enumerate(rels):
+                if per_rel[i]:
+                    self.caps[rel] = quantize_capacity(
+                        int(np.ceil(self.caps[rel] * policy.escalation)),
+                        ex.config.cap_bucket)
+                    self._stats["escalations"] += 1
+            if res["join_overflow"].sum():
+                self.cap_out = quantize_capacity(
+                    int(np.ceil(self.cap_out * policy.escalation)),
+                    ex.config.cap_bucket)
+                self._stats["escalations"] += 1
+            self._stats["retries"] += 1
+            res = self.run_batch(chunks)
+            attempt += 1
+        return res
 
 
 def session_from_numpy(relations, k: int, n_dev: int, route_specs: Mapping,

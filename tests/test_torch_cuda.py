@@ -1211,3 +1211,96 @@ def test_reduced_moe_f32_decode_across_a_window_on_card(dev):
         nxt = lg[:, -1].argmax(-1).to(torch.int32)
         _eq(lg_c[:, -1].argmax(-1).to(torch.int32), nxt)
     assert S + 5 >= cfg.sliding_window + 4
+
+
+def _healing_case(k=32):
+    q = two_way()
+    data = skewed_join_dataset(q, 2000, 500, skew={"B": 1.2}, seed=52)
+    return data, plan_skew_join(q, data, k)
+
+
+def _all_keys_equal(got, want):
+    for key in want:
+        np.testing.assert_array_equal(got[key], want[key], err_msg=key)
+
+
+@pytest.mark.parametrize("fields", [{}, {"fuse_map": False,
+                                         "hash_reduce": False}],
+                         ids=["fused+hash", "staged+sort"])
+@pytest.mark.parametrize("chunks", [2, 7])
+def test_chunked_exchange_on_card_equals_cpu(dev, chunks, fields):
+    """overlap_shuffle = C on the card (the two-stream path) gives the CPU
+    run's result under the same C bit for bit, launching scatter_pack (or
+    the staged pack) once a chunk."""
+    data, plan = _healing_case()
+    results = []
+    for device in (dev, "cpu"):
+        cfg = ExecutorConfig(out_capacity=1 << 16, overlap_shuffle=chunks,
+                             **fields)
+        ops.reset_launches()
+        res = ShardedJoinExecutor(plan, 8, cfg, device=device).run(data)
+        assert res["shuffle_overflow"].sum() == 0
+        assert res["join_overflow"].sum() == 0
+        results.append(res)
+        if device is dev:
+            packer = "scatter_pack" if not fields else "bucket_pack"
+            assert ops.LAUNCHES[packer] == 2 * chunks
+    _all_keys_equal(*results)
+    np.testing.assert_array_equal(
+        canonical(results[0]["rows"][results[0]["valid"]]),
+        reference_join(two_way(), data))
+
+
+def test_chunked_batches_back_to_back_with_allocations_between(dev):
+    """Ten chunked batches with tensors allocated and freed between them
+    (the caching allocator reusing blocks) give identical results: the
+    side stream's copies are ordered after each pack and before the
+    reduce, and a send buffer is not reused while its copy runs."""
+    data, plan = _healing_case()
+    ex = ShardedJoinExecutor(plan, 8, ExecutorConfig(out_capacity=1 << 16,
+                                                     overlap_shuffle=4),
+                             device=dev)
+    s = ex.session().prepare(data)
+    first = s.run_batch()
+    want = {key: first[key] for key in first}
+    results = []
+    for i in range(10):
+        junk = [torch.full((1 << 16, 3), i, dtype=torch.int32, device=dev)
+                for _ in range(8)]
+        results.append(s.run_batch())
+        del junk
+    torch.cuda.synchronize()
+    for res in results:
+        _all_keys_equal({key: res[key] for key in res}, want)
+    assert ex.compile_count == 1
+
+
+def test_retry_and_refold_on_card_equal_cpu(dev):
+    """run_with_retry from squeezed caps, then a refold over 7 survivors:
+    the same caps, counters and rows on the card as on the CPU."""
+    from repro_torch.core.placement import lpt_placement
+    data, plan = _healing_case()
+    trails = []
+    for device in (dev, "cpu"):
+        ex = ShardedJoinExecutor(plan, 8, ExecutorConfig(out_capacity=1 << 16),
+                                 device=device)
+        probe = ex.session().prepare(data)
+        caps = {r: max(1, c // 8) for r, c in probe.caps.items()}
+        s = ex.session().prepare(data, caps=caps, placement=probe.placement)
+        res = s.run_with_retry()
+        trail = [dict(s.caps), s.cap_out, s.stats["retries"],
+                 s.stats["escalations"], s.stats["shuffle_overflow"].copy(),
+                 {key: res[key] for key in res}]
+        survivors = [d for d in range(8) if d != 3]
+        s.refold(lpt_placement(s.cell_loads(), 8, devices=survivors))
+        res = s.run_batch()
+        assert res["recv_counts"][3] == 0
+        trail += [dict(s.caps), {key: res[key] for key in res}]
+        trails.append(trail)
+    card, cpu = trails
+    assert card[2] >= 1
+    for got, want in zip(card, cpu):
+        if isinstance(got, dict) and "rows" in got:
+            _all_keys_equal(got, want)
+        else:
+            np.testing.assert_array_equal(got, want)

@@ -44,6 +44,8 @@ def test_port_imports_with_jax_and_repro_blocked():
         "import repro_torch.models.transformer, repro_torch.models.moe\n"
         "import repro_torch.models.api, repro_torch.models.convert\n"
         "import repro_torch.serve.serve_step, repro_torch.serve.engine\n"
+        "import repro_torch.ft, repro_torch.ft.health, repro_torch.ft.chaos\n"
+        "import repro_torch.ft.straggler\n"
         "assert not any(m == 'jax' or m.startswith('jax.') or m == 'repro' "
         "or m.startswith('repro.') for m in sys.modules "
         "if sys.modules[m] is not None)\n"
@@ -86,16 +88,19 @@ def test_default_device_is_cuda_and_raises_without_it(monkeypatch):
 
 def test_model_and_serving_entry_points_default_to_cuda(monkeypatch):
     """init_params, init_model, init_cache, params_from_jax,
-    build_decode_step, build_prefill and ServingEngine raise without a card
+    build_decode_step, build_prefill, ServingEngine and SelfHealingSession
+    (on the device of the executor it is given) raise without a card
     unless given device="cpu"."""
     from repro_torch.configs import ARCHS
     from repro_torch.models import api
     from repro_torch.models.common import init_params
     from repro_torch.models.convert import params_from_jax
-    from repro_torch.serve import (ServingEngine, build_decode_step,
-                                   build_prefill)
+    from repro_torch.serve import (SelfHealingSession, ServingEngine,
+                                   build_decode_step, build_prefill)
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    q = two_way()
+    plan = plan_skew_join(q, skewed_join_dataset(q, 100, 20, seed=1), 8)
     cfg = ARCHS["mixtral-8x22b"].reduced()
     gen = torch.Generator()
     tree = init_params(api.layout(cfg), gen, device="cpu")
@@ -113,6 +118,7 @@ def test_model_and_serving_entry_points_default_to_cuda(monkeypatch):
         lambda **kw: build_decode_step(cfg, 2, 8, **kw),
         lambda **kw: build_prefill(cfg, **kw),
         lambda **kw: ServingEngine(cfg, 2, 8, model, **kw),
+        lambda **kw: SelfHealingSession(ShardedJoinExecutor(plan, 8, **kw)),
     ]
     for call in calls:
         with pytest.raises(ExecutorError, match="CUDA"):
@@ -121,12 +127,18 @@ def test_model_and_serving_entry_points_default_to_cuda(monkeypatch):
 
 
 def test_unported_config_arms_raise():
+    """Drift adaptation is the one arm still to port: SelfHealingSession
+    refuses `adapt=` naming its ROADMAP item; the chunked exchange it
+    once named (overlap_shuffle ≥ 2) builds."""
+    from repro_torch.serve import SelfHealingSession
     q = two_way()
     plan = plan_skew_join(q, skewed_join_dataset(q, 100, 20, seed=1), 8)
     for shuffle in (2, 4):
-        with pytest.raises(NotImplementedError):
-            ShardedJoinExecutor(plan, 8, ExecutorConfig(overlap_shuffle=shuffle),
-                                device="cpu")
+        ex = ShardedJoinExecutor(
+            plan, 8, ExecutorConfig(overlap_shuffle=shuffle), device="cpu")
+        with pytest.raises(NotImplementedError, match="ROADMAP item 6"):
+            SelfHealingSession(ex, adapt=object())
+        assert SelfHealingSession(ex).session.executor is ex
 
 
 @pytest.mark.parametrize("fuse_map,hash_reduce", [(False, True), (True, False),
