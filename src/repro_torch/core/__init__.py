@@ -3,9 +3,12 @@
   plan, dominance, cost, shares, residual, heavy_hitters, hypercube,
   skewjoin, placement, reference — the SkewShares planner and the numpy
   join oracle, numpy as in the reference package
+  adapt — online drift detection (windowed cell loads + HH sketches),
+  host-side numpy
   executor — prepare -> map -> exchange -> hash-join cascade on the
   n_dev-leading tensor layout (see executor.py)
 """
+from .adapt import AdaptPolicy, DriftDetector, TenantDriftBank, tv_distance
 from .cost import (CostExpression, CostTerm, cost_expression, naive_hh_cost,
                    shares_hh_cost, shares_hh_splits)
 from .dominance import dominated_attributes, dominates, free_share_attributes
@@ -23,6 +26,7 @@ from .skewjoin import (ResidualPlan, SkewJoinPlan, naive_two_way_cost,
                        plan_from_hhs, plan_no_skew, plan_skew_join)
 
 __all__ = [
+    "AdaptPolicy", "DriftDetector", "TenantDriftBank", "tv_distance",
     "CostExpression", "CostTerm", "cost_expression", "naive_hh_cost",
     "shares_hh_cost", "shares_hh_splits", "dominated_attributes", "dominates",
     "free_share_attributes", "HHSet", "MisraGries", "exact_heavy_hitters",

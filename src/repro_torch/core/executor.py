@@ -228,6 +228,14 @@ def _build_routes(plan: SkewJoinPlan) -> dict[str, list[_Route]]:
     return routes
 
 
+def _struct_key(plan: SkewJoinPlan) -> tuple:
+    """Hashable identity of a plan's routing: plans with equal keys route
+    identically, so they can share one executor and its step cache (k
+    rides along: cells wrap mod k)."""
+    specs = {name: _route_specs(rs) for name, rs in _build_routes(plan).items()}
+    return (plan.k, tuple(sorted(specs.items())))
+
+
 def _validate_relation(name: str, arr: np.ndarray, width: int | None = None
                        ) -> np.ndarray:
     """Reject what would alias the -1 sentinel or wrap in the int32 cast,

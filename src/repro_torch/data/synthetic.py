@@ -6,11 +6,11 @@ heavy hitters exactly as in the paper's motivating scenario.
 """
 from __future__ import annotations
 
-from typing import Mapping, Sequence
+from typing import Iterator, Mapping, Sequence
 
 import numpy as np
 
-from ..core.plan import JoinQuery, Relation
+from ..core.plan import JoinQuery, Relation, running_example, two_way
 
 
 def zipf_column(rng: np.random.Generator, n: int, domain: int,
@@ -122,3 +122,39 @@ def chain_query(width: int) -> JoinQuery:
         raise ValueError(f"chain needs ≥ 2 relations, got {width}")
     return JoinQuery(tuple(
         Relation(f"R{i}", (f"X{i}", f"X{i+1}")) for i in range(width)))
+
+
+# The multi-tenant serving mix: ≥ 3 structurally distinct query
+# shapes (2-way, the paper's 3-way running example, a 4-way chain), each with
+# its own skew profile and a row-count cycle that exercises ≥ 2 shape
+# buckets.  Domains and exponents are fixed per tenant so every request of a
+# tenant yields the SAME SkewShares plan (stable HH set + residual sizes) —
+# the steady-state zero-recompile contract is about shapes and capacities,
+# not about replanning noise.
+_WORKLOAD_TENANTS = (
+    ("pairs", two_way(), {"B": 0.7}, 1500, (900, 1500)),
+    ("chain3", running_example(), {"B": 0.6, "C": 0.6}, 1500, (700, 1100)),
+    ("chain4", chain_query(4), {"X2": 0.7}, 2000, (500, 800)),
+)
+
+
+def mixed_workload(n_requests: int, seed: int = 0,
+                   tenants=_WORKLOAD_TENANTS
+                   ) -> Iterator[tuple[str, JoinQuery, dict[str, np.ndarray]]]:
+    """Deterministic multi-tenant join-request stream for the serving bench.
+
+    Yields `n_requests` tuples `(tenant, query, data)` round-robin across the
+    tenant mix; request j of a tenant draws fresh rows (seeded by (seed,
+    tenant, j) — no two requests share data) at the tenant's j-th cycled row
+    count.  Same arguments → byte-identical stream, so benches and tests can
+    replay warmup + steady phases exactly."""
+    for j in range(n_requests):
+        t = j % len(tenants)
+        name, query, skew, domain, sizes = tenants[t]
+        cycle = j // len(tenants)
+        n_rows = sizes[cycle % len(sizes)]
+        # str.hash is process-randomized; derive the per-request seed
+        # arithmetically so replays are byte-identical across processes.
+        req_seed = (seed * 1_000_003 + t * 10_007 + cycle) & 0x7FFFFFFF
+        data = skewed_join_dataset(query, n_rows, domain, skew, seed=req_seed)
+        yield name, query, data

@@ -12,8 +12,9 @@ numpy; the device state is the KV cache.
 `ExecutorSession`: capacity overflow heals by bounded retry on the
 capacity grid; device loss (missed heartbeats) and persistent stragglers
 heal by evicting the device and re-folding the logical cells over the
-survivors.  Drift adaptation (the reference's `adapt=`) is still to be
-ported (ROADMAP item 6).
+survivors; with `adapt=AdaptPolicy(...)` skew drift heals by re-placing
+the cells on the observed loads or re-planning from the sketched heavy
+hitters (core/adapt.py).
 """
 from __future__ import annotations
 
@@ -26,9 +27,11 @@ import numpy as np
 import torch
 
 from ..configs.base import ArchConfig
+from ..core.adapt import AdaptPolicy, DriftDetector
 from ..core.executor import (DeviceLossError, ExecutorSession, RetryPolicy,
-                             ShardedJoinExecutor, resolve_device)
+                             ShardedJoinExecutor, _struct_key, resolve_device)
 from ..core.placement import lpt_placement
+from ..core.skewjoin import plan_from_hhs
 from ..ft import ChaosInjector, HealthMonitor, StragglerWatchdog
 from ..models import api
 from .serve_step import ServeFns, build_decode_step
@@ -149,15 +152,34 @@ class SelfHealingSession:
                      cell, and rows stay exact;
       stragglers  -> per-device step times feed `StragglerWatchdog`;
                      `evict_after` consecutive strikes evict the device
-                     through the same re-fold.
+                     through the same re-fold;
+      skew drift  -> with `adapt=AdaptPolicy(...)` every executed batch
+                     feeds a `DriftDetector` (core/adapt.py): one more
+                     counting pass over the batch already on the card
+                     (`count_batch`) gives its per-cell loads, the raw
+                     join columns feed windowed Misra–Gries sketches on
+                     the host.  Mild drift re-runs LPT on the OBSERVED
+                     loads and swaps the placement table (`force_replace`:
+                     no step built, as the eviction re-fold);
+                     threshold-crossing drift or a sketch-proven new heavy
+                     hitter re-derives the residual plan from the sketched
+                     HH set (`force_replan`): executors are cached by
+                     (k, route specs), and the new session inherits the
+                     old one's caps, so a plan with unchanged routing
+                     costs one prepare on the warm step cache.  `stats`
+                     counts `replacements` / `replans` and, in
+                     `replace_compiles` / `replan_compiles`, those whose
+                     step-cache key is new (0 on stable structure; a new
+                     HH set builds a step, counted, never hidden).
+                     Adaptation re-plans from the planner's plan, so an
+                     executor made by `from_specs` (no plan) refuses it.
 
     One card runs the n_dev logical devices in one step, so it yields no
     per-device times: `timing_fn(wall_s) -> (n_devices,) seconds` defaults
     to the batch's wall time for every device, and a `ChaosInjector`
     supplies the faults deterministically (delays, dropped heartbeats,
     squeezed caps, corrupted rows) and the virtual clock the HealthMonitor
-    runs on, advanced `step_seconds` a batch.  `adapt=` (drift adaptation)
-    is not ported yet and raises."""
+    runs on, advanced `step_seconds` a batch."""
 
     def __init__(self, executor: ShardedJoinExecutor,
                  retry: RetryPolicy | None = None,
@@ -168,11 +190,12 @@ class SelfHealingSession:
                  evict_after: int = 5,
                  step_seconds: float = 1.0,
                  timing_fn: Callable[[float], np.ndarray] | None = None,
-                 adapt=None):
-        if adapt is not None:
-            raise NotImplementedError(
-                "SelfHealingSession(adapt=...): drift adaptation is not "
-                "ported yet (ROADMAP item 6)")
+                 adapt: AdaptPolicy | None = None):
+        if adapt is not None and executor.plan is None:
+            raise ValueError(
+                "SelfHealingSession(adapt=...): adaptation re-plans from the "
+                "planner's plan, and an executor made by from_specs has no "
+                "plan; build it from a SkewJoinPlan")
         self.executor = executor
         self.session: ExecutorSession = executor.session()
         self.retry = retry or RetryPolicy()
@@ -189,22 +212,60 @@ class SelfHealingSession:
         self.refold_compiles = 0        # refolds whose caps left the bucket
         self.step_seconds = float(step_seconds)
         self.timing_fn = timing_fn
+        # -- the adaptation axis (core/adapt.py) --
+        self.adapt = adapt
+        self.detector: DriftDetector | None = None
+        self.replacements = 0
+        self.replace_compiles = 0       # re-placements that left the bucket
+        self.replans = 0
+        self.replan_compiles = 0        # re-plans that missed the step cache
+        # Executors keyed by (k, route specs): a re-derived plan with the
+        # same HH set and residual structure maps to the SAME executor (and
+        # its warm step cache) instead of a new one.
+        self._plan_cache: dict[tuple, ShardedJoinExecutor] = {}
+        self._prepared_data: Mapping[str, np.ndarray] | None = None
+        self._last_data: Mapping[str, np.ndarray] | None = None
+        self._last_counts: list[np.ndarray] | None = None
+        self._retired_stats: dict | None = None   # superseded sessions' sums
 
     def prepare(self, data: Mapping[str, np.ndarray], **kw
                 ) -> "SelfHealingSession":
-        """Prepare the wrapped session (chaos cap squeezes apply here)."""
+        """Prepare the wrapped session (chaos cap squeezes apply here) and,
+        under `adapt=`, the drift detector around its cell loads."""
         self.session.prepare(data, **kw)
         if self.chaos is not None and self.session.caps:
             self.session.caps = self.chaos.squeeze(self.session.caps)
+        self._prepared_data = data
+        self._last_data = data
+        if self.adapt is not None and self.executor.plan.residuals:
+            plan = self.executor.plan
+            attrs = tuple(plan.query.join_attributes())
+            self.detector = DriftDetector(
+                self.session.cell_loads(), self.adapt, attrs=attrs,
+                hh_frac=self.adapt.hh_threshold_factor / plan.k,
+                known_hhs={a: plan.hhs.values(a) for a in attrs})
+            self._plan_cache[_struct_key(plan)] = self.executor
         return self
 
     @property
     def stats(self) -> dict:
-        """The session's fault counters plus the loop's own."""
-        return {**self.session.stats,
+        """The session's fault counters plus the loop's own.  A re-plan
+        retires the wrapped session; its counters are folded in here, so
+        the loop's history never resets."""
+        s = {**self.session.stats}
+        if self._retired_stats is not None:
+            for key in ("batches", "retries", "escalations"):
+                s[key] += self._retired_stats[key]
+            for key in ("shuffle_overflow", "join_overflow"):
+                s[key] = s[key] + self._retired_stats[key]
+        return {**s,
                 "evicted": list(self.evicted),
                 "refolds": self.refolds,
-                "refold_compiles": self.refold_compiles}
+                "refold_compiles": self.refold_compiles,
+                "replacements": self.replacements,
+                "replace_compiles": self.replace_compiles,
+                "replans": self.replans,
+                "replan_compiles": self.replan_compiles}
 
     def run_batch(self, chunks: Mapping[str, np.ndarray] | None = None):
         """One healed batch: evict the dead, run (retrying overflow), feed
@@ -237,6 +298,10 @@ class SelfHealingSession:
             self.health.heartbeat(d)
         self._evict([d for d in self.watchdog.to_evict()
                      if d in self.alive])
+        if self.detector is not None:
+            self._last_data = (chunks if chunks is not None
+                               else self._prepared_data)
+            self._observe_and_adapt()
         return res
 
     def evict_device(self, device: int) -> None:
@@ -263,11 +328,186 @@ class SelfHealingSession:
         ses.refold(placement)
         # The re-fold builds no step; caps leaving their bucket would, on
         # the next batch: counted here, by the step cache's key.
-        key = (ses._shapes,
-               tuple(ses.caps[r.name] for r in ex.query.relations),
-               ses.cap_out)
-        if key not in ex._step_cache:
+        if self._step_key(ses) not in ex._step_cache:
             self.refold_compiles += 1
         self.alive = survivors
         self.evicted.extend(sorted(devices))
         self.refolds += 1
+
+    @staticmethod
+    def _step_key(ses: ExecutorSession) -> tuple:
+        """The step-cache key `ses`'s next batch looks up."""
+        return (ses._shapes,
+                tuple(ses.caps[r.name] for r in ses.executor.query.relations),
+                ses.cap_out)
+
+    # -- the adaptation axis (drift -> re-place -> re-plan) -------------------
+
+    def _join_columns(self, data: Mapping[str, np.ndarray]
+                      ) -> dict[str, dict[str, np.ndarray]]:
+        """Per join attribute, the raw column of EACH relation holding it:
+        one Misra–Gries stream per (attr, relation), as the exact
+        detector thresholds each relation against its own size."""
+        q = self.executor.plan.query
+        return {a: {rel.name: np.asarray(data[rel.name])[:, rel.attrs.index(a)]
+                    for rel in q.relations if a in rel.attrs}
+                for a in self.detector.attrs}
+
+    def _observe_and_adapt(self) -> None:
+        """Feed the drift detector one executed batch and act on its
+        verdict.  `count_batch` (one counting pass over the batch on the
+        card) gives the per-cell loads; the raw join columns feed the
+        sketches.  `assess` advances the patience streaks, so this runs
+        exactly once a `run_batch`."""
+        det = self.detector
+        counts = self.session.count_batch()
+        if not counts:
+            return
+        self._last_counts = counts
+        loads = np.sum([c.sum(axis=0) for c in counts], axis=0)
+        det.observe_loads(loads)
+        if self._last_data is not None:
+            det.observe_values(self._join_columns(self._last_data))
+        action = det.assess()
+        if action == "replace":
+            self.force_replace()
+        elif action == "replan":
+            self.force_replan()
+
+    @staticmethod
+    def _refold_keep_warm(ses: ExecutorSession, placement,
+                          counts: list[np.ndarray] | None) -> None:
+        """Refold `ses` onto `placement`, preferring caps that stay in the
+        bucket already built: a cap grows past its old value only when the
+        raw worst (source, destination) routed count under the new
+        placement exceeds it (the refold's own re-derivation applies
+        `capacity_factor` headroom, which can push a cap one bucket up
+        though the traffic never left the old one)."""
+        ex = ses.executor
+        old_caps = dict(ses.caps)
+        ses.refold(placement, counts=counts)
+        if counts is None:
+            counts = ses._count_mats
+        if counts is not None:
+            fold = np.zeros((ex.k, ex.n_devices), np.int64)
+            fold[np.arange(ex.k), placement.table] = 1
+            for rel, c in zip(ex.query.relations, counts):
+                raw = int((c @ fold).max())
+                if rel.name in old_caps and raw <= old_caps[rel.name]:
+                    ses.caps[rel.name] = old_caps[rel.name]
+                else:
+                    ses.caps[rel.name] = max(ses.caps[rel.name],
+                                             old_caps.get(rel.name, 0))
+        else:
+            ses.caps = {name: max(old_caps.get(name, c), c)
+                        for name, c in ses.caps.items()}
+
+    def force_replace(self) -> None:
+        """Re-run LPT on the OBSERVED cell loads and swap the placement
+        table: the mild-drift response.  Caps are re-derived from the
+        observed count matrices but never shrink below the ones already
+        built, so a re-placement on stable structure builds no step."""
+        ses = self.session
+        det = self.detector
+        loads = None
+        if det is not None:
+            loads = det.observed_cell_loads()
+            if not np.any(loads):
+                loads = None
+        if loads is None:
+            loads = ses.cell_loads()
+        placement = lpt_placement(
+            loads, self.executor.n_devices,
+            devices=self.alive if self.evicted else None)
+        had_run = ses._last_args is not None
+        self._refold_keep_warm(ses, placement, self._last_counts)
+        if had_run and self._step_key(ses) not in self.executor._step_cache:
+            self.replace_compiles += 1
+        self.replacements += 1
+        if det is not None:
+            det.rebaseline(loads, action="replace")
+
+    def force_replan(self) -> None:
+        """Re-derive the residual plan from the sketched HH set and swap
+        the wrapped session: the threshold-drift / new-heavy-hitter
+        response.
+
+        The last executed batch sizes the plan.  Executors are cached by
+        (k, route specs), so a plan with unchanged routing reuses the SAME
+        executor (warm step cache), and the new session inherits the old
+        one's caps: one prepare, no step built.  A new plan makes a new
+        executor on the old one's device, which builds its step on the next
+        batch: counted in `replan_compiles`, never hidden."""
+        ses, ex = self.session, self.executor
+        det = self.detector
+        if det is None:
+            raise RuntimeError(
+                "force_replan needs adapt=AdaptPolicy(...) (no detector)")
+        sample = (self._last_data if self._last_data is not None
+                  else self._prepared_data)
+        if sample is None:
+            raise RuntimeError("force_replan before prepare()")
+        plan = ex.plan
+        new_plan = plan_from_hhs(plan.query, sample, plan.k,
+                                 det.sketched_hhs())
+        key = _struct_key(new_plan)
+        ex2 = self._plan_cache.get(key)
+        if ex2 is None:
+            ex2 = ShardedJoinExecutor(new_plan, ex.n_devices, ex.config,
+                                      device=ex.device)
+            self._plan_cache[key] = ex2
+        ses2 = ex2.session()
+        # Prepare on the ORIGINAL prepared data, so the session shapes (the
+        # step-cache key's first part) are the old session's and chunks pad
+        # up to them as before.  `sample` only sized the plan.
+        anchor = (self._prepared_data if self._prepared_data is not None
+                  else sample)
+        ses2.prepare(anchor, caps=dict(ses.caps) or None)
+        ses2.cap_out = ses.cap_out
+        # Re-place the new session for the traffic that triggered the
+        # re-plan.  With unchanged routing (a plan-cache hit) the observed
+        # window lives in the same cell space, so the OBSERVED loads drive
+        # LPT; otherwise a warm re-plan would reset the fold to the anchor
+        # data's.  A new plan redefines the cells: only the anchor's loads
+        # under the new routing mean anything then.
+        alive = self.alive if self.evicted else None
+        obs_loads = det.observed_cell_loads()
+        if ex2 is ex and np.any(obs_loads):
+            self._refold_keep_warm(
+                ses2, lpt_placement(obs_loads, ex2.n_devices, devices=alive),
+                self._last_counts)
+        elif self.evicted:
+            # Degraded mode survives the re-plan: fold the new plan's cells
+            # over the survivors only, keeping inherited caps warm.
+            self._refold_keep_warm(
+                ses2, lpt_placement(ses2.cell_loads(), ex2.n_devices,
+                                    devices=self.alive), None)
+        if ses2._shapes is not None and ses2._shapes != ():
+            if self._step_key(ses2) not in ex2._step_cache:
+                self.replan_compiles += 1
+        # Retire the old session's counters so `stats` stays cumulative.
+        old = ses.stats
+        if self._retired_stats is None:
+            self._retired_stats = {
+                "batches": 0, "retries": 0, "escalations": 0,
+                "shuffle_overflow": np.zeros_like(old["shuffle_overflow"]),
+                "join_overflow": np.zeros_like(old["join_overflow"]),
+            }
+        for name in ("batches", "retries", "escalations", "shuffle_overflow",
+                     "join_overflow"):
+            self._retired_stats[name] += old[name]
+        warm_hit = ex2 is ex
+        self.session, self.executor = ses2, ex2
+        self._last_counts = None        # the old plan's routing
+        self.replans += 1
+        # New baseline: with unchanged routing (a cache hit) the observed
+        # window is in the right cell space and IS the best estimate of
+        # current traffic; rebaselining to the anchor's loads would leave
+        # the detector drifted against a stream that has shifted (replan
+        # thrash).  A new plan redefines the cells: the anchor's loads
+        # under the NEW routing are the only meaningful baseline.
+        obs = det.observed_cell_loads()
+        base = obs if warm_hit and np.any(obs) else ses2.cell_loads()
+        det.rebaseline(
+            base, action="replan",
+            known_hhs={a: new_plan.hhs.values(a) for a in det.attrs})

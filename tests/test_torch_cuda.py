@@ -1304,3 +1304,140 @@ def test_retry_and_refold_on_card_equal_cpu(dev):
             _all_keys_equal(got, want)
         else:
             np.testing.assert_array_equal(got, want)
+
+
+def _adapt_trail(device, scenario):
+    """`tests/test_adapt.py`'s mild-drift or new-HH schedule through the
+    port's SelfHealingSession(adapt=) on `device`: after each batch the
+    adaptation counters, placement, caps, plan HHs and result."""
+    from _torch_adapt_cases import (CAP_OUT, E2E_POL, HOT_A, HOT_MILD,
+                                    K_PLAN, drift_batch)
+    from repro_torch.core import AdaptPolicy
+    from repro_torch.serve import SelfHealingSession
+    data0 = drift_batch(HOT_A, seed=1)
+    ex = ShardedJoinExecutor(plan_skew_join(two_way(), data0, K_PLAN), 8,
+                             ExecutorConfig(out_capacity=CAP_OUT),
+                             device=device)
+    eng = SelfHealingSession(ex, adapt=AdaptPolicy(**E2E_POL)).prepare(data0)
+    if scenario == "mild":
+        batches = ([drift_batch(HOT_A, seed=20 + i) for i in range(3)]
+                   + [drift_batch(HOT_MILD, seed=30 + i) for i in range(6)])
+    else:
+        batches = ([drift_batch(HOT_A, seed=60 + i) for i in range(3)]
+                   + [drift_batch(HOT_A, seed=70 + i, extra_hh={"B": 256})
+                      for i in range(4)])
+    trail = []
+    for batch in batches:
+        res = eng.run_batch(batch)
+        st = eng.stats
+        trail.append(dict(
+            counters=[st[k] for k in ("batches", "retries", "replacements",
+                                      "replace_compiles", "replans",
+                                      "replan_compiles")],
+            table=eng.session.placement.table.tolist(),
+            caps=dict(eng.session.caps), cap_out=eng.session.cap_out,
+            hhs=dict(eng.executor.plan.hhs.per_attr),
+            history=list(eng.detector.history),
+            result={key: res[key] for key in res}))
+    rows = trail[-1]["result"]
+    np.testing.assert_array_equal(
+        canonical(rows["rows"][rows["valid"]]),
+        reference_join(two_way(), batches[-1]))
+    return trail
+
+
+@pytest.mark.parametrize("scenario", ["mild", "new_hh"])
+def test_adapt_on_card_equals_cpu(dev, scenario):
+    """Drift adaptation on the card: the same re-placements, re-plans,
+    placement tables, caps and rows as the CPU run (itself held equal to
+    the JAX package's in tests/test_torch_adapt_session.py)."""
+    card, cpu = _adapt_trail(dev, scenario), _adapt_trail("cpu", scenario)
+    assert len(card) == len(cpu)
+    for got, want in zip(card, cpu):
+        _all_keys_equal(got.pop("result"), want.pop("result"))
+        assert got == want
+    counters = card[-1]["counters"]
+    if scenario == "mild":
+        assert counters[2] >= 1 and counters[4] == 0 and counters[3] == 0
+    else:
+        assert counters[4] >= 1 and counters[5] >= 1
+        assert 1 in card[-1]["hhs"]["B"]
+
+
+def _engine_trail(device):
+    from repro_torch.data import mixed_workload
+    from repro_torch.serve import JoinServingEngine
+    eng = JoinServingEngine(8, device=device)
+    reqs = [(eng.submit(t, q, d), q, d) for t, q, d in mixed_workload(9)]
+    eng.run()
+    for req, q, d in reqs:
+        np.testing.assert_array_equal(canonical(req.rows),
+                                      canonical(reference_join(q, d)))
+    return [(r.tenant, r.bucket, r.rows) for r, _, _ in reqs], eng.stats
+
+
+def test_join_engine_on_card_equals_cpu(dev):
+    """Nine mixed_workload requests through the multi-tenant engine on the
+    card: the CPU engine's rows (in order), buckets and stats."""
+    (card, card_stats), (cpu, cpu_stats) = _engine_trail(dev), \
+        _engine_trail("cpu")
+    for (t, b, rows), (t_c, b_c, rows_c) in zip(card, cpu):
+        assert (t, b) == (t_c, b_c)
+        np.testing.assert_array_equal(rows, rows_c)
+    assert card_stats == cpu_stats
+
+
+def _pruned_trail(device):
+    from _torch_adapt_cases import pruned_pair
+    from repro_torch.serve import JoinServingEngine
+    eng = JoinServingEngine(8, device=device)
+    pair = pruned_pair()
+    reqs = [eng.submit("t", two_way(), d) for d in pair]
+    eng.run()
+    for req, d in zip(reqs, pair):
+        np.testing.assert_array_equal(canonical(req.rows),
+                                      canonical(reference_join(two_way(), d)))
+    return [r.rows for r in reqs], eng.stats
+
+
+def test_join_engine_replans_a_pruned_combination_on_card(dev):
+    """A request filling a combination its tenant's plan pruned re-plans
+    the tenant on the card as on the CPU: equal rows, one re-plan."""
+    (card, card_stats), (cpu, cpu_stats) = _pruned_trail(dev), \
+        _pruned_trail("cpu")
+    for rows, rows_c in zip(card, cpu):
+        np.testing.assert_array_equal(rows, rows_c)
+    assert card_stats == cpu_stats
+    assert card_stats["tenants"]["t"]["replans"] == 1
+
+
+def test_full_sized_request_rows_leave_the_card_compacted(dev, monkeypatch):
+    """A request at the full-size cell (two_way, 2^21 rows a relation, k =
+    256): its valid rows are compacted on the card and only they are
+    copied to the host; the (n_dev·cap_out, w) buffer and its flags never
+    are (no read of the result's host keys 'rows' or 'valid')."""
+    from repro_torch.core.executor import BatchResult, RetryPolicy
+    from repro_torch.data import drifting_join_batch
+    from repro_torch.serve import JoinServingEngine
+    data = drifting_join_batch(two_way(), 1 << 21, 12288, 1 << 20, (), 0,
+                               seed=0)
+    cr, cs = np.bincount(data["R"][:, 1]), np.bincount(data["S"][:, 0])
+    m = min(len(cr), len(cs))
+    exact = int((cr[:m].astype(np.int64) * cs[:m]).sum())
+    read = []
+    getitem = BatchResult.__getitem__
+
+    def spy(self, key):
+        read.append(key)
+        return getitem(self, key)
+
+    monkeypatch.setattr(BatchResult, "__getitem__", spy)
+    eng = JoinServingEngine(8, k=256, retry=RetryPolicy(max_retries=16),
+                            device=dev)
+    req = eng.submit("full", two_way(), data)
+    eng.run()
+    assert req.rows.shape == (exact, 3) and req.rows.dtype == np.int32
+    assert "rows" not in read and "valid" not in read
+    assert 0 < req.copy_s < req.latency_s
+    st = eng.stats["tenants"]["full"]
+    assert st["overflow"] > 0 and st["rows_out"] == exact

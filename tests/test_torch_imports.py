@@ -44,6 +44,7 @@ def test_port_imports_with_jax_and_repro_blocked():
         "import repro_torch.models.transformer, repro_torch.models.moe\n"
         "import repro_torch.models.api, repro_torch.models.convert\n"
         "import repro_torch.serve.serve_step, repro_torch.serve.engine\n"
+        "import repro_torch.core.adapt, repro_torch.serve.join_engine\n"
         "import repro_torch.ft, repro_torch.ft.health, repro_torch.ft.chaos\n"
         "import repro_torch.ft.straggler\n"
         "assert not any(m == 'jax' or m.startswith('jax.') or m == 'repro' "
@@ -88,15 +89,16 @@ def test_default_device_is_cuda_and_raises_without_it(monkeypatch):
 
 def test_model_and_serving_entry_points_default_to_cuda(monkeypatch):
     """init_params, init_model, init_cache, params_from_jax,
-    build_decode_step, build_prefill, ServingEngine and SelfHealingSession
-    (on the device of the executor it is given) raise without a card
-    unless given device="cpu"."""
+    build_decode_step, build_prefill, ServingEngine, JoinServingEngine and
+    SelfHealingSession (on the device of the executor it is given) raise
+    without a card unless given device="cpu"."""
     from repro_torch.configs import ARCHS
     from repro_torch.models import api
     from repro_torch.models.common import init_params
     from repro_torch.models.convert import params_from_jax
-    from repro_torch.serve import (SelfHealingSession, ServingEngine,
-                                   build_decode_step, build_prefill)
+    from repro_torch.serve import (JoinServingEngine, SelfHealingSession,
+                                   ServingEngine, build_decode_step,
+                                   build_prefill)
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     q = two_way()
@@ -118,6 +120,7 @@ def test_model_and_serving_entry_points_default_to_cuda(monkeypatch):
         lambda **kw: build_decode_step(cfg, 2, 8, **kw),
         lambda **kw: build_prefill(cfg, **kw),
         lambda **kw: ServingEngine(cfg, 2, 8, model, **kw),
+        lambda **kw: JoinServingEngine(8, **kw),
         lambda **kw: SelfHealingSession(ShardedJoinExecutor(plan, 8, **kw)),
     ]
     for call in calls:
@@ -127,18 +130,23 @@ def test_model_and_serving_entry_points_default_to_cuda(monkeypatch):
 
 
 def test_unported_config_arms_raise():
-    """Drift adaptation is the one arm still to port: SelfHealingSession
-    refuses `adapt=` naming its ROADMAP item; the chunked exchange it
-    once named (overlap_shuffle ≥ 2) builds."""
+    """Every arm of the join path is ported; the one refusal left is
+    `adapt=` on an executor made by `from_specs`, which has no plan to
+    re-plan from.  Executors built from a plan take `adapt=` under the
+    serial and the chunked exchange."""
+    from repro_torch.core import AdaptPolicy
     from repro_torch.serve import SelfHealingSession
     q = two_way()
     plan = plan_skew_join(q, skewed_join_dataset(q, 100, 20, seed=1), 8)
-    for shuffle in (2, 4):
-        ex = ShardedJoinExecutor(
-            plan, 8, ExecutorConfig(overlap_shuffle=shuffle), device="cpu")
-        with pytest.raises(NotImplementedError, match="ROADMAP item 6"):
-            SelfHealingSession(ex, adapt=object())
-        assert SelfHealingSession(ex).session.executor is ex
+    for shuffle in (0, 2, 4):
+        cfg = ExecutorConfig(overlap_shuffle=shuffle)
+        ex = ShardedJoinExecutor(plan, 8, cfg, device="cpu")
+        assert SelfHealingSession(ex, adapt=AdaptPolicy()).executor is ex
+        bare = ShardedJoinExecutor.from_specs(q, plan.k, ex.route_specs, 8,
+                                              cfg, device="cpu")
+        with pytest.raises(ValueError, match="planner's plan"):
+            SelfHealingSession(bare, adapt=AdaptPolicy())
+        assert SelfHealingSession(bare).session.executor is bare
 
 
 @pytest.mark.parametrize("fuse_map,hash_reduce", [(False, True), (True, False),
