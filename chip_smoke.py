@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch + CUDA port's join paths and its MoE serving path on
-one NVIDIA GPU.
+"""Drive the PyTorch + CUDA port's join paths, its MoE serving path and its
+training path on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -149,9 +149,31 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
          full-size batches whose hot set moves (re-placed at least once),
          `calm` one small request; each detector windows only its own
          tenant's batches; every request exact;
-  9. one JSON line each of phases 6, 6e and 8's numbers, one JSON line of
-     per-kernel results (each with the path its launches were counted
-     on), then the last line {"ok": true, "device": {...}}.
+  9. the training path, after phase 7 (its memory freed):
+     9a. mixtral-8x22b at its published widths with its depth cut from 56
+         to 1 layer (at 2 a step peaks past 76 GB),
+         remat "full", 8-bit AdamW states: `build_train_step` takes 5
+         steps on one `TokenPipeline` batch of 4 x 2,048 tokens (warmup 1
+         step).  Launch counts are zeroed just before the first step and
+         read just after the fifth.  Every loss finite and the last below
+         the first; the optimizer's step 5; every step's expert_load sums
+         to B·S·K·L and the first step's is `torch.equal` to the same
+         forward on the plain versions; segment_histogram launched 2·L a
+         step (the forward and its recompute) and equal to plain on the
+         step's input.  Prints the losses, the cold first step, the warm
+         median of steps 2-5, tokens/s, the peak and a profile of a sixth
+         step (device-busy share, top device operations);
+     9b. the training driver (`repro_torch.launch.train`'s main) on
+         qwen2-0.5b at its full size on the card, into a temporary
+         directory: 12 steps of 8 x 512 tokens, checkpoints every 4, a
+         simulated node failure at step 6 (re-mesh, restore), then
+         `--resume --steps 15`.  The FT lines printed, the loss descends,
+         the latest committed step is 15; prints the warm step median and
+         the final blocking save's wall time;
+ 10. one JSON line each of phases 6, 6e, 8 and 9's numbers, one JSON line
+     of per-kernel results (each with the path its launches were counted
+     on: segment_histogram's is phase 9a's, its phase 7 count beside it as
+     `serve_launches`), then the last line {"ok": true, "device": {...}}.
 
 Exits non-zero without printing a result when no CUDA device is present or
 when the repository's `src/repro_torch` is not beside this script.
@@ -159,6 +181,7 @@ when the repository's `src/repro_torch` is not beside this script.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import subprocess
 import sys
@@ -223,6 +246,7 @@ MODERATE_CHUNKS = 3
 FUSED_HASH, STAGED_SORT = "fused+hash", "staged+sort"
 LIBRARY = "library"
 MOE_SERVE = "moe_serve"
+MOE_TRAIN = "moe_train"
 # The config fields of each arm.
 ARMS = {FUSED_HASH: {}, "fused+sort": {"hash_reduce": False},
         "staged+hash": {"fuse_map": False}, STAGED_SORT: {"fuse_map": False,
@@ -262,7 +286,7 @@ KERNEL_SITES = {
                     "src/repro/kernels/build_probe.py:127", LIBRARY),
     "segment_histogram": ("src/repro_torch/kernels/csrc/segment_histogram.cu",
                           "src/repro/kernels/segment_histogram.py:36",
-                          MOE_SERVE),
+                          MOE_TRAIN),
 }
 # The CUDA kernels of build_table (csrc/join_probe.cu), scatter_pack
 # (csrc/scatter_pack.cu) and probe_tables (csrc/probe_tables.cu), named in
@@ -290,6 +314,21 @@ MOE = dict(arch="mixtral-8x22b", n_layers=4, seed=0, prefill_batch=4,
            prefill_len=2048, prefill_reps=3, slots=8, max_seq=512,
            n_requests=24, prompt_len=(16, 128), new_tokens=(16, 64),
            profile_ticks=5)
+# Phase 9a: mixtral-8x22b trained at its published widths, depth cut to 1
+# layer, 8-bit AdamW states (the reference's choice for this model), remat
+# "full"; one TokenPipeline batch of 4 x 2,048 tokens repeated for 5 steps,
+# a warmup of one step (the first step's lr_scale is 0).  At 2 layers a
+# step peaks at 78.7 GB of the H100's 85 GB, past the 76 GB this phase keeps
+# under: 61.5 GB of weights, int8 states and gradients, and ~17 GB for a
+# layer's recompute (its chunked attention's float32 probabilities) and
+# the loss.
+TRAIN = dict(arch="mixtral-8x22b", n_layers=1, seed=0, batch=4, seq=2048,
+             steps=5, lr=1e-4, warmup=1, state_bits=8)
+# Phase 9b: the training driver on qwen2-0.5b at its full size, through a
+# simulated node failure, then resumed; the reference's driver test's lr
+# (its warmup of 200 steps keeps every step here far below it).
+DRIVER = dict(arch="qwen2-0.5b", batch=8, seq=512, steps=12, fail_at=6,
+              ckpt_every=4, resume_steps=15, lr=3e-3)
 # Phase 7c's larger histograms: (values, bins) — kimi-k2's 384 experts
 # (the grid arm), and 2^16 bins (past one block's shared memory: the
 # cluster arm, at 2^22 values on several clusters, at 2^16 on one).
@@ -2273,6 +2312,201 @@ def histogram_checks(dev, serve):
     return out
 
 
+def moe_train(dev):
+    """Phase 9a: train mixtral-8x22b at its published widths (depth cut)
+    through `build_train_step`: 5 steps on one repeated batch.  Launch
+    counts are zeroed just before the first step and read just after the
+    fifth; a sixth step is profiled after them."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.data import PipelineConfig, TokenPipeline
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import segment_histogram as sh
+    from repro_torch.models import api
+    from repro_torch.models.common import count_params
+    from repro_torch.optim import AdamWConfig, adamw
+    from repro_torch.train import build_train_step
+
+    full = ARCHS[TRAIN["arch"]]
+    cfg = dataclasses.replace(full, n_layers=TRAIN["n_layers"])
+    B, S, K, L = TRAIN["batch"], TRAIN["seq"], cfg.topk, cfg.n_layers
+    n_steps = TRAIN["steps"]
+    print(f"[train] {cfg.name}: d_model {cfg.d_model}, {cfg.n_heads} heads, "
+          f"{cfg.n_kv_heads} KV heads, d_ff {cfg.d_ff}, vocab {cfg.vocab}, "
+          f"{cfg.n_experts} experts top-{K} on {cfg.n_slots()} slots, remat "
+          f"{cfg.remat!r}, {TRAIN['state_bits']}-bit AdamW states; reduced: "
+          f"n_layers {full.n_layers} -> {L}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    model = api.init_model(cfg, torch.Generator(device=dev).manual_seed(
+        TRAIN["seed"]), device=dev)
+    ocfg = AdamWConfig(lr=TRAIN["lr"], state_bits=TRAIN["state_bits"])
+    opt = adamw.init(model.tree(), ocfg)
+    fns = build_train_step(cfg, ocfg, total_steps=n_steps,
+                           warmup_steps=TRAIN["warmup"], device=dev)
+    torch.cuda.synchronize()
+    n_params = count_params(api.layout(cfg))
+    held = torch.cuda.memory_allocated() - base
+    print(f"[train] {n_params} bf16 parameters + their int8 m and v: "
+          f"{held / 1e9:.2f} GB allocated (measured) in "
+          f"{time.perf_counter() - t0:.2f} s")
+
+    batch = TokenPipeline(PipelineConfig(cfg.vocab, S, B, seed=TRAIN["seed"])
+                          ).global_batch_at(0)
+    batch = {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+             for k, v in batch.items()}
+    # The first step's forward on the plain versions (not counted).
+    with torch.no_grad():
+        model.use_kernels = False
+        _, aux = api.forward(model, cfg, {"tokens": batch["tokens"]},
+                             last_only=True)
+        model.use_kernels = True
+    plain_load = aux["expert_load"].float().cpu()
+    del aux
+
+    captured = {}
+    launch_hist = ops.segment_histogram
+
+    def keep_input(values, n_bins, **kw):
+        captured.setdefault(values.numel(), values.detach().clone())
+        return launch_hist(values, n_bins, **kw)
+
+    # The path: counts zeroed just before, read just after.
+    ops.segment_histogram = keep_input
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    step_s, metrics = [], []
+    for _ in range(n_steps):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        model, opt, m = fns.step(model, opt, batch)
+        m = {k: v.detach().cpu() for k, v in m.items()}
+        step_s.append(time.perf_counter() - t)
+        metrics.append(m)
+    torch.cuda.synchronize()
+    launches = dict(ops.LAUNCHES)
+    ops.segment_histogram = launch_hist
+    peak = torch.cuda.max_memory_allocated()
+
+    losses = [float(m["loss"]) for m in metrics]
+    check(all(np.isfinite(losses)), f"train losses {losses} not finite")
+    check(losses[-1] < losses[0], f"train loss did not descend: {losses}")
+    check(int(opt["step"]) == n_steps, f"opt step {int(opt['step'])} != "
+          f"{n_steps}")
+    for i, m in enumerate(metrics):
+        check(int(m["expert_load"].sum()) == B * S * K * L,
+              f"step {i}: expert_load sums to {int(m['expert_load'].sum())}"
+              f", not B·S·K·L = {B * S * K * L}")
+    check(torch.equal(metrics[0]["expert_load"], plain_load),
+          f"first step's expert_load {metrics[0]['expert_load'].tolist()} "
+          f"!= the plain forward's {plain_load.tolist()}")
+    want = dict.fromkeys(KERNEL_SITES, 0)
+    want["segment_histogram"] = 2 * L * n_steps
+    check(launches == want, f"moe_train launches {launches}, expected {want}")
+    vals = captured[B * S * K]
+    check(torch.equal(sh.segment_histogram_cuda(vals, cfg.n_experts),
+                      sh.segment_histogram_host(vals, cfg.n_experts)),
+          "segment_histogram differs from plain on the train step's input")
+    warm = float(np.median(step_s[1:]))
+    series = {k: ", ".join(f"{float(m[k]):.4f}" for m in metrics)
+              for k in ("loss", "grad_norm", "lr_scale")}
+    print(f"[train] 9a losses {series['loss']}; zloss "
+          f"{float(metrics[-1]['zloss']):.5f}; grad_norm "
+          f"{series['grad_norm']}; lr_scale {series['lr_scale']}")
+    print(f"[train] 9a expert_load every step sums to B·S·K·L = "
+          f"{B * S * K * L}; step 1's {metrics[0]['expert_load'].tolist()} "
+          f"equals the plain forward's (torch.equal); opt step {n_steps}; "
+          f"segment_histogram launches {launches['segment_histogram']} = 2 "
+          f"(forward + recompute) x {L} layers x {n_steps} steps, equal to "
+          f"plain on its {vals.numel()} values")
+    print(f"[train] 9a steps {', '.join(f'{t * 1e3:.1f}' for t in step_s)} "
+          f"ms: cold first {step_s[0] * 1e3:.1f} ms, warm median (steps "
+          f"2-{n_steps}) {warm * 1e3:.1f} ms, {B * S / warm:.0f} tokens/s; "
+          f"peak allocated (measured) {peak / 1e9:.2f} GB")
+    # Where a warm step's time goes (a sixth step, not counted above).
+    profile_calls(lambda: fns.step(model, opt, batch),
+                  f"one warm train step ({B} x {S} tokens, {L} layers)", 1,
+                  top=15, tag="train")
+    out = dict(launches=launches, losses=losses, step_ms=[t * 1e3 for t in
+                                                          step_s],
+               warm_ms=warm * 1e3, tokens_per_s=B * S / warm,
+               peak_gb=peak / 1e9, n_layers=L)
+    del model, opt, fns, batch, captured, vals, metrics
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_driver(dev):
+    """Phase 9b: `python -m repro_torch.launch.train`'s main on qwen2-0.5b
+    at its full size on the card, through a simulated node failure, then
+    resumed, in a temporary directory."""
+    import contextlib
+    import io
+    import tempfile
+    from repro_torch.ckpt import Checkpointer
+    from repro_torch.launch.train import main as train_main
+
+    def run(argv):
+        buf = io.StringIO()
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            train_main(argv)
+        wall = time.perf_counter() - t
+        out = buf.getvalue()
+        for line in out.splitlines():
+            print(f"[driver] {line}")
+        return out, wall
+
+    def step_ms(out):
+        return {int(line.split()[1]): float(line.split()[-1][:-2])
+                for line in out.splitlines() if line.startswith("step ")}
+
+    def losses(out):
+        return [float(line.split("loss")[1].split()[0])
+                for line in out.splitlines() if line.startswith("step ")]
+
+    def save_s(out):
+        return [float(line.split()[-2]) for line in out.splitlines()
+                if line.startswith("[ckpt] final save")][0]
+
+    with tempfile.TemporaryDirectory() as d:
+        base = ["--arch", DRIVER["arch"], "--batch", str(DRIVER["batch"]),
+                "--seq", str(DRIVER["seq"]), "--lr", str(DRIVER["lr"]),
+                "--ckpt-every",
+                str(DRIVER["ckpt_every"]), "--log-every", "1",
+                "--ckpt-dir", d]
+        out1, wall1 = run(base + ["--steps", str(DRIVER["steps"]),
+                                  "--fail-at-step", str(DRIVER["fail_at"])])
+        out2, wall2 = run(base + ["--steps", str(DRIVER["resume_steps"]),
+                                  "--resume"])
+        latest = Checkpointer(d).latest_step()
+    for line in (f"[FT] injecting node failure at step {DRIVER['fail_at']}",
+                 "[FT] re-meshing {'data': 2, 'model': 4} -> {'data': 1, "
+                 "'model': 4}, restoring step 4",
+                 f"done; final checkpoint at {DRIVER['steps']}"):
+        check(line in out1, f"9b: {line!r} not printed")
+    check(f"resumed from step {DRIVER['steps']}" in out2,
+          "9b: the resume line not printed")
+    l1, l2 = losses(out1), losses(out2)
+    check(all(np.isfinite(l1 + l2)) and l1[-1] < l1[0] and l2[-1] < l1[0],
+          f"9b: the loss did not descend: {l1} then {l2}")
+    check(latest == DRIVER["resume_steps"], f"9b: latest committed step "
+          f"{latest}, not {DRIVER['resume_steps']}")
+    ms1 = step_ms(out1)
+    warm = [v for k, v in ms1.items() if k not in (0, DRIVER["fail_at"])]
+    warm_ms = float(np.median(warm))
+    print(f"[driver] 9b qwen2-0.5b: loss {l1[0]:.4f} -> {l1[-1]:.4f} "
+          f"(failure at step {DRIVER['fail_at']}), resumed {l2[0]:.4f} -> "
+          f"{l2[-1]:.4f}; latest committed step {latest}; warm step median "
+          f"{warm_ms:.0f} ms ({DRIVER['batch'] * DRIVER['seq'] / warm_ms * 1e3:.0f}"
+          f" tokens/s); final checkpoint save (blocking) {save_s(out1):.2f} / "
+          f"{save_s(out2):.2f} s; runs {wall1:.1f} s and {wall2:.1f} s")
+    torch.cuda.empty_cache()
+    return dict(warm_ms=warm_ms, save_s=[save_s(out1), save_s(out2)],
+                losses=l1 + l2, walls_s=[wall1, wall2])
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2334,6 +2568,18 @@ def main() -> int:
     serve = moe_serve(dev)
     results.update(histogram_checks(dev, serve))
     path_launches[MOE_SERVE] = serve["launches"]
+    t9 = time.perf_counter()
+    # Phase 7's engine and its timed tick (a closure over the engine's own
+    # bound method) form a cycle that holds the weights: only the
+    # collector frees it.
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[train] serving phases freed: "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB still allocated")
+    train = moe_train(dev)
+    path_launches[MOE_TRAIN] = train["launches"]
+    driver = train_driver(dev)
+    print(f"[train] phase 9 took {time.perf_counter() - t9:.1f} s")
     t_end = time.perf_counter()
 
     kernels = []
@@ -2343,12 +2589,16 @@ def main() -> int:
                             replaces=replaces, path=path,
                             launches=path_launches[path][name],
                             **results[name]))
+        if path == MOE_TRAIN:
+            kernels[-1]["serve_launches"] = serve["launches"][name]
     check(all(kn["launches"] > 0 for kn in kernels), "a kernel never launched")
-    print(f"[done] all phases passed in {t_end - t_start:.1f} s (phase 7 "
-          f"{t_end - t7:.1f} s)")
+    print(f"[done] all phases passed in {t_end - t_start:.1f} s (phases 7 "
+          f"and 9 {t_end - t7:.1f} s)")
     print(json.dumps({"self_healing": healing}))
     print(json.dumps({"adaptation": adapt}))
     print(json.dumps({"join_serving": serving}))
+    print(json.dumps({"training": {"moe_train": {
+        k: v for k, v in train.items() if k != "launches"}, "driver": driver}}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

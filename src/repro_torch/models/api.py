@@ -1,13 +1,15 @@
-"""Model API over the ported families (so far: "moe").
+"""Model API over the ported families ("dense" and "moe").
 
 Every entry point takes a `batch` dict, as the reference's does
-(`batch["tokens"]` (B, S) int32), so serving code never branches on family:
+(`batch["tokens"]` (B, S) int32, `batch["labels"]` in training), so
+train and serve code never branch on family:
 
-  forward(...) -> (logits, aux) with aux the MoE stats (aux_loss,
-  expert_load).
+  forward(...) -> (logits, aux) with aux = {} (dense) or the MoE stats
+  (aux_loss enters the training loss; expert_load feeds the SkewShares
+  re-planner).
 
-The dense, ssm, hybrid, encdec and vlm families are still to be ported
-(ROADMAP item 9): asking for one raises NotImplementedError.
+The ssm, hybrid, encdec and vlm families are still to be ported (ROADMAP
+item 9): asking for one raises NotImplementedError.
 """
 from __future__ import annotations
 
@@ -16,9 +18,9 @@ from typing import Any
 import torch
 
 from .common import Layout, init_params
-from . import moe
+from . import moe, transformer
 
-_FAMILIES = {"moe": moe}
+_FAMILIES = {"dense": transformer, "moe": moe}
 
 
 def family_module(cfg):
@@ -27,7 +29,8 @@ def family_module(cfg):
     except KeyError:
         raise NotImplementedError(
             f"model family {cfg.family!r} ({cfg.name}) is not ported yet "
-            f"(ROADMAP item 9); ported: {sorted(_FAMILIES)}") from None
+            f"(ROADMAP item 9); ported: {sorted(_FAMILIES)}; still to port: "
+            f"['encdec', 'hybrid', 'ssm', 'vlm']") from None
 
 
 def layout(cfg) -> Layout:
@@ -49,8 +52,10 @@ def init_model(cfg, generator: torch.Generator, *, device=None,
 
 def forward(params, cfg, batch: dict, last_only: bool = False
             ) -> tuple[torch.Tensor, dict[str, Any]]:
-    return family_module(cfg).forward(params, cfg, batch["tokens"],
-                                      last_only=last_only)
+    m = family_module(cfg)
+    if cfg.family == "moe":
+        return m.forward(params, cfg, batch["tokens"], last_only=last_only)
+    return m.forward(params, cfg, batch["tokens"], last_only=last_only), {}
 
 
 def init_cache(cfg, batch: int, max_seq: int, dtype=torch.bfloat16, *,

@@ -6,7 +6,8 @@ package's layouts: activations (B, S, d), heads (B, S, H, hd), KV caches
 (B, Smax, KV, hd).  Causal self-attention supports grouped-query heads,
 optional QKV bias and q/k RMSNorm, sliding windows, dense or chunked
 (online-softmax) prefill, and decode steps against a preallocated KV
-cache.  Cross-attention and SwiGLU come with the families that use them.
+cache; the SwiGLU MLP of the dense family.  Cross-attention comes with
+the families that use it.
 
 Computation runs in the parameters' dtype with float32 softmax and
 normalisation accumulators, as the reference does; where JAX promotes two
@@ -19,6 +20,7 @@ from __future__ import annotations
 from typing import Any
 
 import torch
+from torch.nn import functional as F
 
 from .common import PDef
 
@@ -230,6 +232,25 @@ def decode_attention(p, cfg, x, cache_k, cache_v, pos
     pt = torch.promote_types(probs.dtype, cache_v.dtype)
     o = torch.einsum("bgrqk,bkgd->bqgrd", probs.to(pt), cache_v.to(pt))
     return x + o.reshape(B, 1, -1) @ p["wo"], cache_k, cache_v
+
+
+# ---------------------------------------------------------------------------
+# MLP
+# ---------------------------------------------------------------------------
+
+def swiglu_layout(d_model: int, d_ff: int) -> dict[str, Any]:
+    return {
+        "w1": PDef((d_model, d_ff), ("embed", "ffn")),
+        "w3": PDef((d_model, d_ff), ("embed", "ffn")),
+        "w2": PDef((d_ff, d_model), ("ffn", "embed")),
+        "norm": rmsnorm_layout(d_model),
+    }
+
+
+def swiglu(p, x: torch.Tensor) -> torch.Tensor:
+    h = rmsnorm(x, p["norm"])
+    g = F.silu(h @ p["w1"]) * (h @ p["w3"])
+    return x + g @ p["w2"]
 
 
 # ---------------------------------------------------------------------------

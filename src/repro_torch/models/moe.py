@@ -11,25 +11,26 @@ kernel (kernels/csrc/segment_histogram.cu) in every `moe_ffn` call.
 `forward` returns them summed over layers; `prefill` and `decode_step` drop
 them, as the reference does.
 
-The model is a tree of `nn.Module`s (`MoEModel` → `blocks[i]` (`Block`) →
-`attn` (`Attention`), `moe` (`MoEFFN`); `embed`), whose parameter names
-follow the layout's paths with the layer index after `blocks`.  The
-functions below take it where the reference takes its parameter dict:
-`forward(params, cfg, tokens)`, with the same `cfg` or a variant of it.
-`MoEModel.use_kernels` is the dispatch knob of the executor's config of the
-same name: False runs the histogram's plain version on any device.
+The model is a `common.Model` whose parameters are the layout's tree
+(`blocks` stacked on a leading layer axis); `model.blocks[i]` is layer i
+(`Block` → `attn` (`transformer.Attention`), `moe` (`MoEFFN`)), views
+of the stacked tensors.  The functions below take it where the reference
+takes its parameter dict: `forward(params, cfg, tokens)`, with the same
+`cfg` or a variant of it.  `model.use_kernels` is the dispatch knob of the
+executor's config of the same name: False runs the histogram's plain
+version on any device.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
-from torch import nn
 from torch.nn import functional as F
 
 from ..core.moe_shares import MoEDispatchPlan, plan_dispatch, route_tokens
 from ..kernels import ops
 from . import layers as L
-from .common import Layout, ParamTree, PDef, map_layout, stack_layers
+from . import transformer as TF
+from .common import Layout, Model, PDef, TensorView, check_tree, stack_layers
 
 
 def moe_layout(cfg) -> Layout:
@@ -144,89 +145,48 @@ def block_apply(p, cfg, plan, x, positions, *, use_kernels: bool = True
 
 
 # ---------------------------------------------------------------------------
-# Modules
+# The model
 # ---------------------------------------------------------------------------
 
-class Attention(ParamTree):
-    """wq, wk, wv, wo, norm (+ bq, bk, bv / q_norm, k_norm)."""
-
-    def __init__(self, cfg, tensors: dict):
-        super().__init__(tensors)
-        self.cfg = cfg
-
-    def forward(self, x, positions):
-        return L.self_attention(self, self.cfg, x, positions)
-
-
-class MoEFFN(ParamTree):
+class MoEFFN(TensorView):
     """router, w1, w3, w2 (one matrix per slot), norm."""
 
     def __init__(self, cfg, tensors: dict):
         super().__init__(tensors)
         self.cfg = cfg
 
-    def forward(self, x, plan, use_kernels: bool = True):
+    def __call__(self, x, plan, use_kernels: bool = True):
         return moe_ffn(self, self.cfg, plan, x, use_kernels=use_kernels)
 
 
-class Block(ParamTree):
-    def __init__(self, cfg, tensors: dict):
-        super().__init__()
-        self.cfg = cfg
-        self.attn = Attention(cfg, tensors["attn"])
-        self.moe = MoEFFN(cfg, tensors["moe"])
+class Block(TensorView):
+    """One layer: attn, moe."""
 
-    def forward(self, x, positions, plan, use_kernels: bool = True):
+    def __init__(self, cfg, tensors: dict):
+        super().__init__({"attn": TF.Attention(cfg, tensors["attn"]),
+                          "moe": MoEFFN(cfg, tensors["moe"])})
+        self.cfg = cfg
+
+    def __call__(self, x, positions, plan, use_kernels: bool = True):
         return block_apply(self, self.cfg, plan, x, positions,
                            use_kernels=use_kernels)
 
 
-class MoEModel(ParamTree):
-    """embed (tok, final_norm[, unembed]) and blocks[0 .. n_layers)."""
-
-    def __init__(self, cfg, tensors: dict):
-        super().__init__()
-        self.cfg = cfg
-        self.use_kernels = True
-        self.embed = ParamTree(tensors["embed"])
-        stacked = tensors["blocks"]
-        self.blocks = nn.ModuleList(
-            Block(cfg, _map_tree(stacked, lambda t, i=i: t[i]))
-            for i in range(cfg.n_layers))
-
-    def forward(self, tokens, plan=None, last_only: bool = False):
-        return forward(self, self.cfg, tokens, plan, last_only)
-
-
-def _map_tree(tree, fn):
-    if isinstance(tree, torch.Tensor):
-        return fn(tree)
-    return {k: _map_tree(v, fn) for k, v in tree.items()}
-
-
-def build(cfg, tensors: dict) -> MoEModel:
+def build(cfg, tensors: dict) -> Model:
     """The model over a layout-shaped tree of tensors (`blocks` stacked on a
-    leading layer axis, as `init_params` makes it); the layers are views of
+    leading layer axis, as `init_params` makes it); its layers are views of
     the stacked tensors.  Raises on a missing key or a shape that is not the
     layout's."""
-    def check(p: PDef, path):
-        t = tensors
-        for key in path:
-            if key not in t:
-                raise ValueError(f"parameter {'/'.join(path)} missing")
-            t = t[key]
-        if tuple(t.shape) != p.shape:
-            raise ValueError(f"parameter {'/'.join(path)}: shape "
-                             f"{tuple(t.shape)}, layout {p.shape}")
-
-    map_layout(layout(cfg), check)
-    return MoEModel(cfg, tensors)
+    check_tree(layout(cfg), tensors)
+    return Model(cfg, tensors, Block, forward)
 
 
 def forward(params, cfg, tokens: torch.Tensor, plan: MoEDispatchPlan | None = None,
             last_only: bool = False) -> tuple[torch.Tensor, dict]:
     """tokens (B,S) -> (logits (B,S,padded_vocab), or (B,1,·) if last_only;
-    {'aux_loss', 'expert_load' (E,) int32 summed over layers})."""
+    {'aux_loss', 'expert_load' (E,) int32 summed over layers}).  Under
+    `remat="full"` with autograd on, each layer runs again in the backward
+    pass, its `segment_histogram` too."""
     plan = plan or build_plan(cfg)
     B, S = tokens.shape
     dev = tokens.device
@@ -234,9 +194,10 @@ def forward(params, cfg, tokens: torch.Tensor, plan: MoEDispatchPlan | None = No
     x = L.embed(params["embed"], cfg, tokens)
     aux = torch.zeros((), dtype=torch.float32, device=dev)
     loads = torch.zeros(cfg.n_experts, dtype=torch.int32, device=dev)
+    body = TF._remat(lambda x, lp: block_apply(
+        lp, cfg, plan, x, positions, use_kernels=params.use_kernels), cfg.remat)
     for lp in params["blocks"]:
-        x, stats = block_apply(lp, cfg, plan, x, positions,
-                               use_kernels=params.use_kernels)
+        x, stats = body(x, lp)
         aux = aux + stats["aux_loss"]
         loads = loads + stats["expert_load"]
     if last_only:
@@ -251,7 +212,6 @@ def forward(params, cfg, tokens: torch.Tensor, plan: MoEDispatchPlan | None = No
 
 def init_cache(cfg, batch: int, max_seq: int, dtype=torch.bfloat16, *,
                device=None) -> dict:
-    from . import transformer as TF
     return TF.init_cache(cfg, batch, max_seq, dtype, device=device)
 
 
@@ -260,35 +220,13 @@ def decode_step(params, cfg, cache, tokens, pos,
     """tokens (B,1), pos (B,) -> (logits (B,1,V), cache).  Each layer's new
     key and value go into `cache` in place."""
     plan = plan or build_plan(cfg)
-    x = L.embed(params["embed"], cfg, tokens)
-    for i, lp in enumerate(params["blocks"]):
-        x, _, _ = L.decode_attention(lp["attn"], cfg, x, cache["k"][i],
-                                     cache["v"][i], pos)
-        x, _ = moe_ffn(lp["moe"], cfg, plan, x,
-                       use_kernels=params.use_kernels)
-    return L.logits(params["embed"], cfg, x), cache
+    return TF.decode_layers(params, cfg, cache, tokens, pos, lambda lp, x: moe_ffn(
+        lp["moe"], cfg, plan, x, use_kernels=params.use_kernels)[0])
 
 
 def prefill(params, cfg, tokens, cache, plan: MoEDispatchPlan | None = None):
     """Fill `cache[:, :, :S]` in place from a whole prompt (B,S); returns
     (last-position logits (B,1,V), cache)."""
     plan = plan or build_plan(cfg)
-    B, S = tokens.shape
-    positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
-    x = L.embed(params["embed"], cfg, tokens)
-    for i, lp in enumerate(params["blocks"]):
-        ap = lp["attn"]
-        h = L.rmsnorm(x, ap["norm"])
-        q, k, v = L._qkv(ap, cfg, h, positions)
-        cache["k"][i, :, :S] = k.to(cache["k"].dtype)
-        cache["v"][i, :, :S] = v.to(cache["v"].dtype)
-        if cfg.attn_chunk and S > cfg.attn_chunk:
-            o = L._sdpa_chunked(q, k, v, 0, cfg.sliding_window, cfg.attn_chunk)
-        else:
-            o = L._sdpa_dense(q, k, v, L._causal_mask(S, S, 0,
-                                                      cfg.sliding_window,
-                                                      tokens.device))
-        x = x + o.reshape(B, S, -1) @ ap["wo"]
-        x, _ = moe_ffn(lp["moe"], cfg, plan, x,
-                       use_kernels=params.use_kernels)
-    return L.logits(params["embed"], cfg, x[:, -1:]), cache
+    return TF.prefill_layers(params, cfg, tokens, cache, lambda lp, x: moe_ffn(
+        lp["moe"], cfg, plan, x, use_kernels=params.use_kernels)[0])

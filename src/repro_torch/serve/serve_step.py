@@ -1,7 +1,8 @@
 """Serve-step builders: prefill and batched greedy decode on one device.
 
 `build_decode_step` / `build_prefill` return the functions the serving
-engine calls, with the device they run on.  The reference also builds
+engine calls, with the device they run on; they run without autograd, so
+a model a trainer has made trainable serves as a frozen one does.  The reference also builds
 mesh shardings for parameters and caches; on one card there are none.
 """
 from __future__ import annotations
@@ -33,6 +34,7 @@ def build_decode_step(cfg: ArchConfig, batch: int, max_seq: int, *,
     dev = resolve_device(device)
     api.family_module(cfg)
 
+    @torch.no_grad()
     def decode(params, cache, tokens, pos):
         if tuple(cache["k"].shape[1:3]) != (batch, max_seq):
             raise ValueError(f"cache holds {tuple(cache['k'].shape[1:3])} "
@@ -54,6 +56,7 @@ def build_prefill(cfg: ArchConfig, *, device=None) -> ServeFns:
     dev = resolve_device(device)
     api.family_module(cfg)
 
+    @torch.no_grad()
     def prefill_fn(params, batch):
         batch = {k: v.to(dev) for k, v in batch.items()}
         logits, _ = api.forward(params, cfg, batch, last_only=True)

@@ -1213,6 +1213,68 @@ def test_reduced_moe_f32_decode_across_a_window_on_card(dev):
     assert S + 5 >= cfg.sliding_window + 4
 
 
+def test_reduced_moe_train_step_on_card_equals_its_cpu_run(dev):
+    """Three train steps of the float32 reduced mixtral with 8-bit states
+    (remat="full") on the card against the same steps on the CPU: loss,
+    zloss and grad_norm within rtol 1e-4 (the card sums in other orders),
+    lr_scale within 1e-7, expert_load and `step` equal; segment_histogram
+    launched twice a layer a step (the forward and its recompute)."""
+    from repro_torch.optim import AdamWConfig, adamw
+    from repro_torch.train import build_train_step
+    cfg, cpu, card = _f32_mixtral(dev)
+    assert cfg.remat == "full"
+    ocfg = AdamWConfig(lr=1e-2, state_bits=8)
+    rng = np.random.default_rng(3)
+    batch = {k: rng.integers(0, cfg.vocab, (4, 16)).astype(np.int32)
+             for k in ("tokens", "labels")}
+    runs = {}
+    for name, model, device in (("cpu", cpu, "cpu"), ("card", card, dev)):
+        fns = build_train_step(cfg, ocfg, device=device, total_steps=10,
+                               warmup_steps=1)
+        opt = adamw.init(model.tree(), ocfg)
+        ops.reset_launches()
+        ms = []
+        for _ in range(3):
+            model, opt, m = fns.step(model, opt, batch)
+            ms.append({k: v.cpu() for k, v in m.items()})
+        torch.cuda.synchronize()
+        runs[name] = (ms, dict(ops.LAUNCHES), int(opt["step"]))
+    (cpu_ms, cpu_l, cpu_step), (card_ms, card_l, card_step) = (
+        runs["cpu"], runs["card"])
+    assert cpu_l["segment_histogram"] == 0
+    assert card_l["segment_histogram"] == 3 * 2 * cfg.n_layers
+    assert cpu_step == card_step == 3
+    for a, b in zip(card_ms, cpu_ms):
+        for k in ("loss", "zloss", "grad_norm"):
+            assert float(a[k]) == pytest.approx(float(b[k]), rel=1e-4), k
+        assert float(a["lr_scale"]) == pytest.approx(float(b["lr_scale"]),
+                                                     abs=1e-7)
+        _eq(a["expert_load"], b["expert_load"])
+
+
+def test_checkpoint_of_card_tensors_round_trips(dev, tmp_path):
+    """bf16, int8, float32 and a scalar int32 saved from the card restore
+    bit for bit onto the card and onto the CPU."""
+    from repro_torch.ckpt import Checkpointer
+    g = torch.Generator(device=dev).manual_seed(0)
+    tree = {"p": torch.randn(3, 5, generator=g, device=dev).to(torch.bfloat16),
+            "mu": {"m_q": torch.randint(-127, 128, (3, 5), generator=g,
+                                        device=dev).to(torch.int8),
+                   "m_s": torch.rand(3, 1, generator=g, device=dev)},
+            "step": torch.tensor(11, dtype=torch.int32, device=dev)}
+    ck = Checkpointer(str(tmp_path))
+    ck.save(11, tree)
+    ck.wait()
+    abstract = {"p": tree["p"], "mu": tree["mu"], "step": tree["step"]}
+    for device in (dev, "cpu"):
+        got = ck.restore(11, abstract, device)
+        for a, b in ((got["p"], tree["p"]), (got["step"], tree["step"]),
+                     (got["mu"]["m_q"], tree["mu"]["m_q"]),
+                     (got["mu"]["m_s"], tree["mu"]["m_s"])):
+            assert a.device.type == torch.device(device).type
+            assert a.dtype == b.dtype and torch.equal(a.cpu(), b.cpu())
+
+
 def _healing_case(k=32):
     q = two_way()
     data = skewed_join_dataset(q, 2000, 500, skew={"B": 1.2}, seed=52)

@@ -46,7 +46,13 @@ def test_port_imports_with_jax_and_repro_blocked():
         "import repro_torch.serve.serve_step, repro_torch.serve.engine\n"
         "import repro_torch.core.adapt, repro_torch.serve.join_engine\n"
         "import repro_torch.ft, repro_torch.ft.health, repro_torch.ft.chaos\n"
-        "import repro_torch.ft.straggler\n"
+        "import repro_torch.ft.straggler, repro_torch.ft.elastic\n"
+        "import repro_torch.data.pipeline, repro_torch.tree\n"
+        "import repro_torch.optim, repro_torch.optim.adamw\n"
+        "import repro_torch.optim.schedule, repro_torch.optim.grad_compress\n"
+        "import repro_torch.train, repro_torch.train.train_step\n"
+        "import repro_torch.ckpt, repro_torch.ckpt.checkpoint\n"
+        "import repro_torch.launch, repro_torch.launch.train\n"
         "assert not any(m == 'jax' or m.startswith('jax.') or m == 'repro' "
         "or m.startswith('repro.') for m in sys.modules "
         "if sys.modules[m] is not None)\n"
@@ -87,15 +93,20 @@ def test_default_device_is_cuda_and_raises_without_it(monkeypatch):
     assert resolve_device("cpu").type == "cpu"
 
 
-def test_model_and_serving_entry_points_default_to_cuda(monkeypatch):
+def test_model_and_serving_entry_points_default_to_cuda(monkeypatch, tmp_path):
     """init_params, init_model, init_cache, params_from_jax,
-    build_decode_step, build_prefill, ServingEngine, JoinServingEngine and
+    opt_state_from_jax, build_decode_step, build_prefill, ServingEngine,
+    JoinServingEngine, build_train_step, Checkpointer.restore and
     SelfHealingSession (on the device of the executor it is given) raise
     without a card unless given device="cpu"."""
     from repro_torch.configs import ARCHS
     from repro_torch.models import api
     from repro_torch.models.common import init_params
-    from repro_torch.models.convert import params_from_jax
+    from repro_torch.ckpt import Checkpointer
+    from repro_torch.models.convert import opt_state_from_jax, params_from_jax
+    from repro_torch.optim import AdamWConfig, adamw
+    from repro_torch.train import build_train_step
+    from repro_torch.tree import tree_map
     from repro_torch.serve import (JoinServingEngine, SelfHealingSession,
                                    ServingEngine, build_decode_step,
                                    build_prefill)
@@ -112,15 +123,21 @@ def test_model_and_serving_entry_points_default_to_cuda(monkeypatch):
                   "blocks": {part: {k: v.float().numpy()
                                     for k, v in sub.items()}
                              for part, sub in tree["blocks"].items()}}
+    numpy_opt = tree_map(lambda t: t.numpy(), adamw.init(tree, AdamWConfig()))
+    ck = Checkpointer(str(tmp_path))
+    ck.save(1, {"w": torch.ones(2)}, blocking=True)
     calls = [
         lambda **kw: init_params(api.layout(cfg), gen, **kw),
         lambda **kw: api.init_model(cfg, gen, **kw),
         lambda **kw: api.init_cache(cfg, 2, 8, **kw),
         lambda **kw: params_from_jax(numpy_tree, cfg, **kw),
+        lambda **kw: opt_state_from_jax(numpy_opt, cfg, **kw),
         lambda **kw: build_decode_step(cfg, 2, 8, **kw),
         lambda **kw: build_prefill(cfg, **kw),
         lambda **kw: ServingEngine(cfg, 2, 8, model, **kw),
         lambda **kw: JoinServingEngine(8, **kw),
+        lambda **kw: build_train_step(cfg, **kw),
+        lambda **kw: ck.restore(1, {"w": torch.empty(2, device="meta")}, **kw),
         lambda **kw: SelfHealingSession(ShardedJoinExecutor(plan, 8, **kw)),
     ]
     for call in calls:

@@ -153,6 +153,6 @@ def test_decode_builder_is_greedy(carried):
 
 
 def test_unported_family_is_refused(carried):
-    cfg = dataclasses.replace(ARCHS["qwen2-0.5b"].reduced())
+    cfg = dataclasses.replace(ARCHS["mamba2-370m"].reduced())
     with pytest.raises(NotImplementedError, match="ROADMAP item 9"):
         build_decode_step(cfg, 2, 16, device="cpu")
