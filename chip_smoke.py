@@ -170,10 +170,33 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
          `--resume --steps 15`.  The FT lines printed, the loss descends,
          the latest committed step is 15; prints the warm step median and
          the final blocking save's wall time;
- 10. one JSON line each of phases 6, 6e, 8 and 9's numbers, one JSON line
-     of per-kernel results (each with the path its launches were counted
-     on: segment_histogram's is phase 9a's, its phase 7 count beside it as
-     `serve_launches`), then the last line {"ok": true, "device": {...}}.
+ 10. the ssm, hybrid, encdec and vlm families at their published widths,
+     after phase 9 (its memory freed), each through `api.prefill` /
+     `api.decode_step`, a `ServingEngine` and `build_train_step`, bf16
+     weights from a seeded generator on the card, depth cut only where the
+     card cannot hold a step and each cut printed: 10a mamba2-370m at full
+     size (and its duality check: the float32 model's forward on 4 x 512
+     tokens against `decode_step` replayed over them), 10b zamba2-7b
+     (serving at full depth, 81 applications), 10c seamless-m4t-medium
+     at full size (prefill over frames of 4 x 512 x 1,024), 10d
+     llama-3.2-vision-90b cut to one group (4 self-attention blocks and a
+     gated cross-attention block, gate set to 0.5).  Each: its parameter
+     count; the median of 3 prefills of 4 x 2,048 tokens, then 16 decode
+     steps from the prefilled cache; 24 seeded requests on 8 slots (median
+     tick, decode tokens/s); the cold and warm train step and tokens/s on
+     one `TokenPipeline` batch of 4 x 2,048 (stub frontends from the
+     driver's `make_batch`; remat "full", lr 1e-4, warmup 1); the peaks
+     (under 76 GB); a profile of one more warm step (device-busy share,
+     top device operations).  Every logit finite; caches keep their keys,
+     shapes and dtypes through decode; every request completes with its
+     `max_new_tokens`; every loss and grad_norm finite, the last loss
+     below the first; the optimizer's step the steps taken; no custom
+     kernel launched (no TPU kernel lies on this path);
+ 11. one JSON line each of phases 6, 6e, 8, 9 and 10's numbers, one JSON
+     line of per-kernel results (each with the path its launches were
+     counted on: segment_histogram's is phase 9a's, its phase 7 count
+     beside it as `serve_launches`), then the last line {"ok": true,
+     "device": {...}}.
 
 Exits non-zero without printing a result when no CUDA device is present or
 when the repository's `src/repro_torch` is not beside this script.
@@ -329,6 +352,26 @@ TRAIN = dict(arch="mixtral-8x22b", n_layers=1, seed=0, batch=4, seq=2048,
 # (its warmup of 200 steps keeps every step here far below it).
 DRIVER = dict(arch="qwen2-0.5b", batch=8, seq=512, steps=12, fail_at=6,
               ckpt_every=4, resume_steps=15, lr=3e-3)
+# Phase 10: the ssm, hybrid, encdec and vlm families at their published
+# widths (src/repro_torch/configs/).  `layers` cuts a cell's depth (serving
+# and training), `train_layers` the training model's alone; `duality` is
+# the prompt length of 10a's float32 duality check, `duality_tol` its
+# bound on |forward's last logits - the decode replay's|: on the CPU at
+# full width (4 x 512 tokens, weights from torch.Generator seed 0) the two
+# forms differ by at most 7.4e-6, with logits up to 1.46 and the same
+# argmax; the card sums in other orders, so the bound leaves 13x that.
+FAMILIES = (
+    dict(tag="10a", arch="mamba2-370m", state_bits=32, steps=5,
+         duality=512, duality_tol=1e-4),
+    dict(tag="10b", arch="zamba2-7b", state_bits=8, steps=3),
+    dict(tag="10c", arch="seamless-m4t-medium", state_bits=32, steps=3),
+    dict(tag="10d", arch="llama-3.2-vision-90b", layers=5, gate=0.5,
+         state_bits=8, steps=3),
+)
+FAMILY_RUN = dict(seed=0, batch=4, seq=2048, prefill_reps=3,
+                  decode_steps=16, slots=8, max_seq=128, n_requests=24,
+                  prompt_len=(8, 32), new_tokens=(8, 24), lr=1e-4,
+                  warmup=1, peak_gb=76.0)
 # Phase 7c's larger histograms: (values, bins) — kimi-k2's 384 experts
 # (the grid arm), and 2^16 bins (past one block's shared memory: the
 # cluster arm, at 2^22 values on several clusters, at 2^16 on one).
@@ -495,19 +538,22 @@ def out_capacity_from_fragments(frag_l, frag_r, lcols, rcols, quantize):
 
 def profile_calls(fn, label: str, calls: int = 1, top: int = 12,
                   tag: str = "profile", named: tuple[str, ...] = (),
-                  banned: tuple[str, ...] = ()) -> set[str]:
+                  banned: tuple[str, ...] = (),
+                  sink: dict | None = None, cpu: bool = True) -> set[str]:
     """Where `calls` warm calls of `fn` spend device time: torch.profiler's
     per-kernel sums, and the device-busy share of their wall time; then
     every kernel whose name holds one of `named` or `banned`, in the top or
     not.  A trace that holds no device event, or misses a kernel of `named`
     (the profiler can drop events), is taken again, up to three times in
     all.  Returns the names of `named` and `banned` that some kernel's name
-    holds."""
+    holds; `sink` gets the wall, busy ms, busy share and top operations.
+    `cpu=False` traces the device alone: a step of some 10^5 small
+    launches traced with its CPU ops takes minutes to summarise."""
     from torch.profiler import ProfilerActivity, profile
+    activities = [ProfilerActivity.CPU] * cpu + [ProfilerActivity.CUDA]
     for _ in range(3):
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with profile(activities=activities) as prof:
             t0 = time.perf_counter()
             for _ in range(calls):
                 r = fn()
@@ -527,9 +573,15 @@ def profile_calls(fn, label: str, calls: int = 1, top: int = 12,
     print(f"[{tag}] {label}: wall {wall_us / 1e3:.2f} ms, device "
           f"busy {busy_us / 1e3:.2f} ms ({100 * busy_us / wall_us:.1f} %), "
           f"idle share {100 * (1 - busy_us / wall_us):.1f} %")
-    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:top]:
+    ranked = sorted(events, key=lambda e: -e.self_device_time_total)[:top]
+    for e in ranked:
         print(f"[{tag}]   {e.self_device_time_total / 1e3:9.3f} ms "
               f"x{e.count:<4d} {e.key[:90]}")
+    if sink is not None:
+        sink.update(wall_ms=wall_us / 1e3, busy_ms=busy_us / 1e3,
+                    busy_share=busy_us / wall_us,
+                    top=[[e.key[:60], e.self_device_time_total / 1e3]
+                         for e in ranked[:5]])
     found = set()
     for e in events:
         hits = {name for name in named + banned if name in e.key}
@@ -2507,6 +2559,262 @@ def train_driver(dev):
                 losses=l1 + l2, walls_s=[wall1, wall2])
 
 
+def family_cell(dev, spec) -> dict:
+    """Phase 10's cell `spec`: serve (prefill, decode, `ServingEngine`)
+    and train one family at its published widths.  No custom kernel lies
+    on this path: launch counts are zeroed just before and must read 0
+    just after."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.data import PipelineConfig, TokenPipeline
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import frontend_shapes, make_batch
+    from repro_torch.models import api
+    from repro_torch.models.common import count_params
+    from repro_torch.optim import AdamWConfig, adamw
+    from repro_torch.serve import ServingEngine
+    from repro_torch.train import build_train_step
+    from repro_torch.tree import flatten
+
+    R = FAMILY_RUN
+    tag, full = spec["tag"], ARCHS[spec["arch"]]
+    B, S = R["batch"], R["seq"]
+    out = {}
+
+    def model_of(n_layers, dtype=torch.bfloat16):
+        cfg = (full if n_layers is None
+               else dataclasses.replace(full, n_layers=n_layers))
+        model = api.init_model(cfg, torch.Generator(device=dev).manual_seed(
+            R["seed"]), device=dev, dtype=dtype)
+        if "gate" in spec:         # a zero gate hides the cross-attention
+            model.ca_blocks.gate.fill_(spec["gate"])
+        return cfg, model
+
+    def cut(cfg):
+        return ("none" if cfg.n_layers == full.n_layers else
+                f"n_layers {full.n_layers} -> {cfg.n_layers}")
+
+    def layout_of(cache):
+        return {k: None if v is None else (tuple(v.shape), str(v.dtype))
+                for k, v in flatten(cache).items()}
+
+    def finite(t, what):
+        check(bool(torch.isfinite(t[..., :full.vocab]).all()),
+              f"{tag}: {what} logits not finite")
+
+    def peak_gb(what):
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        check(peak < R["peak_gb"], f"{tag}: {what} peak {peak:.2f} GB, "
+              f"past {R['peak_gb']} GB")
+        return peak
+
+    # -- serving --------------------------------------------------------------
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    cfg, model = model_of(spec.get("layers"))
+    torch.cuda.synchronize()
+    n_params = count_params(api.layout(cfg))
+    print(f"[family] {tag} {cfg.name} ({cfg.family}): d_model "
+          f"{cfg.d_model}, {cfg.n_heads} heads, {cfg.n_kv_heads} KV heads, "
+          f"d_ff {cfg.d_ff}, ssm_state {cfg.ssm_state}, ssm_chunk "
+          f"{cfg.ssm_chunk}, vocab {cfg.vocab}; {n_params} bf16 parameters "
+          f"({n_params * 2 / 1e9:.2f} GB) drawn in "
+          f"{time.perf_counter() - t0:.2f} s; serving cut: {cut(cfg)}")
+    out.update(params=n_params, serve_cut=cut(cfg))
+    rng = np.random.default_rng(R["seed"])
+    batch = {"tokens": torch.from_numpy(rng.integers(
+        0, cfg.vocab, (B, S)).astype(np.int32)).to(dev)}
+    for k, shape in frontend_shapes(cfg, B, S).items():
+        batch[k] = torch.from_numpy(rng.standard_normal(
+            shape, dtype=np.float32)).to(dev).to(torch.bfloat16)
+    max_seq = S + R["decode_steps"]
+    prefill_s = []
+    with torch.no_grad():
+        for _ in range(R["prefill_reps"]):
+            cache = api.init_cache(cfg, B, max_seq, device=dev)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            lg, cache = api.prefill(model, cfg, batch, cache)
+            torch.cuda.synchronize()
+            prefill_s.append(time.perf_counter() - t0)
+        check(lg.shape == (B, 1, cfg.padded_vocab()),
+              f"{tag}: prefill logits {tuple(lg.shape)}")
+        finite(lg, "prefill")
+        before = layout_of(cache)
+        nxt = lg[:, -1].argmax(-1).to(torch.int32)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for t in range(R["decode_steps"]):
+            pos = torch.full((B,), S + t, dtype=torch.int32, device=dev)
+            lg, cache = api.decode_step(model, cfg, cache,
+                                        {"tokens": nxt[:, None]}, pos)
+            finite(lg, f"decode step {t}")
+            nxt = lg[:, -1].argmax(-1).to(torch.int32)
+        torch.cuda.synchronize()
+        t_decode = (time.perf_counter() - t0) / R["decode_steps"]
+    check(layout_of(cache) == before,
+          f"{tag}: the cache changed keys, shapes or dtypes in decode")
+    t_prefill = float(np.median(prefill_s))
+    print(f"[family] {tag} prefill of {B} x {S} tokens"
+          f"{' over frames ' + str(tuple(batch['frames'].shape)) if 'frames' in batch else ''}"
+          f": median {t_prefill * 1e3:.1f} ms of "
+          f"{', '.join(f'{t * 1e3:.1f}' for t in prefill_s)} "
+          f"({B * S / t_prefill:.0f} tokens/s); then {R['decode_steps']} "
+          f"decode steps from its cache, {t_decode * 1e3:.2f} ms a step; "
+          f"logits finite, the cache's layout kept")
+    out.update(prefill_ms=[t * 1e3 for t in prefill_s],
+               prefill_median_ms=t_prefill * 1e3,
+               decode_step_ms=t_decode * 1e3)
+    del cache, lg
+
+    lens = rng.integers(R["prompt_len"][0], R["prompt_len"][1] + 1,
+                        R["n_requests"])
+    news = rng.integers(R["new_tokens"][0], R["new_tokens"][1] + 1,
+                        R["n_requests"])
+    requests = [(rng.integers(0, cfg.vocab, n).tolist(), int(m))
+                for n, m in zip(lens, news)]
+    eng = ServingEngine(cfg, R["slots"], R["max_seq"], model, device=dev)
+    want = layout_of(api.init_cache(cfg, R["slots"], R["max_seq"],
+                                    device="meta"))
+    reqs = [eng.submit(p, m) for p, m in requests]
+    tick_s = []
+    tick = eng._tick
+
+    def timed_tick():
+        t = time.perf_counter()
+        tick()                       # ends in the next tokens' copy to host
+        tick_s.append(time.perf_counter() - t)
+
+    eng._tick = timed_tick
+    t0 = time.perf_counter()
+    eng.run()
+    t_run = time.perf_counter() - t0
+    check(all(r.done and len(r.out) == m for r, (_, m) in zip(reqs, requests)),
+          f"{tag}: a request did not complete with its max_new_tokens")
+    check(eng.tokens_out == sum(news), f"{tag}: tokens_out {eng.tokens_out}")
+    check(layout_of(eng.cache) == want,
+          f"{tag}: the engine's cache left init_cache's layout")
+    tick_ms = float(np.median(tick_s)) * 1e3
+    serve_peak = peak_gb("serving")
+    print(f"[family] {tag} serving: {len(reqs)} requests (prompts "
+          f"{int(lens.min())}-{int(lens.max())}, new tokens "
+          f"{int(news.min())}-{int(news.max())}) on {R['slots']} slots, "
+          f"max_seq {R['max_seq']}: all complete, tokens_out "
+          f"{eng.tokens_out}; {eng.ticks} ticks, median tick {tick_ms:.2f} "
+          f"ms (p90 {np.percentile(tick_s, 90) * 1e3:.2f}); run "
+          f"{t_run:.2f} s, {eng.tokens_out / t_run:.1f} decode tokens/s; "
+          f"peak allocated (measured) {serve_peak:.2f} GB")
+    out.update(ticks=eng.ticks, tick_median_ms=tick_ms,
+               decode_tokens_per_s=eng.tokens_out / t_run,
+               serve_peak_gb=serve_peak)
+    # The timed tick closes over the engine's bound method: a cycle.
+    del eng, reqs, tick, timed_tick, model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    if "duality" in spec:
+        # The float32 model: its forward's last logits against decode_step
+        # replayed over the same tokens from a zeroed cache (two chunks of
+        # 256 and more, so the carried state is used).
+        n = spec["duality"]
+        cfg32, model32 = model_of(spec.get("layers"), torch.float32)
+        toks = torch.from_numpy(rng.integers(0, cfg.vocab, (B, n)).astype(
+            np.int32)).to(dev)
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            lf, _ = api.forward(model32, cfg32, {"tokens": toks},
+                                last_only=True)
+            cache = api.init_cache(cfg32, B, n, torch.float32, device=dev)
+            for t in range(n):
+                ld, cache = api.decode_step(
+                    model32, cfg32, cache, {"tokens": toks[:, t:t + 1]},
+                    torch.full((B,), t, dtype=torch.int32, device=dev))
+        torch.cuda.synchronize()
+        err = float((lf - ld)[..., :cfg.vocab].abs().max())
+        scale = float(lf[..., :cfg.vocab].abs().max())
+        same = bool(torch.equal(lf.argmax(-1), ld.argmax(-1)))
+        check(err <= spec["duality_tol"],
+              f"{tag}: duality |forward - decode replay| {err:.3g} past "
+              f"{spec['duality_tol']:.3g}")
+        print(f"[family] {tag} duality (float32, full width, {B} x {n} "
+              f"tokens, chunk {cfg32.ssm_chunk}): max |forward's last logits"
+              f" - decode replay's| {err:.3g} (tolerance "
+              f"{spec['duality_tol']:.3g}; logits up to {scale:.3g}), same "
+              f"argmax {same}, {time.perf_counter() - t0:.1f} s")
+        out.update(duality_max_abs_err=err, duality_logit_scale=scale)
+        del model32, cache, lf, ld
+        torch.cuda.empty_cache()
+
+    # -- training -------------------------------------------------------------
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cfg, model = model_of(spec.get("train_layers", spec.get("layers")))
+    n_train = count_params(api.layout(cfg))
+    ocfg = AdamWConfig(lr=R["lr"], state_bits=spec["state_bits"])
+    opt = adamw.init(model.tree(), ocfg)
+    steps = spec["steps"]
+    fns = build_train_step(cfg, ocfg, total_steps=steps,
+                           warmup_steps=R["warmup"], device=dev)
+    pipe = TokenPipeline(PipelineConfig(cfg.vocab, S, B, seed=R["seed"]))
+    batch = make_batch(cfg, pipe, 0, np.random.default_rng(R["seed"]), dev)
+    step_s, metrics = [], []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        model, opt, m = fns.step(model, opt, batch)
+        m = {k: v.detach().cpu() for k, v in m.items()}
+        step_s.append(time.perf_counter() - t)
+        metrics.append(m)
+    train_peak = peak_gb("train step")
+    losses = [float(m["loss"]) for m in metrics]
+    norms = [float(m["grad_norm"]) for m in metrics]
+    check(all(np.isfinite(losses + norms)),
+          f"{tag}: losses {losses} / grad_norm {norms} not finite")
+    check(losses[-1] < losses[0], f"{tag}: the loss did not descend: "
+          f"{losses}")
+    check(int(opt["step"]) == steps, f"{tag}: opt step {int(opt['step'])}")
+    warm = float(np.median(step_s[1:]))
+    print(f"[family] {tag} training ({n_train} parameters, "
+          f"{spec['state_bits']}-bit AdamW states, remat {cfg.remat!r}; "
+          f"cut: {cut(cfg)}): losses {', '.join(f'{v:.4f}' for v in losses)}"
+          f"; grad_norm {', '.join(f'{v:.4f}' for v in norms)}; steps "
+          f"{', '.join(f'{t * 1e3:.1f}' for t in step_s)} ms: cold first "
+          f"{step_s[0] * 1e3:.1f} ms, warm median {warm * 1e3:.1f} ms, "
+          f"{B * S / warm:.0f} tokens/s; opt step {steps}; peak allocated "
+          f"(measured) {train_peak:.2f} GB")
+    prof = {}
+    t0 = time.perf_counter()
+    profile_calls(lambda: fns.step(model, opt, batch),
+                  f"{tag} one warm train step ({B} x {S} tokens)", 1, top=8,
+                  tag="family", sink=prof, cpu=False)
+    print(f"[family] {tag} the profiled step and its summary took "
+          f"{time.perf_counter() - t0:.1f} s")
+    launches = {k: v for k, v in ops.LAUNCHES.items() if v}
+    check(not launches, f"{tag}: custom kernels launched: {launches}")
+    out.update(train_params=n_train, train_cut=cut(cfg), losses=losses,
+               grad_norms=norms, step_ms=[t * 1e3 for t in step_s],
+               warm_step_ms=warm * 1e3, train_tokens_per_s=B * S / warm,
+               train_peak_gb=train_peak, warm_step_profile=prof)
+    del model, opt, fns, batch, metrics
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def lm_families(dev) -> dict:
+    """Phase 10: every cell of FAMILIES, one after another."""
+    out = {}
+    for spec in FAMILIES:
+        t0 = time.perf_counter()
+        out[spec["arch"]] = family_cell(dev, spec)
+        out[spec["arch"]]["wall_s"] = time.perf_counter() - t0
+        print(f"[family] {spec['tag']} took "
+              f"{out[spec['arch']]['wall_s']:.1f} s")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2580,6 +2888,13 @@ def main() -> int:
     path_launches[MOE_TRAIN] = train["launches"]
     driver = train_driver(dev)
     print(f"[train] phase 9 took {time.perf_counter() - t9:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[family] training phases freed: "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB still allocated")
+    t10 = time.perf_counter()
+    families = lm_families(dev)
+    print(f"[family] phase 10 took {time.perf_counter() - t10:.1f} s")
     t_end = time.perf_counter()
 
     kernels = []
@@ -2592,13 +2907,14 @@ def main() -> int:
         if path == MOE_TRAIN:
             kernels[-1]["serve_launches"] = serve["launches"][name]
     check(all(kn["launches"] > 0 for kn in kernels), "a kernel never launched")
-    print(f"[done] all phases passed in {t_end - t_start:.1f} s (phases 7 "
-          f"and 9 {t_end - t7:.1f} s)")
+    print(f"[done] all phases passed in {t_end - t_start:.1f} s (phases 7, "
+          f"9 and 10 {t_end - t7:.1f} s)")
     print(json.dumps({"self_healing": healing}))
     print(json.dumps({"adaptation": adapt}))
     print(json.dumps({"join_serving": serving}))
     print(json.dumps({"training": {"moe_train": {
         k: v for k, v in train.items() if k != "launches"}, "driver": driver}}))
+    print(json.dumps({"lm_families": families}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

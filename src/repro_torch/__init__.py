@@ -14,8 +14,8 @@ Layout mirrors the JAX package module for module:
             reference leaves to XLA: CUDA sources in `csrc/`, their
             plain PyTorch versions beside each wrapper, the dispatch and
             launch counts in `ops.py` and the build in `_build.py`
-  models/   the dense and MoE transformers (qwen2/qwen3/..., mixtral-8x22b,
-            kimi-k2) and their layers
+  models/   the six model families (dense, MoE, SSM, hybrid, enc-dec,
+            VLM) of the ten registered architectures, and their layers
   serve/    serve steps and the continuous-batching `ServingEngine`
   optim/    AdamW (float32 or 8-bit states), the LR schedule, gradient
             compression

@@ -278,14 +278,15 @@ def _check_placement_compat(placement: CellPlacement, k: int, n_dev: int
 
 def resolve_device(device=None) -> torch.device:
     """The device of the port's entry points (executor, models, serving):
-    the card unless the caller asks for the CPU.  Raises when the card is
-    asked for (the default) and absent."""
+    the card unless the caller asks for the CPU ("meta" gives shapes and
+    dtypes alone, as `serve_step.cache_shapes` asks of `init_cache`).
+    Raises when the card is asked for (the default) and absent."""
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise ExecutorError(
             "no CUDA device: the port runs on the GPU by default; pass "
             "device='cpu' to run the kernels' plain versions on the CPU")
-    if dev.type not in ("cuda", "cpu"):
+    if dev.type not in ("cuda", "cpu", "meta"):
         raise ExecutorError(f"unsupported device {dev}")
     return dev
 

@@ -38,10 +38,28 @@ from ..optim import AdamWConfig, adamw
 from ..train import build_train_step
 
 
-def make_batch(pipe, step, device) -> dict:
+def frontend_shapes(cfg, batch: int, seq: int) -> dict:
+    """The stub frontends' inputs of the family (bf16), by key: encdec's
+    `frames`, vlm's `vision_emb`."""
+    if cfg.family == "encdec":
+        return {"frames": (batch, max(seq // cfg.enc_ratio, 1), cfg.d_model)}
+    if cfg.family == "vlm":
+        return {"vision_emb": (batch, cfg.vision_tokens, cfg.vision_dim)}
+    return {}
+
+
+def make_batch(cfg, pipe, step, rng, device) -> dict:
+    """The pipeline's tokens and labels at `step`, and the stub frontends'
+    inputs drawn from `rng` (one generator for the whole run, as the
+    reference's: `standard_normal` in float32, then bf16 on the device)."""
     data = pipe.global_batch_at(step)
-    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
-            for k, v in data.items()}
+    out = {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
+           for k, v in data.items()}
+    c = pipe.cfg
+    for k, shape in frontend_shapes(cfg, c.global_batch, c.seq_len).items():
+        out[k] = torch.from_numpy(rng.standard_normal(
+            shape, dtype=np.float32)).to(device).to(torch.bfloat16)
+    return out
 
 
 def main(argv: list[str] | None = None) -> None:
@@ -82,6 +100,7 @@ def main(argv: list[str] | None = None) -> None:
 
     ckptr = Checkpointer(args.ckpt_dir)
     pipe = TokenPipeline(PipelineConfig(cfg.vocab, args.seq, args.batch))
+    rng = np.random.default_rng(0)
     watchdog = StragglerWatchdog(n_nodes=mesh.size)
     health = HealthMonitor(n_nodes=mesh.size)
 
@@ -121,7 +140,7 @@ def main(argv: list[str] | None = None) -> None:
             args.fail_at_step = None
 
         t0 = time.time()
-        batch = make_batch(pipe, step, dev)
+        batch = make_batch(cfg, pipe, step, rng, dev)
         model, opt, metrics = fns.step(model, opt, batch)
         loss = float(metrics["loss"])
         dt = time.time() - t0

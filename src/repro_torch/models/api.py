@@ -1,15 +1,15 @@
-"""Model API over the ported families ("dense" and "moe").
+"""Unified model API over all families.
 
-Every entry point takes a `batch` dict, as the reference's does
-(`batch["tokens"]` (B, S) int32, `batch["labels"]` in training), so
-train and serve code never branch on family:
+Every entry point takes a `batch` dict, as the reference's does, so train
+and serve code never branch on family:
 
-  forward(...) -> (logits, aux) with aux = {} (dense) or the MoE stats
-  (aux_loss enters the training loss; expert_load feeds the SkewShares
-  re-planner).
+  batch["tokens"]      (B, S) int32           — all families
+  batch["labels"]      (B, S) int32           — training
+  batch["frames"]      (B, S_enc, d) bf16     — encdec (stub frontend)
+  batch["vision_emb"]  (B, T_vis, d_vis) bf16 — vlm   (stub frontend)
 
-The ssm, hybrid, encdec and vlm families are still to be ported (ROADMAP
-item 9): asking for one raises NotImplementedError.
+forward(...) -> (logits, aux) where aux = {} or MoE stats (aux_loss enters the
+training loss; expert_load feeds the SkewShares re-planner).
 """
 from __future__ import annotations
 
@@ -18,19 +18,20 @@ from typing import Any
 import torch
 
 from .common import Layout, init_params
-from . import moe, transformer
+from . import encdec, hybrid, moe, ssm, transformer, vlm
 
-_FAMILIES = {"dense": transformer, "moe": moe}
+_FAMILIES = {
+    "dense": transformer,
+    "moe": moe,
+    "ssm": ssm,
+    "hybrid": hybrid,
+    "encdec": encdec,
+    "vlm": vlm,
+}
 
 
 def family_module(cfg):
-    try:
-        return _FAMILIES[cfg.family]
-    except KeyError:
-        raise NotImplementedError(
-            f"model family {cfg.family!r} ({cfg.name}) is not ported yet "
-            f"(ROADMAP item 9); ported: {sorted(_FAMILIES)}; still to port: "
-            f"['encdec', 'hybrid', 'ssm', 'vlm']") from None
+    return _FAMILIES[cfg.family]
 
 
 def layout(cfg) -> Layout:
@@ -50,12 +51,22 @@ def init_model(cfg, generator: torch.Generator, *, device=None,
                                   dtype=dtype))
 
 
+def _frontend(cfg, batch: dict) -> tuple:
+    """The stub frontend's input of the family, if it takes one."""
+    if cfg.family == "encdec":
+        return (batch["frames"],)
+    if cfg.family == "vlm":
+        return (batch["vision_emb"],)
+    return ()
+
+
 def forward(params, cfg, batch: dict, last_only: bool = False
             ) -> tuple[torch.Tensor, dict[str, Any]]:
     m = family_module(cfg)
     if cfg.family == "moe":
         return m.forward(params, cfg, batch["tokens"], last_only=last_only)
-    return m.forward(params, cfg, batch["tokens"], last_only=last_only), {}
+    return m.forward(params, cfg, batch["tokens"], *_frontend(cfg, batch),
+                     last_only=last_only), {}
 
 
 def init_cache(cfg, batch: int, max_seq: int, dtype=torch.bfloat16, *,
@@ -70,4 +81,5 @@ def decode_step(params, cfg, cache, batch: dict, pos):
 
 
 def prefill(params, cfg, batch: dict, cache):
-    return family_module(cfg).prefill(params, cfg, batch["tokens"], cache)
+    return family_module(cfg).prefill(params, cfg, batch["tokens"],
+                                      *_frontend(cfg, batch), cache)

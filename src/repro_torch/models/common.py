@@ -7,13 +7,18 @@ over from the reference package (`models/convert.py`).  The logical axis
 names are kept as the reference package writes them; on one device they
 shard nothing.
 
-A `Model` holds the layout-shaped tree itself: `blocks` keeps every leaf
-stacked on a leading layer axis, as the reference's scanned parameters,
-and `model.tree()` is that tree (what the optimizer and the checkpoint
+A `Model` holds the layout-shaped tree itself: each stack that
+`stack_layers` made (`blocks`; `mamba_blocks` and `tail_blocks`;
+`enc_blocks` and `dec_blocks`; ...) keeps every leaf stacked on a leading
+layer axis, as the reference's scanned parameters, and `model.tree()` is
+that tree, the layout's own paths (what the optimizer and the checkpoint
 walk).  `model.blocks[i]` is layer i, views of the stacked leaves; with
 `requires_grad` on, a layer's gradient is added into its slice of the
 stacked leaf's `.grad` as soon as it is computed (`take_layer`), so
-training holds one gradient the size of the parameters.
+training holds one gradient the size of the parameters.  Unstacked
+subtrees (zamba2's shared block, the encoder's final norm, the vision
+projection) are plain parameters: a block applied several times gathers
+its gradient from every application through autograd.
 """
 from __future__ import annotations
 
@@ -121,10 +126,12 @@ def _into_slice(t: torch.Tensor, i: int, layer: torch.Tensor) -> None:
 
 
 class LayerStack(ParamTree):
-    """The layout's `blocks`: every leaf stacked on a leading layer axis and
-    registered under its layout path (`blocks.attn.wq`).  `stack[i]` is
-    layer i, `view` over the slices (the family's `Block`); iterating
-    walks the layers in order; `stack["attn"]` is a stacked subtree."""
+    """A stack of the layout (`blocks`, ...): every leaf stacked on a
+    leading layer axis and registered under its layout path
+    (`blocks.attn.wq`).  `stack[i]` is layer i, `view` over the slices (the
+    family's `Block`); iterating walks the layers in order; `stack["attn"]`
+    is a stacked subtree.  A stack may hold no layer (the reduced configs
+    make such stacks)."""
 
     def __init__(self, tensors: dict, view: Callable[[dict], Any]):
         super().__init__(tensors)
@@ -147,21 +154,43 @@ class LayerStack(ParamTree):
 
 
 class Model(ParamTree):
-    """embed (tok, final_norm[, unembed]) and blocks (a `LayerStack`) of
-    one family.  `forward` is the family's (`fn(model, cfg, tokens,
-    **kw)`); `use_kernels` is the dispatch knob of the executor's config
-    of that name (False runs every kernel's plain version)."""
+    """One family's model over a layout's tree: each top-level key of the
+    layout is a `LayerStack` where `stack_layers` made it (every leaf's
+    first axis is "layers"), else a `ParamTree`, or a parameter where the
+    layout has a leaf at the top.  `views` gives a stack's layer view by
+    key (`TensorView` by default; the dense and MoE families' `Block`);
+    `forward` is the family's (`fn(model, cfg, tokens, **kw)`);
+    `use_kernels` is the dispatch knob of the executor's config of that
+    name (False runs every kernel's plain version).  Raises on a leaf of
+    the layout missing from `tensors` or of another shape."""
 
-    def __init__(self, cfg, tensors: dict, block: Callable, forward: Callable):
+    def __init__(self, cfg, layout: Layout, tensors: dict, forward: Callable,
+                 views: dict[str, Callable[[dict], Any]] | None = None):
+        check_tree(layout, tensors)
         super().__init__()
         self.cfg = cfg
         self.use_kernels = True
         self._forward = forward
-        self.embed = ParamTree(tensors["embed"])
-        self.blocks = LayerStack(tensors["blocks"], lambda t: block(cfg, t))
+        views = views or {}
+        for key, lay in layout.items():
+            if isinstance(lay, PDef):
+                self.register_parameter(
+                    key, nn.Parameter(tensors[key], requires_grad=False))
+            elif _stacked(lay):
+                self.add_module(key, LayerStack(
+                    tensors[key], views.get(key, TensorView)))
+            else:
+                self.add_module(key, ParamTree(tensors[key]))
 
     def forward(self, tokens, **kw):
         return self._forward(self, self.cfg, tokens, **kw)
+
+
+def _stacked(layout: Layout) -> bool:
+    """Whether `stack_layers` made this subtree."""
+    axes = []
+    map_layout(layout, lambda p, _: axes.append(p.axes[:1]))
+    return all(a == ("layers",) for a in axes)
 
 
 def check_tree(layout: Layout, tensors: dict) -> None:

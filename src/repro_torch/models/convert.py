@@ -1,8 +1,8 @@
 """Carry the reference package's parameters and AdamW states over to the port.
 
 `params_from_jax(tree, cfg)` takes the JAX parameter pytree as numpy arrays
-(`jax.device_get(params)`; `"blocks"` stacked on a leading layer axis) and
-returns the port's model with the same values.  `opt_state_from_jax(state,
+(`jax.device_get(params)`; each stack on a leading layer axis) and returns
+the port's model with the same values, walking the layout's paths.  `opt_state_from_jax(state,
 cfg)` does the same for an AdamW state tree (`optim/adamw.py`'s layout:
 {"mu": per-parameter {"m", "v"} or {"m_q", "m_s", "v_q", "v_s"}, "step"}).
 bf16 leaves arrive as `ml_dtypes.bfloat16` arrays, which `torch.from_numpy`

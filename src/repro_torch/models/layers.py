@@ -6,8 +6,9 @@ package's layouts: activations (B, S, d), heads (B, S, H, hd), KV caches
 (B, Smax, KV, hd).  Causal self-attention supports grouped-query heads,
 optional QKV bias and q/k RMSNorm, sliding windows, dense or chunked
 (online-softmax) prefill, and decode steps against a preallocated KV
-cache; the SwiGLU MLP of the dense family.  Cross-attention comes with
-the families that use it.
+cache (with the ring buffer of the hybrid family's windowed cache);
+bidirectional attention (the encoder's) and cross-attention (enc-dec and
+VLM image layers); the SwiGLU MLP.
 
 Computation runs in the parameters' dtype with float32 softmax and
 normalisation accumulators, as the reference does; where JAX promotes two
@@ -141,14 +142,15 @@ def _sdpa_dense(q, k, v, mask) -> torch.Tensor:
     return o.reshape(B, Sq, H, hd)
 
 
-def _sdpa_chunked(q, k, v, q_offset, window: int, chunk: int
-                  ) -> torch.Tensor:
-    """Flash-style causal online softmax over KV chunks, O(S·chunk) memory.
+def _sdpa_chunked(q, k, v, q_offset, window: int, chunk: int,
+                  causal: bool = True) -> torch.Tensor:
+    """Flash-style online softmax over KV chunks, O(S·chunk) memory.
 
     q:(B,Sq,H,hd); k,v:(B,Skv,KV,hd) — grouped-query, no KV expansion;
-    causal, with an optional sliding window.  (The reference's
-    bidirectional arm, `causal=False`, serves cross-attention, which is not
-    ported.)
+    causal with an optional sliding window, or bidirectional
+    (`causal=False`: the encoder's self-attention and cross-attention),
+    which masks nothing: the reference masks only the pads of its last
+    chunk, and here the last chunk is short instead.
     A row with no visible key in the chunks so far carries exp(0) = 1 for
     its masked logits, as the reference's scan does; the first visible key
     scales that away (corr = exp(NEG_INF - m) = 0).
@@ -172,10 +174,11 @@ def _sdpa_chunked(q, k, v, q_offset, window: int, chunk: int
         kpos = ci * chunk + torch.arange(kb.shape[1], device=dev)
         logits = torch.einsum("bqgrd,bkgd->bgrqk", qg, kb).float()
         logits = logits / (hd ** 0.5)
-        ok = kpos[None, :] <= qpos[:, None]
-        if window:
-            ok &= kpos[None, :] > qpos[:, None] - window
-        logits = torch.where(ok[None, None, None], logits, NEG_INF)
+        if causal:
+            ok = kpos[None, :] <= qpos[:, None]
+            if window:
+                ok &= kpos[None, :] > qpos[:, None] - window
+            logits = torch.where(ok[None, None, None], logits, NEG_INF)
         m_new = torch.maximum(m, logits.amax(dim=-1))
         p = torch.exp(logits - m_new[..., None])
         corr = torch.exp(m - m_new)
@@ -201,27 +204,32 @@ def self_attention(p, cfg, x, positions) -> torch.Tensor:
     return x + o @ p["wo"]
 
 
-def decode_attention(p, cfg, x, cache_k, cache_v, pos
-                     ) -> tuple[torch.Tensor, ...]:
-    """One-token decode: x (B,1,d); cache (B,Smax,kv,hd); pos (B,) int32,
-    the absolute position (RoPE) and the cache slot.  The new key and value
+def decode_attention(p, cfg, x, cache_k, cache_v, pos, write_pos=None,
+                     kv_valid=None) -> tuple[torch.Tensor, ...]:
+    """One-token decode: x (B,1,d); cache (B,Smax,kv,hd); pos (B,) int32.
+
+    `pos` is the absolute position (RoPE); `write_pos` the cache slot
+    (default `pos`; ring buffers pass pos % window); `kv_valid` (B,Smax)
+    overrides the causal slot mask for ring buffers.  The new key and value
     are written into the caches in place (cast to the caches' dtype);
-    returns (y, cache_k, cache_v).  (The reference's ring-buffer arguments,
-    `write_pos` and `kv_valid`, serve the hybrid family, which is not
-    ported.)
+    returns (y, cache_k, cache_v).
     """
     B = x.shape[0]
     hd = cfg.hd()
+    if write_pos is None:
+        write_pos = pos
     h = rmsnorm(x, p["norm"])
     q, k, v = _qkv(p, cfg, h, pos[:, None])
     bidx = torch.arange(B, device=x.device)
-    cache_k[bidx, pos.long()] = k[:, 0].to(cache_k.dtype)
-    cache_v[bidx, pos.long()] = v[:, 0].to(cache_v.dtype)
-    Smax = cache_k.shape[1]
-    kpos = torch.arange(Smax, device=x.device)[None, :]
-    ok = kpos <= pos[:, None]
-    if cfg.sliding_window:
-        ok &= kpos > (pos[:, None] - cfg.sliding_window)
+    cache_k[bidx, write_pos.long()] = k[:, 0].to(cache_k.dtype)
+    cache_v[bidx, write_pos.long()] = v[:, 0].to(cache_v.dtype)
+    if kv_valid is None:
+        kpos = torch.arange(cache_k.shape[1], device=x.device)[None, :]
+        ok = kpos <= pos[:, None]
+        if cfg.sliding_window:
+            ok &= kpos > (pos[:, None] - cfg.sliding_window)
+    else:
+        ok = kv_valid
     # JAX promotes an f32 query against a bf16 cache to f32; so does this.
     ct = torch.promote_types(q.dtype, cache_k.dtype)
     qg = _group_q(q, cfg.n_kv_heads)                   # (B,1,kv,rep,hd)
@@ -232,6 +240,43 @@ def decode_attention(p, cfg, x, cache_k, cache_v, pos
     pt = torch.promote_types(probs.dtype, cache_v.dtype)
     o = torch.einsum("bgrqk,bkgd->bqgrd", probs.to(pt), cache_v.to(pt))
     return x + o.reshape(B, 1, -1) @ p["wo"], cache_k, cache_v
+
+
+# ---------------------------------------------------------------------------
+# Cross-attention (enc-dec, VLM image layers)
+# ---------------------------------------------------------------------------
+
+def cross_attention_layout(cfg) -> dict[str, Any]:
+    lay = attention_layout(cfg)
+    for key in ("bq", "bk", "bv"):
+        lay.pop(key, None)
+    return lay
+
+
+def cross_attention(p, cfg, x, kv_src) -> torch.Tensor:
+    """x: (B,Sq,d) queries; kv_src: (B,Skv,d) encoder/vision states (no
+    RoPE).  The KV side is chunked (bidirectional online softmax) when
+    Sq·Skv passes attn_chunk², in chunks of min(attn_chunk, Skv)."""
+    B, Sq, _ = x.shape
+    Skv = kv_src.shape[1]
+    hd = cfg.hd()
+    h = rmsnorm(x, p["norm"])
+    q = (h @ p["wq"]).reshape(B, Sq, cfg.n_heads, hd)
+    # JAX promotes a bf16 source (a serving cache) against f32 weights to
+    # f32; so does this.
+    ct = torch.promote_types(kv_src.dtype, p["wk"].dtype)
+    kv_src = kv_src.to(ct)
+    k = (kv_src @ p["wk"].to(ct)).reshape(B, Skv, cfg.n_kv_heads, hd)
+    v = (kv_src @ p["wv"].to(ct)).reshape(B, Skv, cfg.n_kv_heads, hd)
+    if cfg.qk_norm:
+        q, k = rmsnorm(q, p["q_norm"]), rmsnorm(k, p["k_norm"])
+    if cfg.attn_chunk and Sq * Skv > cfg.attn_chunk ** 2:
+        o = _sdpa_chunked(q, k, v, 0, 0, min(cfg.attn_chunk, Skv),
+                          causal=False)
+    else:
+        o = _sdpa_dense(q, k, v, torch.zeros((Sq, Skv), dtype=torch.float32,
+                                             device=x.device))
+    return x + o.reshape(B, Sq, -1) @ p["wo"]
 
 
 # ---------------------------------------------------------------------------

@@ -22,6 +22,8 @@ version on any device.
 """
 from __future__ import annotations
 
+from functools import partial
+
 import numpy as np
 import torch
 from torch.nn import functional as F
@@ -30,7 +32,7 @@ from ..core.moe_shares import MoEDispatchPlan, plan_dispatch, route_tokens
 from ..kernels import ops
 from . import layers as L
 from . import transformer as TF
-from .common import Layout, Model, PDef, TensorView, check_tree, stack_layers
+from .common import Layout, Model, PDef, TensorView, stack_layers
 
 
 def moe_layout(cfg) -> Layout:
@@ -177,8 +179,8 @@ def build(cfg, tensors: dict) -> Model:
     leading layer axis, as `init_params` makes it); its layers are views of
     the stacked tensors.  Raises on a missing key or a shape that is not the
     layout's."""
-    check_tree(layout(cfg), tensors)
-    return Model(cfg, tensors, Block, forward)
+    return Model(cfg, layout(cfg), tensors, forward,
+                 {"blocks": partial(Block, cfg)})
 
 
 def forward(params, cfg, tokens: torch.Tensor, plan: MoEDispatchPlan | None = None,

@@ -9,6 +9,7 @@ at one layer's footprint, as the reference's `jax.checkpoint` does.
 """
 from __future__ import annotations
 
+from functools import partial
 from typing import Callable
 
 import torch
@@ -16,7 +17,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..core.executor import resolve_device
 from . import layers as L
-from .common import Layout, Model, TensorView, check_tree, stack_layers
+from .common import Layout, Model, TensorView, stack_layers
 
 
 def block_layout(cfg) -> Layout:
@@ -79,8 +80,8 @@ def build(cfg, tensors: dict) -> Model:
     """The model over a layout-shaped tree of tensors (`blocks` stacked on a
     leading layer axis, as `init_params` makes it).  Raises on a missing
     key or a shape that is not the layout's."""
-    check_tree(layout(cfg), tensors)
-    return Model(cfg, tensors, Block, forward)
+    return Model(cfg, layout(cfg), tensors, forward,
+                 {"blocks": partial(Block, cfg)})
 
 
 def forward(params, cfg, tokens: torch.Tensor, last_only: bool = False

@@ -104,14 +104,26 @@ class ServingEngine:
                 break
 
     def _reset_slot(self, i: int) -> None:
-        """Zero slot i's state in place (KV rows are masked by position;
-        the reference zeroes them all the same).  Convention: batch axis is
-        1 for rank≥3 cache leaves ((L,B,...) stacked), 0 for rank≤2."""
-        for a in self.cache.values():
-            if a.dim() >= 3:
-                a[:, i] = 0
-            elif a.dim() >= 1:
+        """Zero slot i's state in place, through the whole (nested) cache
+        (KV rows are masked by position, but SSM states carry over).  The
+        reference's convention: batch axis 1 for rank≥3 leaves ((L,B,...)
+        stacked), 0 below.  It zeroes column i of the rank-3 `enc_out` and
+        `vis` ((B, rows, d)), not slot i; the engine never prefills, so
+        those leaves stay zeros (ROADMAP §3), and an index past their rows
+        is dropped, as JAX drops an update out of bounds."""
+        def zero(a):
+            if isinstance(a, dict):
+                for v in a.values():
+                    zero(v)
+            elif a is None or a.dim() == 0:
+                return
+            elif a.dim() >= 3:
+                if i < a.shape[1]:
+                    a[:, i] = 0
+            else:
                 a[i] = 0
+
+        zero(self.cache)
 
     def _tick(self) -> None:
         # Feed: prompt token if any pending, else the last generated token.

@@ -30,16 +30,18 @@ def build_decode_step(cfg: ArchConfig, batch: int, max_seq: int, *,
                       device=None) -> ServeFns:
     """decode(params, cache, tokens (B,1), pos (B,)) -> (next token (B,)
     int32, cache): one step of every slot, greedy on the last position.
-    The cache ((L, batch, max_seq, ...) leaves) is updated in place."""
+    The cache (the family's `init_cache` tree for `batch` slots and
+    `max_seq` positions) is updated in place; one of other shapes is
+    refused."""
     dev = resolve_device(device)
-    api.family_module(cfg)
+    want = cache_shapes(cfg, batch, max_seq)
 
     @torch.no_grad()
     def decode(params, cache, tokens, pos):
-        if tuple(cache["k"].shape[1:3]) != (batch, max_seq):
-            raise ValueError(f"cache holds {tuple(cache['k'].shape[1:3])} "
-                             f"(slots, positions); the step was built for "
-                             f"{(batch, max_seq)}")
+        got = cache_shapes_of(cache)
+        if not _fits(got, want):
+            raise ValueError(f"cache of shapes {got}; the step was built for "
+                             f"{batch} slots and {max_seq} positions: {want}")
         lg, cache = api.decode_step(params, cfg, cache,
                                     {"tokens": tokens.to(dev)}, pos.to(dev))
         # Greedy sampling on the card: serving returns token ids, not logits.
@@ -48,6 +50,30 @@ def build_decode_step(cfg: ArchConfig, batch: int, max_seq: int, *,
 
     return ServeFns(decode=decode, prefill=None, device=dev, batch=batch,
                     max_seq=max_seq)
+
+
+def cache_shapes(cfg: ArchConfig, batch: int, max_seq: int) -> dict:
+    """The shapes of the family's `init_cache(cfg, batch, max_seq)` tree
+    (None where it holds None), from meta tensors."""
+    return cache_shapes_of(api.init_cache(cfg, batch, max_seq,
+                                          device="meta"))
+
+
+def cache_shapes_of(cache):
+    if isinstance(cache, dict):
+        return {k: cache_shapes_of(v) for k, v in cache.items()}
+    return None if cache is None else tuple(cache.shape)
+
+
+def _fits(got, want, key: str = "") -> bool:
+    """`got` has `want`'s keys and shapes; the one exception is encdec's
+    `enc_out`, whose rows prefill sets to the prompt's S // enc_ratio."""
+    if isinstance(want, dict):
+        return (isinstance(got, dict) and got.keys() == want.keys()
+                and all(_fits(got[k], want[k], k) for k in want))
+    if key == "enc_out" and got is not None:
+        return got[0] == want[0] and got[2:] == want[2:]
+    return got == want
 
 
 def build_prefill(cfg: ArchConfig, *, device=None) -> ServeFns:

@@ -11,7 +11,7 @@ The arithmetic is the reference's (`repro/train/train_step.py`); its mesh,
 sharding rules and donation have no counterpart on one card.  The
 gradient of every parameter is computed by autograd over the model's
 layout-shaped tree (`model.tree()`, leaves with `requires_grad` on); the
-stacked `blocks` leaves get theirs slice by slice (`common.take_layer`).
+stacked leaves get theirs slice by slice (`common.take_layer`).
 Microbatching: the batch splits into `n_micro` slices along its leading
 axis; their gradients accumulate in float32 and the metrics are means.
 """

@@ -1252,6 +1252,132 @@ def test_reduced_moe_train_step_on_card_equals_its_cpu_run(dev):
         _eq(a["expert_load"], b["expert_load"])
 
 
+# The ssm, hybrid, encdec and vlm families at reduced size in float32: the
+# stock reduced configs, and zamba2 / the vision model at 7 layers, which
+# apply the shared block and the cross-attention the stock ones skip.
+FAMILY_CASES = {"mamba2-370m": {}, "zamba2-7b": {"n_layers": 7,
+                                                 "attn_every": 2},
+                "seamless-m4t-medium": {},
+                "llama-3.2-vision-90b": {"n_layers": 7,
+                                         "cross_attn_every": 2}}
+
+
+def _f32_family(dev, name):
+    """(cfg, CPU model, card model) with the same float32 weights: the
+    layout's init plus noise, and values off the zeros / ones init in the
+    SSM leaves and the vision gate (as the CPU tests' random leaves)."""
+    import dataclasses
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import api
+    from repro_torch.models.common import init_params
+    from repro_torch.tree import tree_map
+    cfg = dataclasses.replace(ARCHS[name].reduced(), **FAMILY_CASES[name])
+    g = torch.Generator().manual_seed(0)
+    tree = init_params(api.layout(cfg), g, device="cpu", dtype=torch.float32)
+    ranges = {"A_log": (-2.0, 1.0), "dt_bias": (-1.0, 1.0), "D": (0.5, 1.5),
+              "gate": (0.3, 0.9)}
+
+    def leaves(t):
+        for k, v in t.items():
+            if isinstance(v, dict):
+                leaves(v)
+            elif k in ranges:
+                lo, hi = ranges[k]
+                v.uniform_(lo, hi, generator=g)
+            else:
+                v.add_(0.05 * torch.randn(v.shape, generator=g))
+
+    leaves(tree)
+    return (cfg, api.build(cfg, tree),
+            api.build(cfg, tree_map(lambda t: t.to(dev, copy=True), tree)))
+
+
+def _family_batch(cfg, B, S, seed):
+    from repro_torch.launch.train import frontend_shapes
+    g = torch.Generator().manual_seed(seed)
+    out = {k: torch.randint(0, cfg.vocab, (B, S), generator=g,
+                            dtype=torch.int32) for k in ("tokens", "labels")}
+    for k, shape in frontend_shapes(cfg, B, S).items():
+        out[k] = torch.randn(shape, generator=g)
+    return out
+
+
+def _close(a, b, tol=1e-4):
+    torch.testing.assert_close(a.cpu(), b.cpu(), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("name", list(FAMILY_CASES))
+def test_family_f32_forward_on_card_equals_its_cpu_run(dev, name):
+    from repro_torch.models import api
+    cfg, cpu, card = _f32_family(dev, name)
+    b = _family_batch(cfg, 2, 40, 1)
+    lg, _ = api.forward(cpu, cfg, b)
+    lg_c, _ = api.forward(card, cfg, {k: v.to(dev) for k, v in b.items()})
+    _close(lg_c, lg)
+
+
+@pytest.mark.parametrize("name", list(FAMILY_CASES))
+def test_family_f32_decode_on_card_equals_its_cpu_run(dev, name):
+    """A prefill of 4 tokens (encdec: k, v and enc_out filled; vlm: the
+    vision tokens), then 6 greedy decode steps; zamba2 at max_seq 6, so
+    its shared block's ring (6 slots) wraps.  Logits and every cache leaf
+    within 1e-4 of the CPU run's, the same greedy tokens."""
+    from repro_torch.models import api
+    from repro_torch.tree import flatten
+    cfg, cpu, card = _f32_family(dev, name)
+    B, S, Smax = 2, 4, 6 if cfg.family == "hybrid" else 12
+    b = _family_batch(cfg, B, S, 2)
+    del b["labels"]
+    cache = api.init_cache(cfg, B, Smax, torch.float32, device="cpu")
+    cache_c = api.init_cache(cfg, B, Smax, torch.float32, device=dev)
+    lg, cache = api.prefill(cpu, cfg, b, cache)
+    lg_c, cache_c = api.prefill(card, cfg, {k: v.to(dev) for k, v in
+                                            b.items()}, cache_c)
+    _close(lg_c, lg)
+    nxt = lg[:, -1].argmax(-1).to(torch.int32)
+    for step in range(6):
+        pos = torch.full((B,), S + step, dtype=torch.int32)
+        lg, cache = api.decode_step(cpu, cfg, cache, {"tokens": nxt[:, None]},
+                                    pos)
+        lg_c, cache_c = api.decode_step(card, cfg, cache_c,
+                                        {"tokens": nxt[:, None].to(dev)},
+                                        pos.to(dev))
+        _close(lg_c, lg)
+        nxt = lg[:, -1].argmax(-1).to(torch.int32)
+        _eq(lg_c[:, -1].argmax(-1).to(torch.int32), nxt)
+    got, want = flatten(cache_c), flatten(cache)
+    assert got.keys() == want.keys()
+    for k in want:
+        if want[k] is not None:
+            _close(got[k], want[k])
+
+
+@pytest.mark.parametrize("name", list(FAMILY_CASES))
+def test_family_f32_train_step_on_card_equals_its_cpu_run(dev, name):
+    """One train step (remat "full", float32 states): loss, zloss and
+    grad_norm within rtol 1e-4.  (The updated parameters are not compared:
+    AdamW's first step moves an element by lr·g/(|g| + eps), and where
+    |g| is near eps the card's other summation order can move it by more
+    than 1e-4 at lr 1e-2.)"""
+    from repro_torch.optim import AdamWConfig, adamw
+    from repro_torch.train import build_train_step
+    cfg, cpu, card = _f32_family(dev, name)
+    assert cfg.remat == "full"
+    ocfg = AdamWConfig(lr=1e-2)
+    b = _family_batch(cfg, 2, 24, 3)
+    runs = {}
+    for label, model, device in (("cpu", cpu, "cpu"), ("card", card, dev)):
+        fns = build_train_step(cfg, ocfg, device=device, total_steps=10,
+                               warmup_steps=0)
+        opt = adamw.init(model.tree(), ocfg)
+        model, opt, m = fns.step(model, opt, b)
+        runs[label] = ({k: v.cpu() for k, v in m.items()}, int(opt["step"]))
+    (m_cpu, s_cpu), (m_card, s_card) = runs["cpu"], runs["card"]
+    assert s_cpu == s_card == 1
+    for k in ("loss", "zloss", "grad_norm"):
+        assert float(m_card[k]) == pytest.approx(float(m_cpu[k]), rel=1e-4), k
+
+
 def test_checkpoint_of_card_tensors_round_trips(dev, tmp_path):
     """bf16, int8, float32 and a scalar int32 saved from the card restore
     bit for bit onto the card and onto the CPU."""

@@ -42,6 +42,8 @@ def test_port_imports_with_jax_and_repro_blocked():
         "import repro_torch.configs, repro_torch.core.moe_shares\n"
         "import repro_torch.models.common, repro_torch.models.layers\n"
         "import repro_torch.models.transformer, repro_torch.models.moe\n"
+        "import repro_torch.models.ssm, repro_torch.models.hybrid\n"
+        "import repro_torch.models.encdec, repro_torch.models.vlm\n"
         "import repro_torch.models.api, repro_torch.models.convert\n"
         "import repro_torch.serve.serve_step, repro_torch.serve.engine\n"
         "import repro_torch.core.adapt, repro_torch.serve.join_engine\n"

@@ -1,14 +1,19 @@
 """The port's data pipeline, array for array with the reference's, and its
 training driver (`python -m repro_torch.launch.train`) end to end on the
 CPU: a simulated node failure with its elastic re-mesh and restore, and
-`--resume`.  (The reference's resume test trains mamba2-370m, whose family
-is not ported yet; here it is reduced qwen2-0.5b.)"""
+`--resume` (on reduced qwen2-0.5b and on reduced mamba2-370m, the
+reference's arch for its resume test); and on reduced
+seamless-m4t-medium and the 7-layer vision model, whose stub frontends
+(`frames`, `vision_emb`) the driver draws as the reference's does: the
+batches and the losses against the reference driver's
+(`_torch_family_cases.check_driver`)."""
 import sys
 
 import numpy as np
 import pytest
 import torch
 
+from _torch_family_cases import SEVEN, check_driver
 from repro.data import PipelineConfig as JPipelineConfig
 from repro.data import TokenPipeline as JTokenPipeline
 from repro_torch.ckpt import Checkpointer
@@ -83,8 +88,10 @@ def test_train_driver_end_to_end_with_failure(tmp_path, capsys, monkeypatch):
     assert Checkpointer(str(tmp_path)).latest_step() == 12
 
 
-def test_train_driver_resume(tmp_path, capsys):
-    base = ["--arch", "qwen2-0.5b", "--reduced", "--device", "cpu",
+@pytest.mark.parametrize("arch", ["qwen2-0.5b", "mamba2-370m"])
+def test_train_driver_resume(tmp_path, capsys, arch):
+    """mamba2-370m is the reference's arch for its resume test."""
+    base = ["--arch", arch, "--reduced", "--device", "cpu",
             "--batch", "4", "--seq", "16", "--ckpt-dir", str(tmp_path),
             "--ckpt-every", "3", "--log-every", "1"]
     train_main(base + ["--steps", "6"])
@@ -118,3 +125,10 @@ def test_train_driver_refuses_to_start_without_a_card(tmp_path, monkeypatch):
         train_main(["--arch", "qwen2-0.5b", "--reduced", "--steps", "1",
                     "--ckpt-dir", str(tmp_path)])
     assert not any(tmp_path.iterdir())
+
+
+@pytest.mark.parametrize("arch", ["seamless-m4t-medium",
+                                  "llama-3.2-vision-90b"])
+def test_train_driver_stub_frontends_match_the_reference(tmp_path, capsys,
+                                                         monkeypatch, arch):
+    check_driver(arch, tmp_path, capsys, monkeypatch, SEVEN.get(arch))

@@ -153,6 +153,81 @@ def test_decode_builder_is_greedy(carried):
 
 
 def test_unported_family_is_refused(carried):
-    cfg = dataclasses.replace(ARCHS["mamba2-370m"].reduced())
-    with pytest.raises(NotImplementedError, match="ROADMAP item 9"):
+    """Every registered family is ported; a family the registry does not
+    know is refused by the dispatch's lookup, as the reference's."""
+    cfg = dataclasses.replace(ARCHS["mamba2-370m"].reduced(), family="rnn")
+    with pytest.raises(KeyError, match="rnn"):
         build_decode_step(cfg, 2, 16, device="cpu")
+
+
+@pytest.mark.parametrize("name,slots,max_seq", [
+    ("mamba2-370m", 2, 16), ("zamba2-7b", 3, 12),
+    ("seamless-m4t-medium", 2, 16), ("llama-3.2-vision-90b", 2, 8)])
+def test_decode_builder_checks_the_family_cache(name, slots, max_seq):
+    """The decode step takes the family's `init_cache` tree for its slots
+    and positions (nested, with None where there is no tail) and refuses
+    another's; encdec's enc_out may hold the rows a prefill gave it."""
+    from repro_torch.serve.serve_step import cache_shapes
+    cfg = ARCHS[name].reduced()
+    model = api.init_model(cfg, torch.Generator().manual_seed(0),
+                           device="cpu")
+    fns = build_decode_step(cfg, slots, max_seq, device="cpu")
+    cache = api.init_cache(cfg, slots, max_seq, device="cpu")
+    assert cache_shapes(cfg, slots, max_seq) == {
+        k: (None if v is None else
+            {kk: tuple(vv.shape) for kk, vv in v.items()}
+            if isinstance(v, dict) else tuple(v.shape))
+        for k, v in cache.items()}
+    toks = torch.zeros((slots, 1), dtype=torch.int32)
+    pos = torch.zeros(slots, dtype=torch.int32)
+    nxt, _ = fns.decode(model, cache, toks, pos)
+    assert nxt.shape == (slots,)
+    if cfg.family == "encdec":
+        cache["enc_out"] = cache["enc_out"][:, :1].clone()
+        fns.decode(model, cache, toks, pos)
+    longer = api.init_cache(cfg, slots, max_seq + 1, device="cpu")
+    if cfg.family == "ssm":          # its state does not grow with max_seq
+        fns.decode(model, longer, toks, pos)
+    else:
+        with pytest.raises(ValueError, match="built for"):
+            fns.decode(model, longer, toks, pos)
+    with pytest.raises(ValueError, match="built for"):
+        fns.decode(model, api.init_cache(cfg, slots + 1, max_seq,
+                                         device="cpu"),
+                   torch.zeros((slots + 1, 1), dtype=torch.int32),
+                   torch.zeros(slots + 1, dtype=torch.int32))
+
+
+def test_reset_slot_walks_the_nested_cache():
+    """The hybrid cache nests dicts and holds None (no tail): slot i of
+    every state is zeroed (batch axis 1 from rank 3, 0 below); encdec's
+    and vlm's rank-3 (B, rows, d) leaves lose column i, as the
+    reference's convention does, and an index past their rows is dropped."""
+    for name, changes in (("zamba2-7b", {"n_layers": 6, "attn_every": 2}),
+                          ("seamless-m4t-medium", {}),
+                          ("llama-3.2-vision-90b", {})):
+        cfg = dataclasses.replace(ARCHS[name].reduced(), **changes)
+        model = api.init_model(cfg, torch.Generator().manual_seed(0),
+                               device="cpu")
+        eng = ServingEngine(cfg, 3, 8, model, device="cpu")
+        leaves = []
+
+        def fill(t):
+            for v in t.values():
+                if isinstance(v, dict):
+                    fill(v)
+                elif v is not None:
+                    v.fill_(1)
+                    leaves.append(v)
+
+        fill(eng.cache)
+        if name == "zamba2-7b":
+            assert eng.cache["tail"] is None
+        eng._reset_slot(1)
+        for a in leaves:
+            assert bool((a[:, 1] == 0).all()) and bool((a[:, 0] == 1).all())
+        if name == "seamless-m4t-medium":
+            assert eng.cache["enc_out"].shape[1] == 2
+            eng._reset_slot(2)                   # past enc_out's 2 rows
+            assert bool((eng.cache["enc_out"][:, 0] == 1).all())
+            assert bool((eng.cache["k"][:, 2] == 0).all())
