@@ -11,12 +11,20 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      reduce, the default `ExecutorConfig`): R(A,B) ⋈ S(B,C) with
      2^21 rows per relation, one heavy hitter B = 0 of 12,288 rows, a tail
      of 2^20 values, k = 256 logical cells on n_dev = 8 logical servers.
-     Launch counts are zeroed just before `prepare` + the first `run_batch`
-     and read just after.  Requires zero overflow, the exact join size
+     The first `run_batch` runs the step eagerly (the graph's warm-up),
+     the second captures it as a CUDA graph and replays it, every later
+     one replays.  Launch counts are zeroed just before `prepare` + the
+     first `run_batch` and read just after: the counting pass and the
+     eager step once each.  Requires zero overflow, the exact join size
      Σ_v c_R(v)·c_S(v), rows equal to the same step on the plain versions
-     (`use_kernels=False`) on the card, and no new step on a second batch;
-     a profile of a warm batch that must name build_table's, scatter_pack's
-     and probe_tables' kernels and hold no torch row-wise scan
+     (`use_kernels=False`, eager) on the card, no new step on a second
+     batch, that batch's capture launching each step kernel once more and
+     the 7 warm replays none from the host; the cold first batch, the
+     capture batch, the warm median of 7, the graph's memory, a
+     device-only trace of a warm batch (its busy time against that
+     unprofiled median), and a profile
+     of a warm batch that must name build_table's, scatter_pack's and
+     probe_tables' kernels and hold no torch row-wise scan
      (`tensor_kernel_scan_innermost_dim`, the plain probe's cumsum);
   4. every kernel against its plain version on the card at the shapes of
      that run, bit for bit, with kernel, plain and bound times; the bound
@@ -56,12 +64,18 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      operations a call; then both on the cell's B columns, R's valid rows
      against S's (2^21 × 2^21, the device arm), held against numpy (Σ
      counts = the cell's exact join size; the plain version is not run);
-  3b. the same cell on the staged map + sort-merge reduce
-     (`fuse_map=False, hash_reduce=False`), counts zeroed just before its
-     `prepare` + first `run_batch` and read just after: zero overflow, the
-     exact join size, rows `torch.equal` to phase 3's, no new step on a
-     second batch, the warm batch time and a profile that must name
-     segment_scan's and bucket_pack's kernels;
+  3c. the same cell on the fused map + sort-merge reduce (`hash_reduce=
+     False`), then 3b. on the staged map + sort-merge reduce (`fuse_map=
+     False, hash_reduce=False`), each with counts zeroed just before its
+     `prepare` + first `run_batch` and read just after (as in 3): zero
+     overflow, the exact join size, rows `torch.equal` to phase 3's, no new
+     step on a second batch (its capture launching the step's kernels once
+     more), no host launch in the warm replays, the cold first batch, the
+     capture batch, the warm median, the peak, the graph's memory, a
+     device-only trace and a
+     profile that must name scatter_pack's and segment_scan's kernels
+     (3c) or segment_scan's and bucket_pack's (3b); the three arms'
+     numbers on a {"join_arms": ...} JSON line;
   4b. the staged arm's kernels (route_cells, fold_cells, bucket_pack,
      segment_scan / run_lengths) against their plain versions at the
      shapes of that run, bit for bit, with kernel, plain, bound and (where
@@ -75,16 +89,24 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      6a. the chunked exchange, `overlap_shuffle = 4`: per-chunk caps
          ⌈phase 3's / 4⌉, zero overflow, launches of prepare + the first
          batch zeroed just before and read just after (scatter_pack 8,
-         the rest as phase 3's), no new step on a second batch, the warm
-         median beside phase 3's, and a profile of one warm batch whose
-         Chrome trace must show the exchange's copies on a stream that
-         runs no scatter_pack kernel (device time summed and busy);
+         the rest as phase 3's), no new step on a second batch (its
+         capture launching the step's kernels once more), the warm median
+         beside phase 3's; a profile of one eager step whose Chrome trace
+         must show the exchange's copies on a stream that runs no
+         scatter_pack kernel (device time summed and busy); the step
+         captured once more with CUDA's graph kept and written as DOT,
+         which must hold the 8 packs in one chain and exactly 8 exchange
+         copies, each after its own chunk's pack and no later one, every
+         one but a relation's last beside the next pack; and a profile of
+         one warm replay: its streams and how long the copies run beside
+         another stream's operations;
      6b. overflow: a `SelfHealingSession` with caps squeezed to an eighth
          (`ChaosInjector.squeeze_caps`) heals by retry (retries ≥ 1, the
          failed attempts' dropped copies in `stats`), its wall time (the
          time to recover) beside a clean warm batch's; a second session
          walks the ladder with no step built; `max_retries=0` raises
-         `RetryBudgetExceededError` naming a device;
+         `RetryBudgetExceededError` naming a device; the peak over 6b and
+         the graphs and memory held after it;
      6c. device loss: device 3's heartbeats dropped (timeouts 2.5 s and
          1.5 s on the injector's clock, 1 s a batch): evicted within 16
          batches, one re-fold, then nothing received by device 3 and
@@ -144,7 +166,8 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
          requests canonically equal `reference_join`, full ones phase 3's
          rows (multiset, on the card); per-tenant stats sum to each
          engine's; requests/s, p50 / p99, full's warm latency split into
-         the run and the rows' copy to the host, peak memory;
+         the run and the rows' copy to the host, peak memory, and the
+         graphs and memory the engines hold after the drains;
      8b. an engine with a hair-trigger `adapt=` policy: `full` sends 4
          full-size batches whose hot set moves (re-placed at least once),
          `calm` one small request; each detector windows only its own
@@ -192,11 +215,11 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      `max_new_tokens`; every loss and grad_norm finite, the last loss
      below the first; the optimizer's step the steps taken; no custom
      kernel launched (no TPU kernel lies on this path);
- 11. one JSON line each of phases 6, 6e, 8, 9 and 10's numbers, one JSON
-     line of per-kernel results (each with the path its launches were
-     counted on: segment_histogram's is phase 9a's, its phase 7 count
-     beside it as `serve_launches`), then the last line {"ok": true,
-     "device": {...}}.
+ 11. one JSON line each of phases 3 / 3b / 3c, 6, 6e, 8, 9 and 10's
+     numbers, one JSON line of per-kernel results (each with the path its
+     launches were counted on: segment_histogram's is phase 9a's, its
+     phase 7 count beside it as `serve_launches`), then the last line
+     {"ok": true, "device": {...}}.
 
 Exits non-zero without printing a result when no CUDA device is present or
 when the repository's `src/repro_torch` is not beside this script.
@@ -536,6 +559,29 @@ def out_capacity_from_fragments(frag_l, frag_r, lcols, rcols, quantize):
     return quantize(max(worst, 1))
 
 
+def cell_out_capacity(dev, plan, data) -> int:
+    """The full-size two-way cell's output capacity: the exact
+    per-destination maximum of its received fragments, quantized (a map
+    and exchange on the kernels, outside any counted run)."""
+    from repro_torch.core.executor import (ExecutorConfig,
+                                           ShardedJoinExecutor, exchange,
+                                           quantize_capacity, shared_columns)
+    from repro_torch.kernels import ops
+    n_dev = FULL["n_dev"]
+    sizing = ShardedJoinExecutor(plan, n_dev, ExecutorConfig(), device=dev)
+    s0 = sizing.session().prepare(data)
+    frags = {}
+    for rel, a in zip(plan.query.relations, s0._device_args):
+        buf, _ = ops.scatter_pack(a.view(n_dev, -1, a.shape[1]),
+                                  sizing.route_specs[rel.name], s0._ptable,
+                                  plan.k, n_dev, s0.caps[rel.name])
+        frags[rel.name] = exchange(buf)
+    lcols, rcols = shared_columns(["A", "B", "__cell__"],
+                                  ["B", "C", "__cell__"])
+    return out_capacity_from_fragments(frags["R"], frags["S"], lcols, rcols,
+                                       quantize_capacity)
+
+
 def profile_calls(fn, label: str, calls: int = 1, top: int = 12,
                   tag: str = "profile", named: tuple[str, ...] = (),
                   banned: tuple[str, ...] = (),
@@ -592,7 +638,8 @@ def profile_calls(fn, label: str, calls: int = 1, top: int = 12,
     return found
 
 
-def expected_launches(ex, fields, chunks: int = 1) -> dict[str, int]:
+def expected_launches(ex, fields, chunks: int = 1, prepare: bool = True
+                      ) -> dict[str, int]:
     """Kernel launches of one prepare (one counting pass, as k > n_dev) and
     one run_batch under the arm `fields`: the fused map counts each
     relation once and packs it once a chunk; the staged map routes once
@@ -600,16 +647,21 @@ def expected_launches(ex, fields, chunks: int = 1) -> dict[str, int]:
     each chunk of the step, and folds and packs each relation once a
     chunk; each cascade step hashes, builds, probes and expands once
     (hash), or scans twice (group ids, run lengths) and expands once
-    (sort-merge)."""
+    (sort-merge).  A key's first run_batch runs the step eagerly (the
+    graph's warm-up), so this is that batch's count; with `prepare=False`
+    it is one pass through the step alone, which the key's second
+    run_batch makes when it captures the graph.  A replay launches nothing
+    from the host."""
     n_rel = len(ex.query.relations)
     steps = n_rel - 1
+    counted = 1 if prepare else 0
     want = dict.fromkeys(KERNEL_SITES, 0)
     if fields.get("fuse_map", True):
-        want.update(map_count=n_rel, scatter_pack=chunks * n_rel)
+        want.update(map_count=counted * n_rel, scatter_pack=chunks * n_rel)
     else:
         hashed = sum(1 for spec in ex.route_specs.values()
                      for route in spec if route[0])
-        want.update(route_cells=(1 + chunks) * hashed,
+        want.update(route_cells=(counted + chunks) * hashed,
                     fold_cells=chunks * n_rel, bucket_pack=chunks * n_rel)
     if fields.get("hash_reduce", True):
         want.update(join_hash=steps, build_table=steps, probe_tables=steps,
@@ -619,13 +671,35 @@ def expected_launches(ex, fields, chunks: int = 1) -> dict[str, int]:
     return want
 
 
-def warm_batches(ex, s, label: str, exact: int) -> float:
-    """No new step on a second batch; the warm run_batch median of 7 (s)."""
-    compiles = ex.compile_count
+def warm_batches(ex, s, label: str, exact: int, step: dict[str, int],
+                 captures: bool | None = True) -> tuple[float, float]:
+    """No new step on a second batch, and that batch's launches: `step`
+    (one pass through the step, as `expected_launches(prepare=False)`
+    counts it) where it captures the step's graph, none where the graph
+    exists already (`captures`: whether it must capture, None: either);
+    then the warm run_batch median of 7, replays that launch no
+    hand-written kernel from the host.  Returns (the median, the second
+    batch's time) in s."""
+    from repro_torch.kernels import ops
+    compiles, before = ex.compile_count, ex.captures
+    launches = dict(ops.LAUNCHES)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
     res2 = s.run_batch()
+    torch.cuda.synchronize()
+    t_second = time.perf_counter() - t0
     check(ex.compile_count == compiles, f"{label}: second run_batch built "
           f"a new step")
+    captured = ex.captures - before
+    moved = {k: ops.LAUNCHES[k] - launches[k] for k in launches}
+    want = step if captured else dict.fromkeys(launches, 0)
+    check(captured in (0, 1) and (captures is None
+                                  or captured == int(captures))
+          and moved == want, f"{label}: the second run_batch captured "
+          f"{captured} graphs (expected {captures}) and launched {moved}, "
+          f"expected {want}")
     del res2
+    launches = dict(ops.LAUNCHES)
     times = []
     for _ in range(7):
         torch.cuda.synchronize()
@@ -634,11 +708,48 @@ def warm_batches(ex, s, label: str, exact: int) -> float:
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
         del r
+    check(dict(ops.LAUNCHES) == launches, f"{label}: a warm replay launched "
+          f"kernels from the host: {launches} -> {dict(ops.LAUNCHES)}")
     t_batch = float(np.median(times))
-    print(f"[{label}] warm run_batch median {t_batch * 1e3:.1f} ms of "
-          f"{len(times)} ({', '.join(f'{t * 1e3:.1f}' for t in times)}); "
-          f"{exact / t_batch:.4g} joined rows/s")
-    return t_batch
+    what = "capture + replay" if captured else "replay"
+    print(f"[{label}] second run_batch ({what}) {t_second * 1e3:.2f} ms; "
+          f"warm run_batch median {t_batch * 1e3:.2f} ms of {len(times)} "
+          f"({', '.join(f'{t * 1e3:.2f}' for t in times)}); "
+          f"{exact / t_batch:.4g} joined rows/s; no host launch in the 7 "
+          f"warm replays")
+    return t_batch, t_second
+
+
+def graph_memory(ex, label: str) -> dict:
+    """What the executor's captured steps hold on the card once the
+    results are dropped: the graphs, the bytes allocated (static inputs
+    and outputs, every live tensor) and reserved (the graph pool's
+    segments too), after the allocator's free blocks are returned."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    got = dict(graphs=ex.captures,
+               allocated_gb=torch.cuda.memory_allocated() / 1e9,
+               reserved_gb=torch.cuda.memory_reserved() / 1e9)
+    print(f"[{label}] {got['graphs']} graphs held; allocated "
+          f"{got['allocated_gb']:.2f} GB, reserved {got['reserved_gb']:.2f} "
+          f"GB")
+    return got
+
+
+def device_busy(s, label: str, t_warm: float) -> dict:
+    """A device-only trace (no CPU ops) of one warm run_batch: its device
+    busy time against the unprofiled warm median `t_warm` (s), the share
+    of a plain warm loop the card is busy."""
+    prof = {}
+    profile_calls(s.run_batch, f"{label} warm run_batch, device only", 1,
+                  top=8, sink=prof, cpu=False)
+    prof["warm_ms"] = t_warm * 1e3
+    prof["busy_of_warm"] = prof.get("busy_ms", float("nan")) / prof["warm_ms"]
+    print(f"[profile] {label}: device busy {prof.get('busy_ms', 0):.3f} ms "
+          f"of the unprofiled warm median {prof['warm_ms']:.3f} ms: busy "
+          f"{100 * prof['busy_of_warm']:.1f} %, idle "
+          f"{100 * (1 - prof['busy_of_warm']):.1f} %")
+    return prof
 
 
 def join_size(data) -> int:
@@ -652,9 +763,7 @@ def join_size(data) -> int:
 def full_cell(dev):
     """Phase 3: the full-size cell through prepare + run_batch on kernels."""
     from repro_torch.core import plan_skew_join, two_way
-    from repro_torch.core.executor import (ExecutorConfig,
-                                           ShardedJoinExecutor, exchange,
-                                           quantize_capacity, shared_columns)
+    from repro_torch.core.executor import ExecutorConfig, ShardedJoinExecutor
     from repro_torch.data import drifting_join_batch
     from repro_torch.kernels import ops
 
@@ -673,19 +782,7 @@ def full_cell(dev):
 
     # Size the output capacity from the received fragments (not counted).
     n_dev = FULL["n_dev"]
-    sizing = ShardedJoinExecutor(plan, n_dev, ExecutorConfig(), device=dev)
-    s0 = sizing.session().prepare(data)
-    frags = {}
-    for rel, a in zip(q.relations, s0._device_args):
-        buf, _ = ops.scatter_pack(a.view(n_dev, -1, a.shape[1]),
-                                  sizing.route_specs[rel.name], s0._ptable,
-                                  plan.k, n_dev, s0.caps[rel.name])
-        frags[rel.name] = exchange(buf)
-    lcols, rcols = shared_columns(["A", "B", "__cell__"],
-                                  ["B", "C", "__cell__"])
-    cap_out = out_capacity_from_fragments(frags["R"], frags["S"], lcols,
-                                          rcols, quantize_capacity)
-    del frags, sizing, s0
+    cap_out = cell_out_capacity(dev, plan, data)
     torch.cuda.empty_cache()
     print(f"[cell] out_capacity per destination {cap_out} "
           f"(exact per-destination max, quantized)")
@@ -701,13 +798,15 @@ def full_cell(dev):
     torch.cuda.synchronize()
     t_prepare = time.perf_counter() - t0
     prepare_launches = dict(ops.LAUNCHES)
+    t0 = time.perf_counter()
     res = s.run_batch()
     torch.cuda.synchronize()
+    t_first = time.perf_counter() - t0
     launches = dict(ops.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
     step_launches = {k: launches[k] - prepare_launches[k] for k in launches}
     print(f"[cell] launches on the main path {launches} "
-          f"(per run_batch {step_launches})")
+          f"(the first run_batch's, the step run eagerly: {step_launches})")
     want = expected_launches(ex, ARMS[FUSED_HASH])
     check(launches == want,
           f"main path launches {launches}, expected {want}")
@@ -730,8 +829,13 @@ def full_cell(dev):
           f"{held} = {sum(held.values()) / 1e9:.2f} GB; peak allocated "
           f"(measured) {peak / 1e9:.2f} GB")
 
-    print(f"[cell] prepare {t_prepare * 1e3:.1f} ms")
-    t_warm = warm_batches(ex, s, "cell", exact)
+    print(f"[cell] prepare {t_prepare * 1e3:.1f} ms; cold first run_batch "
+          f"(eager: the graph's warm-up) {t_first * 1e3:.1f} ms")
+    t_warm, t_second = warm_batches(
+        ex, s, "cell", exact,
+        expected_launches(ex, ARMS[FUSED_HASH], prepare=False))
+    pins = graph_memory(ex, "cell")
+    busy = device_busy(s, FUSED_HASH, t_warm)
     must = BUILD_KERNELS + SCATTER_KERNELS + PROBE_KERNELS
     named = profile_calls(s.run_batch, "warm run_batch", named=must,
                           banned=(TORCH_SCAN,))
@@ -758,7 +862,10 @@ def full_cell(dev):
     torch.cuda.empty_cache()
     return dict(plan=plan, ex=ex, session=s, launches=launches,
                 cap_out=cap_out, exact=exact, data=data, rows=out_k,
-                valid=valid_k, t_warm=t_warm)
+                valid=valid_k, t_warm=t_warm, arms={FUSED_HASH: dict(
+                    warm_ms=t_warm * 1e3, first_ms=t_first * 1e3,
+                    second_ms=t_second * 1e3, peak_gb=peak / 1e9, **pins,
+                    device_only=busy)})
 
 
 def record(out, name, kern, plain, args, n_bytes, n_ops, iters,
@@ -1252,58 +1359,66 @@ def b_column_pair(rows_r, rows_s, exact: int) -> dict:
     return res
 
 
-def staged_cell(dev, cell):
-    """Phase 3b: the full-size cell on the staged map + sort-merge reduce,
-    held against phase 3's rows."""
+def arm_cell(dev, cell, arm: str, named: tuple[str, ...]):
+    """Phases 3b / 3c: the full-size cell on another arm (`ARMS[arm]`),
+    held against phase 3's rows; a warm batch's profile must name each of
+    `named`."""
     from repro_torch.core.executor import ExecutorConfig, ShardedJoinExecutor
     from repro_torch.kernels import ops
 
     n_dev, exact = FULL["n_dev"], cell["exact"]
-    fields = ARMS[STAGED_SORT]
+    fields = ARMS[arm]
+    tag = "staged" if arm == STAGED_SORT else "fused-sort"
     ex = ShardedJoinExecutor(cell["plan"], n_dev,
                              ExecutorConfig(out_capacity=cell["cap_out"],
                                             **fields), device=dev)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
     ops.reset_launches()
     t0 = time.perf_counter()
     s = ex.session().prepare(cell["data"])
     torch.cuda.synchronize()
     t_prepare = time.perf_counter() - t0
+    t0 = time.perf_counter()
     res = s.run_batch()
     torch.cuda.synchronize()
+    t_first = time.perf_counter() - t0
     launches = dict(ops.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
-    print(f"[staged] {STAGED_SORT} launches {launches}")
+    print(f"[{tag}] {arm} launches {launches}")
     want = expected_launches(ex, fields)
-    check(launches == want, f"{STAGED_SORT} launches {launches}, "
-          f"expected {want}")
-    check(s.caps == cell["caps"], f"{STAGED_SORT} caps {s.caps} != "
-          f"{cell['caps']}")
+    check(launches == want, f"{arm} launches {launches}, expected {want}")
+    check(s.caps == cell["caps"], f"{arm} caps {s.caps} != {cell['caps']}")
     check(np.array_equal(s.placement.table, cell["table"]),
-          f"{STAGED_SORT} derived another placement")
+          f"{arm} derived another placement")
     check(int(res["shuffle_overflow"].sum()) == 0,
-          f"{STAGED_SORT} shuffle overflow "
-          f"{res['shuffle_overflow_by_rel'].tolist()}")
+          f"{arm} shuffle overflow {res['shuffle_overflow_by_rel'].tolist()}")
     check(int(res["join_overflow"].sum()) == 0,
-          f"{STAGED_SORT} join overflow {res['join_overflow'].tolist()}")
+          f"{arm} join overflow {res['join_overflow'].tolist()}")
     n_valid = int(res.tensors[1].sum())
-    check(n_valid == exact, f"{STAGED_SORT} valid rows {n_valid} != exact "
-          f"{exact}")
+    check(n_valid == exact, f"{arm} valid rows {n_valid} != exact {exact}")
     check(torch.equal(res.tensors[0], cell["rows"])
           and torch.equal(res.tensors[1], cell["valid"]),
-          f"{STAGED_SORT} rows differ from {FUSED_HASH}'s")
+          f"{arm} rows differ from {FUSED_HASH}'s")
     del res
-    print(f"[staged] rows torch.equal to {FUSED_HASH}'s, zero overflow, "
-          f"{n_valid} valid rows; prepare {t_prepare * 1e3:.1f} ms; peak "
-          f"allocated (measured, {FUSED_HASH} rows held) {peak / 1e9:.2f} GB")
-    warm_batches(ex, s, "staged", exact)
-    named = profile_calls(s.run_batch, "warm run_batch",
-                          named=SCAN_KERNELS + BUCKET_KERNELS)
-    check(named == set(SCAN_KERNELS + BUCKET_KERNELS),
-          f"kernels missing from the {STAGED_SORT} warm batch's profile: "
-          f"{set(SCAN_KERNELS + BUCKET_KERNELS) - named}")
-    return dict(ex=ex, session=s, launches=launches)
+    print(f"[{tag}] rows torch.equal to {FUSED_HASH}'s, zero overflow, "
+          f"{n_valid} valid rows; prepare {t_prepare * 1e3:.1f} ms; cold "
+          f"first run_batch (eager: the graph's warm-up) "
+          f"{t_first * 1e3:.1f} ms; peak allocated (measured) "
+          f"{peak / 1e9:.2f} GB, {(peak - held) / 1e9:.2f} GB over the "
+          f"{held / 1e9:.2f} GB held before (phase 3's rows)")
+    t_warm, t_second = warm_batches(
+        ex, s, tag, exact, expected_launches(ex, fields, prepare=False))
+    pins = graph_memory(ex, tag)
+    busy = device_busy(s, arm, t_warm)
+    found = profile_calls(s.run_batch, "warm run_batch", named=named)
+    check(found == set(named), f"kernels missing from the {arm} warm "
+          f"batch's profile: {set(named) - found}")
+    return dict(ex=ex, session=s, launches=launches, summary=dict(
+        warm_ms=t_warm * 1e3, first_ms=t_first * 1e3,
+        second_ms=t_second * 1e3, peak_gb=peak / 1e9,
+        peak_over_held_gb=(peak - held) / 1e9, **pins, device_only=busy))
 
 
 def staged_kernel_checks(cell):
@@ -1437,13 +1552,11 @@ def same_rows(res, cell, label: str) -> None:
           f"{label}: rows differ from phase 3's as a multiset")
 
 
-def stream_trace(fn, n_rel: int, chunks: int) -> dict:
-    """One warm call of `fn` under torch.profiler, read from its Chrome
-    trace: each device operation's stream.  The chunked exchange's copies
-    must run on a stream that runs no scatter_pack kernel (`n_rel` x
-    `chunks` of them a call).  Returns the device time summed over
-    operations and the device busy time (the union of their intervals:
-    less than the sum where the streams overlap), in ms."""
+def device_events(fn, done) -> list[dict]:
+    """The device operations (kernels, copies, memsets) of one warm call
+    of `fn` under torch.profiler, read from its Chrome trace, each with its
+    stream; the trace is retaken up to three times until `done(events)`
+    (the profiler drops device events at times)."""
     import os
     import tempfile
     from torch.profiler import ProfilerActivity, profile
@@ -1463,22 +1576,27 @@ def stream_trace(fn, n_rel: int, chunks: int) -> dict:
         device = [e for e in events
                   if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")
                   and "stream" in e.get("args", {})]
-        pack = {e["args"]["stream"] for e in device
-                if any(name in e["name"] for name in SCATTER_KERNELS)}
-        copies: dict = {}
-        for e in device:
-            if "copy" in e["name"]:
-                st = e["args"]["stream"]
-                copies[st] = copies.get(st, 0) + 1
-        side = {st: n for st, n in copies.items() if st not in pack}
-        if pack and side:
+        if done(device):
             break
-    check(bool(pack) and bool(side), f"chunked exchange: no copy on a stream "
-          f"other than scatter_pack's (scatter_pack on {pack}, copies "
-          f"{copies})")
-    check(sorted(side.values()) == [n_rel * chunks],
-          f"chunked exchange: copies a stream {side}, expected one side "
-          f"stream with {n_rel * chunks}")
+    return device
+
+
+def _streams(device: list[dict]) -> tuple[set, dict]:
+    """(the streams scatter_pack's kernels ran on, copy kernels a
+    stream)."""
+    pack = {e["args"]["stream"] for e in device
+            if any(name in e["name"] for name in SCATTER_KERNELS)}
+    copies: dict = {}
+    for e in device:
+        if "copy" in e["name"]:
+            st = e["args"]["stream"]
+            copies[st] = copies.get(st, 0) + 1
+    return pack, copies
+
+
+def _busy(device: list[dict]) -> tuple[float, float]:
+    """(device time summed over operations, device busy time: the union
+    of their intervals, less than the sum where streams overlap), in us."""
     spans = sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"]))
                    for e in device)
     busy, end = 0.0, float("-inf")
@@ -1486,13 +1604,182 @@ def stream_trace(fn, n_rel: int, chunks: int) -> dict:
         if t1 > end:
             busy += t1 - max(t0, end)
             end = t1
-    total = sum(t1 - t0 for t0, t1 in spans)
-    print(f"[healing] 6a streams: scatter_pack's kernels on {sorted(pack)}, "
-          f"the exchange's {n_rel * chunks} copies on side stream "
-          f"{sorted(side)}; device time {total / 1e3:.2f} ms summed over "
-          f"{len(spans)} operations, busy {busy / 1e3:.2f} ms (union)")
+    return sum(t1 - t0 for t0, t1 in spans), busy
+
+
+def stream_trace(fn, n_rel: int, chunks: int) -> dict:
+    """One warm call of `fn`, an eager chunked step, under torch.profiler:
+    the chunked exchange's copies must run on a stream that runs no
+    scatter_pack kernel (`n_rel` x `chunks` of them a call).  Returns the
+    device time summed over operations and the device busy time, in ms."""
+    def done(device):
+        pack, copies = _streams(device)
+        return bool(pack) and any(st not in pack for st in copies)
+
+    device = device_events(fn, done)
+    pack, copies = _streams(device)
+    side = {st: n for st, n in copies.items() if st not in pack}
+    check(bool(pack) and bool(side), f"chunked exchange: no copy on a stream "
+          f"other than scatter_pack's (scatter_pack on {pack}, copies "
+          f"{copies})")
+    check(sorted(side.values()) == [n_rel * chunks],
+          f"chunked exchange: copies a stream {side}, expected one side "
+          f"stream with {n_rel * chunks}")
+    total, busy = _busy(device)
+    print(f"[healing] 6a eager step's streams: scatter_pack's kernels on "
+          f"{sorted(pack)}, the exchange's {n_rel * chunks} copies on side "
+          f"stream {sorted(side)}; device time {total / 1e3:.2f} ms summed "
+          f"over {len(device)} operations, busy {busy / 1e3:.2f} ms (union)")
     return dict(device_sum_ms=total / 1e3, device_busy_ms=busy / 1e3,
                 copies_on_side=n_rel * chunks)
+
+
+def replay_streams(fn) -> dict:
+    """One warm replay of the chunked step's graph (`fn`) under
+    torch.profiler: which streams CUDA gave its operations, the copy
+    kernels a stream, its device time summed and busy, and how long the
+    copies ran beside another stream's operations (ms): whether the
+    replay overlaps the exchange's copies with the packs."""
+    device = device_events(fn, lambda device: bool(_streams(device)[0]))
+    pack, copies = _streams(device)
+    check(bool(pack), "6a: the replay's trace holds no scatter_pack kernel")
+
+    def span(e):
+        return float(e["ts"]), float(e["ts"]) + float(e["dur"])
+
+    overlap = sum(max(0.0, min(c1, e1) - max(c0, e0))
+                  for c in device if "copy" in c["name"]
+                  for c0, c1 in [span(c)]
+                  for e in device if e["args"]["stream"] != c["args"]["stream"]
+                  for e0, e1 in [span(e)])
+    streams = sorted({e["args"]["stream"] for e in device})
+    total, busy = _busy(device)
+    print(f"[healing] 6a replay's streams: its operations on {streams}, "
+          f"scatter_pack's kernels on {sorted(pack)}, copy kernels a stream "
+          f"{copies}; device time {total / 1e3:.3f} ms summed over "
+          f"{len(device)} operations, busy {busy / 1e3:.3f} ms (union); "
+          f"copies beside another stream's operations {overlap / 1e3:.3f} ms")
+    return dict(replay_streams=len(streams), replay_copies=copies,
+                replay_device_sum_ms=total / 1e3,
+                replay_device_busy_ms=busy / 1e3,
+                replay_copy_overlap_ms=overlap / 1e3)
+
+
+def graph_nodes(dot: str) -> tuple[dict[str, str], list[tuple[str, str]]]:
+    """({node: its DOT text}, [(from, to), ...]) of a CUDA graph written
+    by `cudaGraphDebugDotPrint`."""
+    import re
+    nodes, edges = {}, []
+    starts = [m for m in re.finditer(r'"([^"]+)"\s*\[', dot)
+              if not dot[:m.start()].rstrip().endswith("->")]
+    for m, nxt in zip(starts, starts[1:] + [None]):
+        nodes[m.group(1)] = dot[m.end():nxt.start() if nxt else len(dot)]
+    edges = re.findall(r'"([^"]+)"(?::\w+)?\s*->\s*"([^"]+)"', dot)
+    return nodes, edges
+
+
+def exchange_graph(ex, s, n_rel: int, chunks: int) -> dict:
+    """The chunked step captured once more through the executor's own
+    capture (`_GraphStep`), CUDA's graph kept (`keep_graph=True`) and
+    written as DOT, then its exchange read from the nodes and edges.  P_j,
+    the pack of chunk j (j = 0 .. n_rel·chunks - 1, relation-major), is
+    the graph's j-th scatter_rank_kernel node in dependency order; X_j, its
+    exchange copy, a copy kernel whose latest pack ancestor is P_j.  For
+    every chunk but the last of a relation there must be exactly one such
+    copy that P_{j+1} neither waits for nor precedes: the copy forked off
+    beside the next pack.  The last chunk's copy is the one copy kernel
+    after X_{j-1} with P_j its latest pack that precedes every other such
+    copy (the side stream's chain; nothing is left to overlap with).  So
+    exactly n_rel x chunks exchange copies, each after its own pack and no
+    later one.  A step captured on one stream fails."""
+    import os
+    import tempfile
+    from repro_torch.core.executor import _GraphStep
+    cfg = ex.config
+    caps = tuple(int(s.caps[r.name]) for r in ex.query.relations)
+    cap_out = cfg.out_capacity if s.cap_out is None else int(s.cap_out)
+    step = _GraphStep(ex, caps, cap_out)
+    real = torch.cuda.CUDAGraph
+    torch.cuda.CUDAGraph = lambda: real(keep_graph=True)
+    try:
+        step._capture(ex, s._ptable, list(s._device_args))
+    finally:
+        torch.cuda.CUDAGraph = real
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "step.dot")
+        step.graph.debug_dump(path)
+        with open(path) as f:
+            dot = f.read()
+    del step
+    nodes, edges = graph_nodes(dot)
+    names = list(nodes)
+    index = {n: i for i, n in enumerate(names)}
+    parents = [[] for _ in names]
+    for a, b in edges:
+        if a in index and b in index:
+            parents[index[b]].append(index[a])
+    anc = [None] * len(names)            # bitset of each node's ancestors
+
+    def ancestors(i):
+        stack = [i]
+        while stack:
+            j = stack[-1]
+            todo = [p for p in parents[j] if anc[p] is None]
+            if todo:
+                stack.extend(todo)
+                continue
+            stack.pop()
+            if anc[j] is None:
+                bits = 0
+                for p in parents[j]:
+                    bits |= anc[p] | (1 << p)
+                anc[j] = bits
+        return anc[i]
+
+    for i in range(len(names)):
+        ancestors(i)
+    packs = [i for i, n in enumerate(names)
+             if "scatter_rank_kernel" in nodes[n]]
+    packs.sort(key=lambda i: bin(anc[i]).count("1"))
+    copy_nodes = [i for i, n in enumerate(names)
+                  if "copy" in nodes[n].lower()
+                  and not any(k in nodes[n] for k in SCATTER_KERNELS)]
+    total = n_rel * chunks
+
+    def diagnose(msg):
+        print(dot[:4000])
+        fail(f"6a graph: {msg} ({len(names)} nodes, {len(edges)} edges, "
+             f"{len(packs)} packs, {len(copy_nodes)} copy kernels)")
+
+    if len(packs) != total or any(not anc[b] >> a & 1
+                                  for a, b in zip(packs, packs[1:])):
+        diagnose(f"expected {total} scatter_rank_kernel nodes in one chain")
+
+    def latest_pack(c):
+        got = [j for j, p in enumerate(packs) if anc[c] >> p & 1]
+        return max(got) if got else -1
+
+    last = {c: latest_pack(c) for c in copy_nodes}
+    exchange = []
+    for j in range(total):
+        own = [c for c in copy_nodes if last[c] == j]
+        if (j + 1) % chunks:
+            nxt = packs[j + 1]
+            x = [c for c in own if not anc[nxt] >> c & 1
+                 and not anc[c] >> nxt & 1]
+        else:
+            after = [c for c in own if anc[c] >> exchange[-1] & 1]
+            x = [c for c in after
+                 if all(anc[o] >> c & 1 for o in after if o != c)]
+        if len(x) != 1:
+            diagnose(f"chunk {j}: {len(x)} exchange copies, expected 1")
+        exchange.append(x[0])
+    print(f"[healing] 6a graph: {len(names)} nodes, {len(edges)} edges; "
+          f"{total} packs in one chain and exactly {total} exchange copies, "
+          f"each after its own chunk's pack and before no later one; every "
+          f"copy but a relation's last runs beside the next pack "
+          f"(neither waits for the other)")
+    return dict(graph_nodes=len(names), graph_exchange_copies=len(exchange))
 
 
 def self_healing(dev, cell):
@@ -1527,9 +1814,16 @@ def self_healing(dev, cell):
           f"6a caps {s.caps} are not ⌈{serial_caps} / {chunks}⌉")
     same_rows(res, cell, "6a")
     del res
-    t_chunked = warm_batches(ex, s, "healing 6a", cell["exact"])
+    t_chunked, _ = warm_batches(
+        ex, s, "healing 6a", cell["exact"],
+        expected_launches(ex, ARMS[FUSED_HASH], chunks, prepare=False))
     n_rel = len(plan.query.relations)
-    trace = stream_trace(s.run_batch, n_rel, chunks)
+    caps_t = tuple(int(s.caps[r.name]) for r in plan.query.relations)
+    cap_out = cell["cap_out"] if s.cap_out is None else int(s.cap_out)
+    trace = stream_trace(lambda: ex._step(s._ptable, s._device_args, caps_t,
+                                          cap_out), n_rel, chunks)
+    trace.update(replay_streams(s.run_batch))
+    trace.update(exchange_graph(ex, s, n_rel, chunks))
     out["chunked"] = dict(chunks=chunks, caps=s.caps, launches={
         k: v for k, v in launches.items() if v},
         median_ms=t_chunked * 1e3, serial_median_ms=cell["t_warm"] * 1e3,
@@ -1545,8 +1839,11 @@ def self_healing(dev, cell):
     # 6b. Overflow: caps squeezed to an eighth heal by bounded retry.
     ex = ShardedJoinExecutor(plan, n_dev, ExecutorConfig(
         out_capacity=cell["cap_out"]), device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     clean = ex.session().prepare(data)
-    clean.run_batch()
+    for _ in range(2):                 # the eager warm-up, the capture
+        clean.run_batch()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     r = clean.run_batch()
@@ -1586,12 +1883,16 @@ def self_healing(dev, cell):
     except RetryBudgetExceededError as err:
         check("retry budget exhausted" in str(err) and "dev " in str(err),
               f"6b: the budget error names no device: {err}")
+    peak = torch.cuda.max_memory_allocated()
+    pins = graph_memory(ex, "healing 6b")
     out["overflow"] = dict(squeeze=HEALING["squeeze"], caps=caps,
                            healed_caps=dict(eng.session.caps),
                            retries=st["retries"],
                            escalations=st["escalations"],
                            dropped_copies=int(st["shuffle_overflow"].sum()),
-                           healed_ms=t_healed * 1e3, clean_ms=t_clean * 1e3)
+                           healed_ms=t_healed * 1e3, clean_ms=t_clean * 1e3,
+                           builds=ex.compile_count, peak_gb=peak / 1e9,
+                           **pins)
     print(f"[healing] 6b caps squeezed x{HEALING['squeeze']} {caps} -> "
           f"{dict(eng.session.caps)}: {st['retries']} retries, "
           f"{st['escalations']} escalations, "
@@ -1599,7 +1900,9 @@ def self_healing(dev, cell):
           f"attempts, rows == phase 3's; time to recover (the healed batch) "
           f"{t_healed * 1e3:.1f} ms against a clean warm batch's "
           f"{t_clean * 1e3:.1f} ms; a second session walked the ladder with "
-          f"no step built; max_retries=0 raised RetryBudgetExceededError")
+          f"no step built; max_retries=0 raised RetryBudgetExceededError; "
+          f"{ex.compile_count} steps built, peak allocated over 6b "
+          f"{peak / 1e9:.2f} GB")
     del eng
     torch.cuda.empty_cache()
 
@@ -1628,7 +1931,9 @@ def self_healing(dev, cell):
           f"6c: recv_counts {recv.tolist()}")
     same_rows(res, cell, "6c")
     del res
-    t_degraded = warm_batches(ex, eng.session, "healing 6c", cell["exact"])
+    t_degraded, _ = warm_batches(
+        ex, eng.session, "healing 6c", cell["exact"],
+        expected_launches(ex, ARMS[FUSED_HASH], prepare=False), None)
     out["device_loss"] = dict(
         evicted=list(eng.evicted), batches_to_evict=batches,
         refolds=eng.refolds, refold_compiles=eng.refold_compiles,
@@ -2000,6 +2305,13 @@ def multi_tenant(dev, cell):
     wall = sum(w["wall_s"] for w in windows)
     rates = [w["requests_per_s"] for w in windows]
     peak = max(peaks)
+    # What the engines' captured steps hold once every request is drained.
+    graphs = {name: sum(e.captures for e in eng.cache._executors.values())
+              for name, eng in (("small", small), ("full", full))}
+    torch.cuda.empty_cache()
+    held = dict(graphs=graphs,
+                allocated_gb=torch.cuda.memory_allocated() / 1e9,
+                reserved_gb=torch.cuda.memory_reserved() / 1e9)
     out["steady"] = dict(
         requests=n_steady, wall_s=wall, requests_per_s=n_steady / wall,
         p50_ms=float(np.percentile(lat, 50)),
@@ -2011,7 +2323,7 @@ def multi_tenant(dev, cell):
         full_copy_ms=[r.copy_s * 1e3 for r in full_reqs],
         small_cache=small.cache.stats, full_cache=full.cache.stats,
         tenants={**small.stats["tenants"], **full.stats["tenants"]},
-        peak_gb=peak / 1e9)
+        peak_gb=peak / 1e9, held=held)
     print(f"[serve] 8a steady: {n_steady} mixed requests in "
           f"{SERVE['windows']} windows of {SERVE['steady']}, "
           f"{wall * 1e3:.1f} ms = {n_steady / wall:.1f} requests/s, p50 "
@@ -2031,7 +2343,9 @@ def multi_tenant(dev, cell):
           f" + rows to the host "
           f"{', '.join(f'{x:.1f}' for x in out['steady']['full_copy_ms'])}"
           f" ms; rows == phase 3's; peak while serving {peak / 1e9:.2f} "
-          f"GB (the checks' copies apart)")
+          f"GB (the checks' copies apart); graphs held {graphs}, allocated "
+          f"{held['allocated_gb']:.2f} GB, reserved {held['reserved_gb']:.2f} "
+          f"GB after the drains")
     del small, full, first, warm_full, full_reqs
     torch.cuda.empty_cache()
 
@@ -2847,7 +3161,13 @@ def main() -> int:
     cell["caps"], cell["table"] = dict(s.caps), s.placement.table.copy()
     del s, cell["ex"]
     torch.cuda.empty_cache()
-    staged = staged_cell(dev, cell)
+    fused_sort = arm_cell(dev, cell, "fused+sort",
+                          SCATTER_KERNELS + SCAN_KERNELS)
+    cell["arms"]["fused+sort"] = fused_sort["summary"]
+    del fused_sort
+    torch.cuda.empty_cache()
+    staged = arm_cell(dev, cell, STAGED_SORT, SCAN_KERNELS + BUCKET_KERNELS)
+    cell["arms"][STAGED_SORT] = staged["summary"]
     cell["sorted"] = packed_rows(cell.pop("rows"), cell.pop("valid"))
     torch.cuda.empty_cache()
     results.update(staged_kernel_checks(staged))
@@ -2866,6 +3186,7 @@ def main() -> int:
     serving = multi_tenant(dev, cell)
     print(f"[serve] phase 8 took {time.perf_counter() - t8:.1f} s")
     del cell["sorted"]
+    cell_arms = cell.pop("arms")
     torch.cuda.empty_cache()
     moderate_checks(dev)
     del cell
@@ -2909,6 +3230,7 @@ def main() -> int:
     check(all(kn["launches"] > 0 for kn in kernels), "a kernel never launched")
     print(f"[done] all phases passed in {t_end - t_start:.1f} s (phases 7, "
           f"9 and 10 {t_end - t7:.1f} s)")
+    print(json.dumps({"join_arms": cell_arms}))
     print(json.dumps({"self_healing": healing}))
     print(json.dumps({"adaptation": adapt}))
     print(json.dumps({"join_serving": serving}))

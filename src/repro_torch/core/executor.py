@@ -47,11 +47,38 @@ devices without building a step (`cell_loads`, `refold`), observe any
 resident batch (`count_batch`) and keep lifetime fault counters (`stats`,
 drained lazily so a warm loop never waits on the card);
 `serve.engine.SelfHealingSession` drives them.
+
+The step cache.  On the card with `use_kernels=True` a step is a CUDA
+graph, the counterpart of the reference's jitted executable.  A key's
+first `run_batch` runs the step eagerly and returns its result: the
+warm-up, which makes each kernel's first call (the library's nvcc build,
+its attributes, the route descriptors' uploads, the chunked exchange's
+stream).  Its second captures the whole map -> exchange -> reduce step,
+every relation and every chunk of the chunked exchange with its side
+stream's fork and join, into one `torch.cuda.CUDAGraph` in the
+executor's memory pool, then replays it.  The graph keeps its static
+inputs (the (k,) placement table and each relation's rows), its static
+outputs and the descriptors its kernels read.  Every later `run_batch`
+copies the session's table and relations into the static inputs and
+replays: no hand-written kernel is launched from the host.  Before a
+replay every live `BatchResult` of the executor's graphs gets its own
+copy of its tensors (copy-on-replay), since the replay overwrites the
+static outputs.  `compile_count` counts builds (one per new key, as the
+reference's compilations), `captures` the graphs captured (keys used
+twice or more: a rung of a retry ladder that runs once pins no memory),
+`step_hits` lookups of a cached step, `evicted_steps` steps dropped by
+the `max_cached_steps` LRU, which frees a graph's outputs.  The table is
+an input, so re-placing builds nothing.  A capture that fails raises.
+Everything else, the CPU and the plain versions on the card
+(`use_kernels=False`, the tests' oracles, which read back to the host),
+runs the step eagerly under the same counters.
 """
 from __future__ import annotations
 
 import collections.abc
+import functools
 import warnings
+import weakref
 from dataclasses import dataclass
 from typing import Mapping
 
@@ -60,7 +87,8 @@ import torch
 
 from ..kernels import ops
 from ..kernels.join_probe import default_bits
-from ..kernels.map_pack import count_scatter
+from ..kernels.map_pack import count_scatter, scatter_desc_tensor
+from ..kernels.route_cells import recipe_desc
 from .hypercube import hash_seed
 from .placement import (CellPlacement, check_fold, modulo_placement,
                         place_cells)
@@ -295,6 +323,21 @@ def resolve_device(device=None) -> torch.device:
 # Staged map (fuse_map=False)
 # ---------------------------------------------------------------------------
 
+@functools.lru_cache(maxsize=256)
+def _route_tensors(routes, device: torch.device) -> tuple:
+    """Per route of the staged map, (the not-in constraints' HH values,
+    one tensor a column; the replication offsets; on the card the
+    router's descriptor of its hashed axes, else None), uploaded once per
+    (routes, device) as `scatter_desc_tensor` is.  A captured step holds
+    them: nothing is uploaded during a capture."""
+    return tuple(
+        (tuple(torch.tensor(vals, dtype=torch.int32, device=device)
+               for _, vals in notins),
+         torch.tensor(reps, dtype=torch.int32, device=device),
+         recipe_desc(hashed, device) if device.type == "cuda" else None)
+        for hashed, reps, _, _, notins in routes)
+
+
 def _route_copies(rows: torch.Tensor, routes, k: int, use_kernels: bool
                   ) -> tuple[torch.Tensor, torch.Tensor]:
     """(logical (n, F), dest (n, F)) of rows (n, w) over every route:
@@ -303,18 +346,18 @@ def _route_copies(rows: torch.Tensor, routes, k: int, use_kernels: bool
     n = rows.shape[0]
     member_base = rows[:, 0] != INVALID
     logical_cols, dest_cols = [], []
-    for hashed, reps, offset, eqs, notins in routes:
+    for (hashed, _, offset, eqs, notins), (hhs, reps_t, desc) in zip(
+            routes, _route_tensors(routes, rows.device)):
         member = member_base
         for col, val in eqs:
             member = member & (rows[:, col] == val)
-        for col, vals in notins:
-            hh = torch.tensor(vals, dtype=rows.dtype, device=rows.device)
+        for (col, _), hh in zip(notins, hhs):
             member = member & ~(rows[:, col][:, None] == hh[None, :]).any(1)
         if hashed:
-            base = ops.route_cells(rows, hashed, use_kernels=use_kernels)
+            base = ops.route_cells(rows, hashed, use_kernels=use_kernels,
+                                   desc=desc)
         else:
             base = torch.zeros(n, dtype=torch.int32, device=rows.device)
-        reps_t = torch.tensor(reps, dtype=torch.int32, device=rows.device)
         logical = base[:, None] + reps_t[None, :] + offset
         logical_cols.append(torch.where(member[:, None], logical, INVALID))
         dest_cols.append(torch.where(member[:, None], logical % k, INVALID))
@@ -408,6 +451,12 @@ def step_columns(acc_attrs: list[str], right_attrs: list[str],
     return cols, attrs
 
 
+def _columns(x: torch.Tensor, cols) -> torch.Tensor:
+    """x[..., cols] for a list of column indices, contiguous: stacked from
+    views, so no index list is uploaded (a host copy cannot be captured)."""
+    return torch.stack([x[..., c] for c in cols], -1)
+
+
 def _rows_at(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """x (B, n, w) gathered at row indices idx (B, m) -> (B, m, w)."""
     return torch.gather(x, 1, idx[..., None].expand(-1, -1, x.shape[2]))
@@ -498,8 +547,8 @@ def _local_join(frags: dict[str, torch.Tensor], query: JoinQuery,
         right_attrs = list(rel.attrs) + ["__cell__"]
         r_valid = right[..., -1] != INVALID
         lcols, rcols = shared_columns(acc_attrs, right_attrs)
-        lk = acc[..., lcols].contiguous()
-        rk = right[..., rcols].contiguous()
+        lk = _columns(acc, lcols)
+        rk = _columns(right, rcols)
         if hash_reduce:
             counts, lo, perm = _probe_hash(lk, acc_valid, rk, r_valid,
                                            use_kernels, hash_bits)
@@ -515,7 +564,7 @@ def _local_join(frags: dict[str, torch.Tensor], query: JoinQuery,
                                          cap_out, cols=tuple(cols),
                                          use_kernels=use_kernels)
     if len(rels) == 1:
-        acc = acc[..., [acc_attrs.index(a) for a in query.attributes]]
+        acc = _columns(acc, [acc_attrs.index(a) for a in query.attributes])
     return acc, acc_valid, overflow
 
 
@@ -617,7 +666,13 @@ class ShardedJoinExecutor:
         self.compile_count = 0          # step builds (one per distinct key)
         self.step_hits = 0              # warm step lookups (no build)
         self.evicted_steps = 0          # steps dropped by the LRU bound
+        self.captures = 0               # steps captured as CUDA graphs
         self._copy_stream = None        # the chunked exchange's side stream
+        self._graph_pool = None         # memory pool of the captured steps
+        # BatchResults holding a captured step's outputs: copied before the
+        # next replay of any of the executor's graphs (they share a pool).
+        self._live_results: weakref.WeakValueDictionary = \
+            weakref.WeakValueDictionary()     # id -> BatchResult
 
     # -- control plane ------------------------------------------------------
     def _shard(self, arr: np.ndarray) -> np.ndarray:
@@ -652,7 +707,8 @@ class ShardedJoinExecutor:
     def _compiled_step(self, shapes: tuple, caps: Mapping[str, int],
                        cap_out: int | None = None):
         """The map -> exchange -> reduce step of one (shapes, caps, cap_out)
-        signature, from the LRU step cache or newly built."""
+        signature, from the LRU step cache or newly built: a `_GraphStep`
+        on the card with kernels, else the eager step."""
         cfg = self.config
         cap_out = cfg.out_capacity if cap_out is None else int(cap_out)
         caps_t = tuple(int(caps[r.name]) for r in self.query.relations)
@@ -662,16 +718,17 @@ class ShardedJoinExecutor:
             self._step_cache[key] = f     # re-insert: LRU, not FIFO
             self.step_hits += 1
             return f
-
-        def step(ptable: torch.Tensor, *arrs: torch.Tensor):
-            return self._step(ptable, arrs, caps_t, cap_out)
-
         while len(self._step_cache) >= max(int(cfg.max_cached_steps), 1):
             self._step_cache.pop(next(iter(self._step_cache)))
             self.evicted_steps += 1
-        self._step_cache[key] = step
+        if self.device.type == "cuda" and cfg.use_kernels:
+            f = _GraphStep(self, caps_t, cap_out)
+        else:
+            def f(ptable: torch.Tensor, *arrs: torch.Tensor):
+                return self._step(ptable, arrs, caps_t, cap_out)
+        self._step_cache[key] = f
         self.compile_count += 1
-        return step
+        return f
 
     def _step(self, ptable: torch.Tensor, arrs, caps: tuple[int, ...],
               cap_out: int):
@@ -743,7 +800,10 @@ class ShardedJoinExecutor:
             side.wait_stream(cur)          # an event after chunk ci's pack
             with torch.cuda.stream(side):
                 slices[:, ci].copy_(buf.transpose(0, 1))
-            buf.record_stream(side)        # not reused before the copy ends
+            # Not reused before the copy ends.  Under capture the allocator
+            # holds the block until the capture ends, so no later chunk of
+            # the graph is packed into it either.
+            buf.record_stream(side)
         if rows.is_cuda:
             cur.wait_stream(side)          # the reduce reads every slice
         return frag, over
@@ -763,13 +823,74 @@ class ShardedJoinExecutor:
         return res["rows"][res["valid"]]
 
 
+class _GraphStep:
+    """One (shapes, caps, cap_out) step on the card, built as a CUDA graph.
+
+    The first call runs the step eagerly and returns that run's own
+    tensors.  It is the warm-up, where each kernel's first call happens
+    (the library's build, its attributes, the route descriptors' uploads,
+    the chunked exchange's stream), so a key run once, as most rungs of a
+    retry ladder are, is never captured.  The second call captures the
+    step into the executor's graph pool, with static inputs (the (k,)
+    placement table, then each relation's (n, w) rows) cloned from its
+    arguments, and replays it; every later call copies its arguments into
+    the static inputs and replays.  Before either, each live result of the
+    executor's graphs gets tensors of its own (copy-on-replay: the graphs
+    share a pool, so a replay may write over any of their outputs).
+    `held` keeps the route descriptors that the kernels read by address.
+    A capture that fails raises."""
+
+    def __init__(self, ex: "ShardedJoinExecutor", caps: tuple[int, ...],
+                 cap_out: int):
+        self._ex = weakref.ref(ex)      # the executor's cache holds the step
+        self.caps, self.cap_out = caps, cap_out
+        self.warm = False
+        self.graph = self.inputs = self.outputs = self.held = None
+
+    def __call__(self, ptable: torch.Tensor, *arrs: torch.Tensor):
+        ex = self._ex()
+        if not self.warm:
+            out = ex._step(ptable, arrs, self.caps, self.cap_out)
+            self.warm = True
+            return out
+        for res in list(ex._live_results.values()):
+            res._own_tensors()
+        ex._live_results.clear()
+        if self.graph is None:
+            self._capture(ex, ptable, arrs)
+        else:
+            for dst, src in zip(self.inputs, (ptable, *arrs)):
+                dst.copy_(src)
+        self.graph.replay()
+        return self.outputs
+
+    def _capture(self, ex: "ShardedJoinExecutor", ptable: torch.Tensor,
+                 arrs) -> None:
+        dev = ptable.device
+        self.inputs = [ptable.clone()] + [a.clone() for a in arrs]
+        self.held = [scatter_desc_tensor(spec, dev) if ex.config.fuse_map
+                     else _route_tensors(spec, dev)
+                     for spec in ex.route_specs.values()]
+        if ex._graph_pool is None:
+            ex._graph_pool = torch.cuda.graph_pool_handle()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, pool=ex._graph_pool):
+            self.outputs = ex._step(self.inputs[0], self.inputs[1:],
+                                    self.caps, self.cap_out)
+        self.graph = graph
+        ex.captures += 1
+
+
 class BatchResult(collections.abc.Mapping):
     """Result of one `run_batch`: a read-only Mapping with the keys 'rows',
     'valid', 'shuffle_overflow', 'shuffle_overflow_by_rel', 'join_overflow'
     and 'recv_counts'.  Each value is copied to the host as numpy on first
     access and cached, so a loop that never reads a key never waits for the
     device.  `tensors` keeps the device tensors (rows, valid, shuffle
-    overflow by relation, join overflow, received rows)."""
+    overflow by relation, join overflow, received rows).  A result of a
+    captured step holds the graph's outputs until the next replay, which
+    first gives it copies of its own: read them through `tensors`, not
+    from a reference taken earlier."""
 
     _KEYS = ("rows", "valid", "shuffle_overflow", "shuffle_overflow_by_rel",
              "join_overflow", "recv_counts")
@@ -797,6 +918,9 @@ class BatchResult(collections.abc.Mapping):
                 val = recv.cpu().numpy()
             self._cache[key] = val
         return self._cache[key]
+
+    def _own_tensors(self) -> None:
+        self.tensors = tuple(t.clone() for t in self.tensors)
 
     def __iter__(self):
         return iter(self._KEYS)
@@ -1032,12 +1156,18 @@ class ExecutorSession:
                 f"re-prepare() to re-derive shapes/placement/capacities",
                 UserWarning, stacklevel=2)
         f = ex._compiled_step(shapes, self.caps, self.cap_out)
-        out, valid, sh_over, j_over, recv = f(self._ptable, *args)
+        res = BatchResult(*f(self._ptable, *args))
+        sh_over, j_over = res.tensors[2:4]
+        if isinstance(f, _GraphStep) and f.graph is not None:
+            # The next replay overwrites the graph's outputs: the result is
+            # copied before it, and the overflow parked for `stats` now.
+            ex._live_results[id(res)] = res
+            sh_over, j_over = sh_over.clone(), j_over.clone()
         self._stats["batches"] += 1
         self._pending.append((sh_over, j_over))
         if len(self._pending) >= self._PENDING_MAX:
             self._drain_stats()
-        return BatchResult(out, valid, sh_over, j_over, recv)
+        return res
 
     def run_with_retry(self, chunks: Mapping[str, np.ndarray] | None = None,
                        policy: RetryPolicy | None = None):
@@ -1076,6 +1206,7 @@ class ExecutorSession:
                     ex.config.cap_bucket)
                 self._stats["escalations"] += 1
             self._stats["retries"] += 1
+            res = None      # dropped, not copied before the re-run's replay
             res = self.run_batch(chunks)
             attempt += 1
         return res

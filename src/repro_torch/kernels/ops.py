@@ -111,11 +111,12 @@ def expand_rows(left: torch.Tensor, right: torch.Tensor, counts: torch.Tensor,
     return sp.expand_rows_host(left, right, counts, lo, perm, cap, cols)
 
 
-def route_cells(rows: torch.Tensor, recipe, *, use_kernels: bool = True
-                ) -> torch.Tensor:
-    """(n,) hypercube base cell of rows (n, w)."""
+def route_cells(rows: torch.Tensor, recipe, *, use_kernels: bool = True,
+                desc: torch.Tensor | None = None) -> torch.Tensor:
+    """(n,) hypercube base cell of rows (n, w); `desc`, the kernel's
+    descriptor of `recipe` on the card, if the caller holds it."""
     if _on_card(rows, use_kernels):
-        return rc.route_cells_cuda(rows, recipe)
+        return rc.route_cells_cuda(rows, recipe, desc)
     return rc.route_cells_host(rows, recipe)
 
 

@@ -35,17 +35,24 @@ def route_cells_host(rows: torch.Tensor, recipe) -> torch.Tensor:
     return route_cells_ref(rows, recipe)
 
 
-@functools.lru_cache(maxsize=256)
-def _recipe_desc(recipe, device: torch.device) -> torch.Tensor:
+def recipe_desc(recipe, device: torch.device) -> torch.Tensor:
     """The recipe's non-trivial axes as (col, seed, bits, stride) int64
-    records, uploaded once per (recipe, device)."""
+    records on `device`: the router's descriptor."""
     words = [x for col, seed, share, stride in recipe if share != 1
              for x in (col, seed, share.bit_length() - 1, stride)]
     return torch.tensor(words, dtype=torch.int64, device=device)
 
 
-def route_cells_cuda(rows: torch.Tensor, recipe) -> torch.Tensor:
-    """Launch csrc/route_cells.cu's router: one thread per row."""
+# Uploaded once per (recipe, device).
+_recipe_desc = functools.lru_cache(maxsize=256)(recipe_desc)
+
+
+def route_cells_cuda(rows: torch.Tensor, recipe,
+                     desc: torch.Tensor | None = None) -> torch.Tensor:
+    """Launch csrc/route_cells.cu's router: one thread per row.  `desc` is
+    `recipe_desc(recipe, rows.device)` where the caller holds it (a
+    captured step must: nothing is uploaded during a capture), else it
+    comes from a cache."""
     _check_recipe(recipe)
     rows = _build.as_i32(rows, "rows")
     n, w = rows.shape
@@ -55,7 +62,8 @@ def route_cells_cuda(rows: torch.Tensor, recipe) -> torch.Tensor:
     out = torch.empty(n, dtype=torch.int32, device=rows.device)
     if n == 0:
         return out
-    desc = _recipe_desc(tuple(recipe), rows.device)
+    if desc is None:
+        desc = _recipe_desc(tuple(recipe), rows.device)
     _build.call("route_cells_launch", rows.data_ptr(), n, w, desc.data_ptr(),
                 desc.numel() // 4, out.data_ptr(), _build.stream(rows))
     return out

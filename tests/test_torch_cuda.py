@@ -5,6 +5,9 @@ skips without one.  Run them on the GPU machine with
 `PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py`.
 Outputs are int32 data-plane values, so the bar is bit equality.
 """
+import importlib.util
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -30,6 +33,11 @@ from test_torch_kernels_expand import rows as expand_rows_of
 from test_torch_kernels_match import keys_with_home, shared_limit
 
 pytestmark = pytest.mark.cuda
+
+_SPEC = importlib.util.spec_from_file_location(
+    "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+CHIP_SMOKE = importlib.util.module_from_spec(_SPEC)
+_SPEC.loader.exec_module(CHIP_SMOKE)
 
 
 @pytest.fixture(scope="module")
@@ -996,6 +1004,17 @@ ARM_KERNELS = {
 }
 
 
+def expected_launches(ex, chunks: int = 1, prepare: bool = True
+                      ) -> dict[str, int]:
+    """chip_smoke.py's exact launches on `ex`'s arm of one prepare and a
+    key's first run_batch, which runs the step eagerly; with
+    `prepare=False`, of one pass through the step alone (the key's second
+    run_batch, which captures it)."""
+    return CHIP_SMOKE.expected_launches(
+        ex, {"fuse_map": ex.config.fuse_map,
+             "hash_reduce": ex.config.hash_reduce}, chunks, prepare)
+
+
 @pytest.mark.parametrize("fuse_map,hash_reduce", list(ARM_KERNELS))
 @pytest.mark.parametrize("q,skew,k", [
     (two_way(), {"B": 1.5}, 64),
@@ -1003,6 +1022,8 @@ ARM_KERNELS = {
     (chain_query(4), {"X2": 1.2}, 64),
 ])
 def test_executor_on_card(dev, q, skew, k, fuse_map, hash_reduce):
+    """Each arm launches exactly its hand kernels (the counting pass and
+    one eager step: a key's first batch), the plain versions none."""
     data = skewed_join_dataset(q, 200, 60, skew=skew, seed=3)
     plan = plan_skew_join(q, data, k)
     results = []
@@ -1018,6 +1039,8 @@ def test_executor_on_card(dev, q, skew, k, fuse_map, hash_reduce):
         launched = {name for name in ops.KERNELS if ops.LAUNCHES[name] > 0}
         want = ARM_KERNELS[fuse_map, hash_reduce] if use_kernels else set()
         assert launched == want, ops.LAUNCHES
+        if use_kernels:
+            assert ops.LAUNCHES == expected_launches(ex)
     kern, plain = results
     for key in kern:
         np.testing.assert_array_equal(kern[key], plain[key])
@@ -1492,6 +1515,227 @@ def test_retry_and_refold_on_card_equal_cpu(dev):
             _all_keys_equal(got, want)
         else:
             np.testing.assert_array_equal(got, want)
+
+
+# The captured step (a CUDA graph a (shapes, caps, cap_out) key) against
+# the same plan and data run eagerly on the CPU.
+def _counters(ex):
+    return ex.compile_count, ex.step_hits, ex.evicted_steps
+
+
+def _permuted(placement, shift=3):
+    """The placement with its devices relabelled (d -> d + shift mod n):
+    the same per-device loads, so the same derived caps, another table."""
+    from repro_torch.core.placement import CellPlacement
+    return CellPlacement((placement.table + shift) % placement.n_devices,
+                         placement.n_devices)
+
+
+@pytest.mark.parametrize("fuse_map,hash_reduce", list(ARM_KERNELS))
+@pytest.mark.parametrize("chunks", [1, 2, 7])
+def test_graph_step_equals_cpu(dev, fuse_map, hash_reduce, chunks):
+    """A key's first batch runs the step eagerly, its second captures one
+    graph (each step kernel launched once more) and replays it, a third
+    replays it and launches nothing from the host; all three results are
+    the CPU run's bit for bit."""
+    from repro_torch.core.executor import _GraphStep
+    data, plan = _healing_case()
+    results = []
+    for device in (dev, "cpu"):
+        cfg = ExecutorConfig(out_capacity=1 << 16, overlap_shuffle=chunks,
+                             fuse_map=fuse_map, hash_reduce=hash_reduce)
+        ex = ShardedJoinExecutor(plan, 8, cfg, device=device)
+        ops.reset_launches()
+        s = ex.session().prepare(data)
+        got = [s.run_batch()]
+        launches = [dict(ops.LAUNCHES)]
+        for _ in range(2):
+            got.append(s.run_batch())
+            launches.append(dict(ops.LAUNCHES))
+        assert _counters(ex) == (1, 2, 0)
+        results.append(got)
+        if device is dev:
+            (step,) = ex._step_cache.values()
+            assert isinstance(step, _GraphStep) and ex.captures == 1
+            once = expected_launches(ex, max(chunks, 1), prepare=False)
+            assert launches[0] == expected_launches(ex, max(chunks, 1))
+            assert {k: launches[1][k] - launches[0][k]
+                    for k in launches[0]} == once
+            assert launches[2] == launches[1]
+        else:
+            assert ex.captures == 0
+    for got, want in zip(*results):
+        _all_keys_equal(got, want)
+    last = results[0][-1]
+    np.testing.assert_array_equal(
+        canonical(last["rows"][last["valid"]]),
+        reference_join(two_way(), data))
+
+
+def _graph_counter_trail(device):
+    """prepare, two batches, a refold onto relabelled devices (same caps:
+    no build), then a retry from R's cap halved (the halved key built,
+    the escalation back to the prepared caps a replay): counters, caps
+    and results after each, and the executor."""
+    data, plan = _healing_case()
+    ex = ShardedJoinExecutor(plan, 8, ExecutorConfig(out_capacity=1 << 16,
+                                                     capacity_factor=1.0),
+                             device=device)
+    s = ex.session().prepare(data)
+    caps = dict(s.caps)
+    trail = [_counters(ex)]
+    for _ in range(2):
+        res = s.run_batch()
+        trail += [_counters(ex), {key: res[key] for key in res}]
+    s.refold(_permuted(s.placement))
+    assert s.caps == caps
+    res = s.run_batch()
+    trail += [_counters(ex), {key: res[key] for key in res}]
+    s.caps["R"] = caps["R"] // 2
+    res = s.run_with_retry()
+    trail += [_counters(ex), dict(s.caps), s.stats["retries"],
+              s.stats["escalations"], {key: res[key] for key in res}]
+    return trail, ex
+
+
+def test_graph_step_counters_through_refold_and_retry(dev):
+    """compile_count counts builds, step_hits lookups of a cached step:
+    prepare builds nothing, the first batch builds the step (run eagerly),
+    the second captures it; a refold builds none (the table is an input)
+    and replays; a retry escalating one cap builds its one new key, which
+    runs once and is never captured.  The same counters and results as
+    the CPU run."""
+    (card, ex), (cpu, _) = _graph_counter_trail(dev), _graph_counter_trail(
+        "cpu")
+    assert card[0] == (0, 0, 0) and card[1] == (1, 0, 0)
+    assert card[3] == (1, 1, 0) and card[5] == (1, 2, 0)
+    assert card[7] == (2, 3, 0) and card[9] == 1
+    assert ex.captures == 1
+    for got, want in zip(card, cpu):
+        if isinstance(got, dict) and "rows" in got:
+            _all_keys_equal(got, want)
+        else:
+            assert got == want
+
+
+def _held_results(device):
+    """Three batches of one session, all results held before any is read:
+    the prepared data, the same rows in another order, the prepared data
+    (the first run eagerly, the second a capture, the third a replay)."""
+    data, plan = _healing_case()
+    rng = np.random.default_rng(1)
+    other = {name: rows[rng.permutation(len(rows))]
+             for name, rows in data.items()}
+    ex = ShardedJoinExecutor(plan, 8, ExecutorConfig(out_capacity=1 << 16),
+                             device=device)
+    s = ex.session().prepare(data)
+    first = s.run_batch()
+    second = s.run_batch(other)
+    third = s.run_batch()
+    return [first, second, third], ex
+
+
+def test_graph_results_held_at_once_stay_right(dev):
+    """A replay overwrites the graph's outputs, so each live result gets
+    its own copy first: results held across later batches keep their own
+    rows, equal to the CPU run's (and on the card, not only on the host)."""
+    card, ex = _held_results(dev)
+    cpu, _ = _held_results("cpu")
+    assert not torch.equal(card[1].tensors[0], card[2].tensors[0])
+    for got, want in zip(card, cpu):
+        assert got.tensors[0].is_cuda
+        _all_keys_equal(got, want)
+    assert _counters(ex) == (1, 2, 0) and ex.captures == 1
+
+
+def _stats_trail(device, n_batches=70):
+    """n_batches over two keys, every third at R's cap quartered (which
+    overflows): the session's lifetime stats after them."""
+    data, plan = _healing_case()
+    ex = ShardedJoinExecutor(plan, 8, ExecutorConfig(out_capacity=1 << 16),
+                             device=device)
+    s = ex.session().prepare(data)
+    caps = dict(s.caps)
+    squeezed = dict(caps, R=max(1, caps["R"] // 4))
+    rows = 0
+    for i in range(n_batches):
+        s.caps = dict(squeezed if i % 3 == 0 else caps)
+        res = s.run_batch()
+        rows += int(res["valid"].sum())
+    st = s.stats
+    return (st["batches"], st["shuffle_overflow"].copy(),
+            st["join_overflow"].copy(), rows, _counters(ex))
+
+
+def test_graph_stats_right_after_70_batches(dev):
+    """`stats` drains overflow parked a batch (past the 64-batch drain):
+    after 70 replays with overflow in every third it is the CPU run's."""
+    card, cpu = _stats_trail(dev), _stats_trail("cpu")
+    assert card[1].sum() > 0
+    assert card[4] == (2, 68, 0)
+    for got, want in zip(card, cpu):
+        np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("max_steps", [1, 2])
+def test_graph_eviction_frees_its_memory(dev, max_steps):
+    """Two keys, each run twice (so captured).  With max_cached_steps=1
+    the second key evicts the first graph and the memory it held returns
+    (allocated bytes back to one graph's); with room for both, both stay
+    held."""
+    import gc
+    data, plan = _healing_case()
+    ex = ShardedJoinExecutor(plan, 8, ExecutorConfig(
+        out_capacity=1 << 18, max_cached_steps=max_steps), device=dev)
+    s = ex.session().prepare(data)
+    caps = dict(s.caps)
+    gc.collect()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    for _ in range(2):
+        s.run_batch()
+    torch.cuda.synchronize()
+    one = torch.cuda.memory_allocated() - base
+    s.caps = {name: 2 * c for name, c in caps.items()}
+    for _ in range(2):
+        s.run_batch()
+    gc.collect()
+    torch.cuda.synchronize()
+    now = torch.cuda.memory_allocated() - base
+    assert one > 8 * (1 << 18) * 3 * 4           # the output rows at least
+    assert ex.captures == 2
+    if max_steps == 1:
+        assert _counters(ex) == (2, 2, 1)
+        assert now < 1.5 * one
+    else:
+        assert _counters(ex) == (2, 2, 0)
+        assert now > 1.75 * one
+
+
+def _two_placements(device):
+    """One executor, two sessions on the same data: LPT and the relabelled
+    devices.  Interleaved batches, results held; rows and received counts
+    after each."""
+    data, plan = _healing_case()
+    ex = ShardedJoinExecutor(plan, 8, ExecutorConfig(out_capacity=1 << 16),
+                             device=device)
+    a = ex.session().prepare(data)
+    b = ex.session().prepare(data, caps=a.caps,
+                             placement=_permuted(a.placement))
+    held = [a.run_batch(), b.run_batch(), a.run_batch(), b.run_batch()]
+    return held, ex, (a.placement.table, b.placement.table)
+
+
+def test_graph_shared_by_sessions_with_other_placements(dev):
+    """Sessions of one executor with different placements share one graph
+    (the table is an input) and each gives its own rows: the CPU's."""
+    card, ex, tables = _two_placements(dev)
+    cpu, _, _ = _two_placements("cpu")
+    assert not np.array_equal(*tables)
+    assert _counters(ex) == (1, 3, 0) and ex.captures == 1
+    assert not np.array_equal(card[2]["recv_counts"], card[3]["recv_counts"])
+    for got, want in zip(card, cpu):
+        _all_keys_equal(got, want)
 
 
 def _adapt_trail(device, scenario):

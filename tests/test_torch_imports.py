@@ -67,11 +67,46 @@ def test_port_imports_with_jax_and_repro_blocked():
     assert out.stdout.strip() == "ok"
 
 
+EXAMPLES = sorted((ROOT / "examples" / "torch_port").glob("*.py"))
+
+
 @pytest.mark.parametrize("path", sorted(PORT.rglob("*.py"))
-                         + [ROOT / "chip_smoke.py"],
+                         + [ROOT / "chip_smoke.py",
+                            ROOT / "scripts" / "time_join_step.py"]
+                         + EXAMPLES,
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_source_has_no_jax_or_repro_import(path):
     assert not FORBIDDEN.findall(path.read_text()), path
+
+
+@pytest.mark.parametrize("path", EXAMPLES, ids=lambda p: p.name)
+def test_examples_import_with_jax_and_repro_blocked(path):
+    """The port's examples load (their imports run) with JAX and the JAX
+    package unimportable, and refuse to start without a card unless asked
+    for the CPU."""
+    code = (
+        "import sys, importlib.util\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['repro'] = None\n"
+        "import torch\n"
+        "torch.cuda.is_available = lambda: False\n"
+        f"spec = importlib.util.spec_from_file_location('ex', {str(path)!r})\n"
+        "mod = importlib.util.module_from_spec(spec)\n"
+        "spec.loader.exec_module(mod)\n"
+        "from repro_torch.core.executor import ExecutorError\n"
+        "try:\n"
+        "    mod.main()\n"
+        "except ExecutorError as err:\n"
+        "    assert 'CUDA' in str(err)\n"
+        "else:\n"
+        "    raise SystemExit('ran without a card')\n"
+        "print('ok')\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, cwd=ROOT,
+                         env={**os.environ, "PYTHONPATH": str(ROOT / "src")},
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().endswith("ok")
 
 
 def test_forbidden_pattern_catches_imports():
