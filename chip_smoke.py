@@ -141,13 +141,20 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      7a. `api.forward` and `build_prefill` on 4 prompts of 2,048 tokens
          (chunked attention, capacity clamping): finite last-position
          logits; the expert loads sum to B·S·K·L and are `torch.equal` to
-         the same call with `use_kernels=False`;
-     7b. a `ServingEngine` of 8 slots (max_seq 512) serves 24 seeded
-         requests (prompts 16-128 tokens, 16-64 new tokens): each completes
-         with its max_new_tokens, tokens_out is their sum, and
-         segment_histogram launched (model calls) x (layers) times; ticks,
-         median tick, decode tokens/s, prefill time, peak memory, the bound
-         of a tick and a profile of decode steps;
+         the same call with `use_kernels=False`; the median of 3
+         `build_prefill` calls (eager);
+     7b. 24 seeded requests (prompts 16-128 tokens, 16-64 new tokens) on
+         a `ServingEngine` of 8 slots (max_seq 512) on the eager decode
+         step of the plain versions (`use_kernels=False`, the reference),
+         then on one on the graph (a tick eager, a capture, replays): each
+         request completes with its max_new_tokens, tokens_out is their
+         sum, and every request's tokens are equal on both engines;
+         segment_histogram launched (host passes) x (layers) times, a host
+         pass being a model call with kernels that runs eagerly or is
+         captured (a replay launches nothing from the host); each engine's
+         ticks, median tick and decode tokens/s, the graph's captures and
+         the memory its capturing tick pins, the bound of a tick, the
+         peak, and a profile of 5 decode steps eager (plain) and replayed;
      7c. segment_histogram against its plain version, bit for bit, on this
          run's decode and prefill inputs (8 bins; one block) and on 2^24
          values at 384 bins (the grid) and 2^22 and 2^16 at 2^16 bins (the
@@ -195,31 +202,33 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
          the final blocking save's wall time;
  10. the ssm, hybrid, encdec and vlm families at their published widths,
      after phase 9 (its memory freed), each through `api.prefill` /
-     `api.decode_step`, a `ServingEngine` and `build_train_step`, bf16
-     weights from a seeded generator on the card, depth cut only where the
-     card cannot hold a step and each cut printed: 10a mamba2-370m at full
-     size (and its duality check: the float32 model's forward on 4 x 512
-     tokens against `decode_step` replayed over them), 10b zamba2-7b
-     (serving at full depth, 81 applications), 10c seamless-m4t-medium
-     at full size (prefill over frames of 4 x 512 x 1,024), 10d
-     llama-3.2-vision-90b cut to one group (4 self-attention blocks and a
-     gated cross-attention block, gate set to 0.5).  Each: its parameter
+     `api.decode_step`, a `ServingEngine` (eager on the plain versions
+     and on its CUDA graph) and `build_train_step`, bf16 weights from a
+     seeded generator on the card, depth cut only where the card cannot
+     hold a step and each cut printed: 10a mamba2-370m at full size (and
+     its duality check: the float32 model's forward on 4 x 512 tokens
+     against `decode_step` replayed over them), 10b zamba2-7b (serving at
+     full depth, 81 applications), 10c seamless-m4t-medium at full size
+     (prefill over frames of 4 x 512 x 1,024), 10d llama-3.2-vision-90b
+     cut to one group (4 self-attention blocks and a gated
+     cross-attention block, gate set to 0.5).  Each: its parameter
      count; the median of 3 prefills of 4 x 2,048 tokens, then 16 decode
-     steps from the prefilled cache; 24 seeded requests on 8 slots (median
-     tick, decode tokens/s); the cold and warm train step and tokens/s on
-     one `TokenPipeline` batch of 4 x 2,048 (stub frontends from the
-     driver's `make_batch`; remat "full", lr 1e-4, warmup 1); the peaks
-     (under 76 GB); a profile of one more warm step (device-busy share,
-     top device operations).  Every logit finite; caches keep their keys,
-     shapes and dtypes through decode; every request completes with its
-     `max_new_tokens`; every loss and grad_norm finite, the last loss
-     below the first; the optimizer's step the steps taken; no custom
-     kernel launched (no TPU kernel lies on this path);
- 11. one JSON line each of phases 3 / 3b / 3c, 6, 6e, 8, 9 and 10's
+     steps from the prefilled cache; 24 seeded requests on 8 slots on an
+     eager engine and on a graph one (as 7b: the same tokens; median
+     tick, decode tokens/s, captures, pinned memory); the cold and warm
+     train step and tokens/s on one `TokenPipeline` batch of 4 x 2,048
+     (stub frontends from the driver's `make_batch`; remat "full", lr
+     1e-4, warmup 1); the peaks (under 76 GB); a profile of one more warm
+     step (device-busy share, top device operations).  Every logit
+     finite; caches keep their keys, shapes and dtypes through decode;
+     every loss and grad_norm finite, the last loss below the first; the
+     optimizer's step the steps taken; no custom kernel launched (no TPU
+     kernel lies on this path);
+ 11. one JSON line each of phases 3 / 3b / 3c, 6, 6e, 8, 9, 7 and 10's
      numbers, one JSON line of per-kernel results (each with the path its
      launches were counted on: segment_histogram's is phase 9a's, its
-     phase 7 count beside it as `serve_launches`), then the last line
-     {"ok": true, "device": {...}}.
+     phase 7 count, host passes x layers, beside it as `serve_launches`),
+     then the last line {"ok": true, "device": {...}}.
 
 Exits non-zero without printing a result when no CUDA device is present or
 when the repository's `src/repro_torch` is not beside this script.
@@ -2470,17 +2479,97 @@ def moderate_checks(dev):
                       f"{ {kn: v for kn, v in launches.items() if v} }")
 
 
+def serve_both(dev, cfg, model, slots: int, max_seq: int, requests,
+               tag: str, who: str = "") -> tuple[dict, dict]:
+    """The same requests through a `ServingEngine` on the eager decode step
+    of the plain versions (`use_kernels=False`, the reference), then on the
+    captured one, the ticks timed one by one: every request completes with
+    its max_new_tokens, and each request's tokens are the same on both.
+    The capturing tick's growth of allocated and reserved memory is what
+    the graph pins.  Returns each mode's figures and its engine (for the
+    caller's checks and profiles)."""
+    from repro_torch.serve import ServingEngine, build_decode_step
+
+    out, engines, tokens = {}, {}, {}
+    for mode in ("eager", "graph"):
+        model.use_kernels = mode == "graph"
+        fns = build_decode_step(cfg, slots, max_seq, device=dev)
+        eng = ServingEngine(cfg, slots, max_seq, model, fns, device=dev)
+        reqs = [eng.submit(p, m) for p, m in requests]
+        tick_s, pinned = [], (0, 0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        while any(not r.done for r in reqs):      # ServingEngine.run, timed
+            eng._admit()
+            captures = fns.captures
+            if mode == "graph" and not captures:
+                # The capture empties the allocator's cache on entry: empty
+                # it first, so that the growth read is the graph's pool.
+                torch.cuda.synchronize()
+                torch.cuda.empty_cache()
+            mem = (torch.cuda.memory_allocated(), torch.cuda.memory_reserved())
+            t = time.perf_counter()
+            eng._tick()              # ends in the next tokens' copy to host
+            tick_s.append(time.perf_counter() - t)
+            if fns.captures > captures:
+                pinned = (torch.cuda.memory_allocated() - mem[0],
+                          torch.cuda.memory_reserved() - mem[1])
+        t_run = time.perf_counter() - t0
+        model.use_kernels = True
+        check(all(len(r.out) == m for r, (_, m) in zip(reqs, requests)),
+              f"{tag} {who}{mode}: a request did not complete with its "
+              f"max_new_tokens")
+        want = sum(m for _, m in requests)
+        check(eng.tokens_out == want,
+              f"{tag} {who}{mode}: tokens_out {eng.tokens_out} != {want}")
+        tokens[mode] = [r.out for r in reqs]
+        out[mode] = dict(
+            ticks=eng.ticks, tick_median_ms=float(np.median(tick_s)) * 1e3,
+            tick_p90_ms=float(np.percentile(tick_s, 90)) * 1e3,
+            tick_max_ms=max(tick_s) * 1e3, run_s=t_run,
+            decode_tokens_per_s=eng.tokens_out / t_run,
+            eager_calls=fns.eager_calls, captures=fns.captures,
+            replays=fns.replays, graph_allocated_bytes=pinned[0],
+            graph_reserved_bytes=pinned[1])
+        engines[mode] = eng
+    check(tokens["graph"] == tokens["eager"],
+          f"{tag} {who}: the graph engine's tokens differ from the eager engine's")
+    g = out["graph"]
+    check(g["captures"] == 1 and g["eager_calls"] == 1
+          and g["replays"] == g["ticks"] - 1,
+          f"{tag} {who}: graph engine eager / captures / replays "
+          f"{g['eager_calls']} / {g['captures']} / {g['replays']} over "
+          f"{g['ticks']} ticks, not 1 / 1 / ticks - 1")
+    for mode, r in out.items():
+        print(f"[{tag}] {who}serving {mode}: {len(requests)} requests on {slots} "
+              f"slots, max_seq {max_seq}: {r['ticks']} ticks, median tick "
+              f"{r['tick_median_ms']:.2f} ms (p90 {r['tick_p90_ms']:.2f}, "
+              f"max {r['tick_max_ms']:.2f}); run {r['run_s']:.2f} s, "
+              f"{r['decode_tokens_per_s']:.1f} decode tokens/s")
+    print(f"[{tag}] {who}serving: every request's tokens on the graph equal "
+          f"the eager plain engine's; the graph engine ran "
+          f"{g['eager_calls']} tick eagerly, captured {g['captures']} graph, "
+          f"replayed {g['replays']}; the capturing tick grew allocated "
+          f"memory by {g['graph_allocated_bytes'] / 1e6:.2f} MB and reserved "
+          f"by {g['graph_reserved_bytes'] / 1e6:.2f} MB; median tick "
+          f"{out['eager']['tick_median_ms']:.2f} (eager, plain) -> "
+          f"{g['tick_median_ms']:.2f} ms (graph)")
+    return out, engines
+
+
 def moe_serve(dev):
     """Phase 7a + 7b: the MoE serving path of the LM scaffold at full width
     (depth cut), through `api.forward`, `build_prefill` and the
-    `ServingEngine`.  Launch counts are zeroed just before 7a and read just
-    after 7b; the values each `segment_histogram` call gets are kept (one
-    per size) for phase 7c."""
+    `ServingEngine` (on the plain versions' eager step and on the graph).
+    Launch counts are zeroed just before 7a and read just after 7b:
+    segment_histogram launches from the host on every model pass with
+    kernels that runs eagerly or is captured (a replay launches nothing);
+    the values each call gets are kept (one per size) for phase 7c."""
     from repro_torch.configs import ARCHS
     from repro_torch.kernels import ops
     from repro_torch.models import api
     from repro_torch.models.common import count_params
-    from repro_torch.serve import ServingEngine, build_prefill
+    from repro_torch.serve import build_prefill
 
     full = ARCHS[MOE["arch"]]
     cfg = dataclasses.replace(full, n_layers=MOE["n_layers"])
@@ -2509,12 +2598,14 @@ def moe_serve(dev):
           f"(measured), drawn from a seeded generator on the card in "
           f"{t_init:.2f} s")
 
-    # Keep the first input of each size that the histogram is given.
+    # Keep the first input of each size that the histogram is given (a
+    # capture records no copy: its sizes were seen at the warm-up).
     captured = {}
     launch_hist = ops.segment_histogram
 
     def keep_input(values, n_bins, **kw):
-        captured.setdefault(values.numel(), values.detach().clone())
+        if values.numel() not in captured:
+            captured[values.numel()] = values.detach().clone()
         return launch_hist(values, n_bins, **kw)
 
     rng = np.random.default_rng(MOE["seed"])
@@ -2532,10 +2623,8 @@ def moe_serve(dev):
     ops.segment_histogram = keep_input
     torch.cuda.synchronize()
     ops.reset_launches()
-    model_calls = 0
     # 7a. forward and prefill.
     lg, aux = api.forward(model, cfg, {"tokens": prompts}, last_only=True)
-    model_calls += 1
     load = aux["expert_load"]
     check(int(load.sum()) == B * S * K * L,
           f"expert_load sums to {int(load.sum())}, not B·S·K·L = "
@@ -2548,6 +2637,9 @@ def moe_serve(dev):
           f"expert_load {load.tolist()} != plain "
           f"{aux_plain['expert_load'].tolist()}")
     check(bool(torch.isfinite(lg).all()), "forward logits not finite")
+    print(f"[moe] 7a forward: expert_load {load.tolist()} sums to "
+          f"{int(load.sum())} = B·S·K·L and equals the plain version's "
+          f"(torch.equal); logits finite")
     fns = build_prefill(cfg, device=dev)
     prefill_s = []
     for _ in range(MOE["prefill_reps"]):
@@ -2556,76 +2648,70 @@ def moe_serve(dev):
         last = fns.prefill(model, {"tokens": prompts})
         torch.cuda.synchronize()
         prefill_s.append(time.perf_counter() - t0)
-        model_calls += 1
     check(last.shape == (B, cfg.padded_vocab())
           and bool(torch.isfinite(last).all()),
           f"prefill logits {tuple(last.shape)} not finite or misshaped")
     t_prefill = float(np.median(prefill_s))
-    print(f"[moe] 7a forward: expert_load {load.tolist()} sums to "
-          f"{int(load.sum())} = B·S·K·L and equals the plain version's "
-          f"(torch.equal); prefill of {B} x {S} tokens median "
-          f"{t_prefill * 1e3:.1f} ms of {len(prefill_s)} "
+    prefill = dict(ms=[t * 1e3 for t in prefill_s],
+                   median_ms=t_prefill * 1e3)
+    print(f"[moe] 7a prefill (build_prefill, eager) of {B} x {S} tokens: "
+          f"median {t_prefill * 1e3:.1f} ms of {len(prefill_s)} "
           f"({', '.join(f'{t * 1e3:.1f}' for t in prefill_s)}), "
           f"{B * S / t_prefill:.0f} prompt tokens/s; logits finite")
 
-    # 7b. serving.
-    eng = ServingEngine(cfg, MOE["slots"], MOE["max_seq"], model, device=dev)
-    reqs = [eng.submit(p, m) for p, m in requests]
-    tick_s = []
-    tick = eng._tick
-
-    def timed_tick():
-        t = time.perf_counter()
-        tick()                       # ends in the next tokens' copy to host
-        tick_s.append(time.perf_counter() - t)
-
-    eng._tick = timed_tick
-    t0 = time.perf_counter()
-    eng.run()
-    t_run = time.perf_counter() - t0
+    # 7b. serving, on an eager step and on the graph.
+    serving, engines = serve_both(dev, cfg, model, MOE["slots"],
+                                  MOE["max_seq"], requests, "moe", "7b ")
     torch.cuda.synchronize()
     launches = dict(ops.LAUNCHES)
     ops.segment_histogram = launch_hist
     peak = torch.cuda.max_memory_allocated()
-    model_calls += eng.ticks
 
-    check(all(r.done and len(r.out) == m for r, (_, m) in zip(reqs, requests)),
-          "a request did not complete with its max_new_tokens")
-    want_out = sum(m for _, m in requests)
-    check(eng.tokens_out == want_out,
-          f"tokens_out {eng.tokens_out} != {want_out}")
+    # Host passes through the model's kernels: the forward, each prefill,
+    # the graph engine's eager tick and its capture (a replay makes none;
+    # the plain forward and the eager engine run the plain versions).
+    g = serving["graph"]
+    passes = {"forward": 1, "prefill": len(prefill["ms"]),
+              "serving graph": g["eager_calls"] + g["captures"]}
+    model_calls = sum(passes.values())
     want = dict.fromkeys(KERNEL_SITES, 0)
     want["segment_histogram"] = model_calls * L
     check(launches == want, f"moe_serve launches {launches}, expected {want}")
     check(16 in captured and B * S * K in captured,
           f"histogram inputs of sizes {sorted(captured)}")
-    tick_ms = float(np.median(tick_s)) * 1e3
-    print(f"[moe] 7b serving: {len(reqs)} requests (prompts "
+    print(f"[moe] 7b: bound of a tick (reading every slot's expert weights "
+          f"once, {expert_bytes / 1e9:.2f} GB / {HBM_BYTES_PER_S / 1e12:.2f} "
+          f"TB/s) {expert_bytes / HBM_BYTES_PER_S * 1e3:.2f} ms; tokens_out "
+          f"{sum(m for _, m in requests)} a run (prompts "
           f"{int(lens.min())}-{int(lens.max())}, new tokens "
-          f"{int(news.min())}-{int(news.max())}) on {MOE['slots']} slots, "
-          f"max_seq {MOE['max_seq']}: all complete, tokens_out "
-          f"{eng.tokens_out}; {eng.ticks} ticks, median tick {tick_ms:.2f} ms "
-          f"(p90 {np.percentile(tick_s, 90) * 1e3:.2f}, max "
-          f"{max(tick_s) * 1e3:.2f}); run {t_run:.2f} s, "
-          f"{eng.tokens_out / t_run:.1f} decode tokens/s; bound of a tick "
-          f"(reading every slot's expert weights once, "
-          f"{expert_bytes / 1e9:.2f} GB / {HBM_BYTES_PER_S / 1e12:.2f} TB/s) "
-          f"{expert_bytes / HBM_BYTES_PER_S * 1e3:.2f} ms")
+          f"{int(news.min())}-{int(news.max())})")
     print(f"[moe] segment_histogram launches {launches['segment_histogram']}"
-          f" = ({model_calls} model calls: 1 forward + "
-          f"{MOE['prefill_reps']} prefills + {eng.ticks} ticks) x {L} "
-          f"layers; the plain forward launched none; peak allocated "
-          f"(measured) {peak / 1e9:.2f} GB")
+          f" = ({model_calls} host passes: "
+          f"{', '.join(f'{k} {v}' for k, v in passes.items())}) x {L} "
+          f"layers; the plain forward, the eager plain engine and every "
+          f"replay launched none from the host; peak allocated (measured) {peak / 1e9:.2f} GB")
 
-    # Where a tick's time goes (not counted): the decode step alone.
-    toks = torch.from_numpy(eng.next_tok[:, None].copy())
-    pos = torch.from_numpy(np.minimum(eng.pos, MOE["max_seq"] - 1))
-    profile_calls(lambda: eng.fns.decode(model, eng.cache, toks, pos),
-                  f"{MOE['profile_ticks']} decode steps (B={MOE['slots']})",
-                  MOE["profile_ticks"], tag="moe")
-    del eng, model, lg, last
+    # Where a tick's time goes (not counted): the decode step alone, eager
+    # on the plain versions and replayed.
+    profiles = {}
+    for mode, eng in engines.items():
+        toks = torch.from_numpy(eng.next_tok[:, None].copy())
+        pos = torch.from_numpy(np.minimum(eng.pos, MOE["max_seq"] - 1))
+        profiles[mode] = {}
+        model.use_kernels = mode == "graph"
+        profile_calls(lambda: eng.fns.decode(model, eng.cache, toks, pos),
+                      f"{MOE['profile_ticks']} decode steps {mode} "
+                      f"(B={MOE['slots']})", MOE["profile_ticks"], tag="moe",
+                      sink=profiles[mode])
+        model.use_kernels = True
+    del engines, eng, model, lg, last
+    gc.collect()
     torch.cuda.empty_cache()
-    return dict(launches=launches, captured=captured, n_bins=cfg.n_experts)
+    return dict(launches=launches, captured=captured, n_bins=cfg.n_experts,
+                summary=dict(prefill=prefill, serving=serving,
+                             host_passes=passes, peak_gb=peak / 1e9,
+                             tick_bound_ms=expert_bytes / HBM_BYTES_PER_S
+                             * 1e3, decode_profile=profiles))
 
 
 def histogram_checks(dev, serve):
@@ -2874,10 +2960,11 @@ def train_driver(dev):
 
 
 def family_cell(dev, spec) -> dict:
-    """Phase 10's cell `spec`: serve (prefill, decode, `ServingEngine`)
-    and train one family at its published widths.  No custom kernel lies
-    on this path: launch counts are zeroed just before and must read 0
-    just after."""
+    """Phase 10's cell `spec`: serve (prefill, decode, and a
+    `ServingEngine` eager on the plain versions and on its CUDA graph) and
+    train one
+    family at its published widths.  No custom kernel lies on this path:
+    launch counts are zeroed just before and must read 0 just after."""
     from repro_torch.configs import ARCHS
     from repro_torch.data import PipelineConfig, TokenPipeline
     from repro_torch.kernels import ops
@@ -2885,7 +2972,6 @@ def family_cell(dev, spec) -> dict:
     from repro_torch.models import api
     from repro_torch.models.common import count_params
     from repro_torch.optim import AdamWConfig, adamw
-    from repro_torch.serve import ServingEngine
     from repro_torch.train import build_train_step
     from repro_torch.tree import flatten
 
@@ -2989,42 +3075,20 @@ def family_cell(dev, spec) -> dict:
                         R["n_requests"])
     requests = [(rng.integers(0, cfg.vocab, n).tolist(), int(m))
                 for n, m in zip(lens, news)]
-    eng = ServingEngine(cfg, R["slots"], R["max_seq"], model, device=dev)
+    serving, engines = serve_both(dev, cfg, model, R["slots"], R["max_seq"],
+                                  requests, "family", f"{tag} ")
     want = layout_of(api.init_cache(cfg, R["slots"], R["max_seq"],
                                     device="meta"))
-    reqs = [eng.submit(p, m) for p, m in requests]
-    tick_s = []
-    tick = eng._tick
-
-    def timed_tick():
-        t = time.perf_counter()
-        tick()                       # ends in the next tokens' copy to host
-        tick_s.append(time.perf_counter() - t)
-
-    eng._tick = timed_tick
-    t0 = time.perf_counter()
-    eng.run()
-    t_run = time.perf_counter() - t0
-    check(all(r.done and len(r.out) == m for r, (_, m) in zip(reqs, requests)),
-          f"{tag}: a request did not complete with its max_new_tokens")
-    check(eng.tokens_out == sum(news), f"{tag}: tokens_out {eng.tokens_out}")
-    check(layout_of(eng.cache) == want,
-          f"{tag}: the engine's cache left init_cache's layout")
-    tick_ms = float(np.median(tick_s)) * 1e3
+    for mode, eng in engines.items():
+        check(layout_of(eng.cache) == want,
+              f"{tag}: the {mode} engine's cache left init_cache's layout")
     serve_peak = peak_gb("serving")
-    print(f"[family] {tag} serving: {len(reqs)} requests (prompts "
-          f"{int(lens.min())}-{int(lens.max())}, new tokens "
-          f"{int(news.min())}-{int(news.max())}) on {R['slots']} slots, "
-          f"max_seq {R['max_seq']}: all complete, tokens_out "
-          f"{eng.tokens_out}; {eng.ticks} ticks, median tick {tick_ms:.2f} "
-          f"ms (p90 {np.percentile(tick_s, 90) * 1e3:.2f}); run "
-          f"{t_run:.2f} s, {eng.tokens_out / t_run:.1f} decode tokens/s; "
-          f"peak allocated (measured) {serve_peak:.2f} GB")
-    out.update(ticks=eng.ticks, tick_median_ms=tick_ms,
-               decode_tokens_per_s=eng.tokens_out / t_run,
-               serve_peak_gb=serve_peak)
-    # The timed tick closes over the engine's bound method: a cycle.
-    del eng, reqs, tick, timed_tick, model
+    print(f"[family] {tag} serving: prompts {int(lens.min())}-"
+          f"{int(lens.max())}, new tokens {int(news.min())}-"
+          f"{int(news.max())}; both caches keep init_cache's layout; peak "
+          f"allocated (measured) {serve_peak:.2f} GB")
+    out.update(serving=serving, serve_peak_gb=serve_peak)
+    del engines, eng, model
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -3236,6 +3300,7 @@ def main() -> int:
     print(json.dumps({"join_serving": serving}))
     print(json.dumps({"training": {"moe_train": {
         k: v for k, v in train.items() if k != "launches"}, "driver": driver}}))
+    print(json.dumps({"moe_serve": serve["summary"]}))
     print(json.dumps({"lm_families": families}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

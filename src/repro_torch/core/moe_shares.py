@@ -17,10 +17,13 @@ weight side dominates (y maps onto the TP axis).
 The planner is numpy, copied from the reference package; `route_tokens` is
 the torch data-plane hook the MoE layer calls, with the multiply-shift hash
 over uint32 computed in int64 and masked to 32 bits (`kernels.ref.mulshift`).
+A plan uploads its dispatch tables to a device the first time it routes
+there and keeps them (`MoEDispatchPlan.tables`), so a routing call copies
+nothing from the host and a captured decode step can hold it.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import numpy as np
 import torch
@@ -39,6 +42,21 @@ class MoEDispatchPlan:
     slots_of_expert: np.ndarray    # (E, max_group) int32 slot ids, -1 padded
     group_size: np.ndarray         # (E,) int32, power of two
     slot_to_expert: np.ndarray     # (n_slots,) int32 (-1 = unused slot)
+    # Device copies of (slots_of_expert, group_size) by device; not part of
+    # the plan's value (==, hash, repr).
+    _tables: dict = field(default_factory=dict, init=False, repr=False,
+                          compare=False)
+
+    def tables(self, device: torch.device
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+        """(slots_of_expert, group_size) on `device`: uploaded the first time
+        they are asked for there, then kept."""
+        kept = self._tables.get(device)
+        if kept is None:
+            kept = (torch.as_tensor(self.slots_of_expert, device=device),
+                    torch.as_tensor(self.group_size, device=device))
+            self._tables[device] = kept
+        return kept
 
     @property
     def max_group(self) -> int:
@@ -96,12 +114,10 @@ def route_tokens(plan: MoEDispatchPlan, expert_ids: torch.Tensor,
     (power-of-two) group size: the heavy hitter's tokens split evenly across
     its replicas, everyone else routes straight to their single slot.
     """
-    dev = expert_ids.device
-    slots = torch.as_tensor(plan.slots_of_expert, device=dev)   # (E, max_g)
+    slots, gsize = plan.tables(expert_ids.device)   # (E, max_g), (E,)
     eidx = expert_ids.long()
     if plan.max_group == 1:
         return slots[eidx, 0]
-    gsize = torch.as_tensor(plan.group_size, device=dev)        # (E,)
     h = multiply_shift_torch(token_ids, _ROUTE_SEED, plan.max_group)
     replica = h % gsize[eidx]                        # g_e is a power of two
     return slots[eidx, replica.long()]

@@ -9,7 +9,8 @@ capacity clamp, a scatter into (B, n_slots, cap, d)), per sequence.
 Per-expert token loads are counted on the card by the `segment_histogram`
 kernel (kernels/csrc/segment_histogram.cu) in every `moe_ffn` call.
 `forward` returns them summed over layers; `prefill` and `decode_step` drop
-them, as the reference does.
+them, as the reference does.  Called without a plan, each uses the uniform
+plan, built once per (n_experts, n_slots) (`build_plan`).
 
 The model is a `common.Model` whose parameters are the layout's tree
 (`blocks` stacked on a leading layer axis); `model.blocks[i]` is layer i
@@ -22,7 +23,7 @@ version on any device.
 """
 from __future__ import annotations
 
-from functools import partial
+from functools import lru_cache, partial
 
 import numpy as np
 import torch
@@ -56,10 +57,17 @@ def layout(cfg) -> Layout:
 
 
 def build_plan(cfg, loads: np.ndarray | None = None) -> MoEDispatchPlan:
-    """Static dispatch plan; `loads` from trainer metrics enables re-planning."""
+    """Static dispatch plan; `loads` from trainer metrics enables re-planning.
+    Without loads, the uniform plan, built once per (n_experts, n_slots)
+    and shared (it keeps its tables on each device it routes on)."""
     if loads is None:
-        loads = np.ones(cfg.n_experts)
+        return _uniform_plan(cfg.n_experts, cfg.n_slots())
     return plan_dispatch(loads, cfg.n_slots())
+
+
+@lru_cache(maxsize=None)
+def _uniform_plan(n_experts: int, n_slots: int) -> MoEDispatchPlan:
+    return plan_dispatch(np.ones(n_experts), n_slots)
 
 
 def top_experts(gates: torch.Tensor, k: int

@@ -6,7 +6,9 @@ batching).  Prompt ingestion replays prompt tokens through the same decode
 step (one step function serves both phases; `build_prefill` is the
 bulk-prompt path).  Greedy sampling; per-request max_new_tokens;
 deterministic given (params, prompts).  Slot bookkeeping is host-side
-numpy; the device state is the KV cache.
+numpy; the device state is the KV cache.  On the card the decode step is
+a CUDA graph (`serve_step.py`), fed the tokens and positions from the
+engine's pinned host buffers; a tick reads the next tokens back once.
 
 `SelfHealingSession` — the fault-tolerant loop around a join
 `ExecutorSession`: capacity overflow heals by bounded retry on the
@@ -63,10 +65,18 @@ class ServingEngine:
         self.queue: list[Request] = []
         self.waiting: deque[Request] = deque()   # FIFO of unadmitted requests
         self.slots: list[Request | None] = [None] * batch_slots
-        # Per-slot host state.
-        self.pos = np.zeros(batch_slots, np.int32)
+        # Per-slot host state.  `pos` and `next_tok` are numpy views of the
+        # step's host inputs, pinned on the card, so that a graph step's
+        # copies of them are asynchronous; a tick's read of the next tokens
+        # waits for the step, so the host writes them only after it.
+        pin = self.device.type == "cuda"
+        self._pos_in = torch.zeros(batch_slots, dtype=torch.int32,
+                                   pin_memory=pin)
+        self._tok_in = torch.zeros((batch_slots, 1), dtype=torch.int32,
+                                   pin_memory=pin)
+        self.pos = self._pos_in.numpy()
         self.pending = [[] for _ in range(batch_slots)]   # prompt tokens left
-        self.next_tok = np.zeros(batch_slots, np.int32)
+        self.next_tok = self._tok_in.numpy()[:, 0]
         self.ticks = 0
         self.tokens_out = 0
 
@@ -127,9 +137,8 @@ class ServingEngine:
 
     def _tick(self) -> None:
         # Feed: prompt token if any pending, else the last generated token.
-        toks = torch.from_numpy(self.next_tok[:, None].copy())
-        pos = torch.from_numpy(self.pos.copy())
-        nxt, self.cache = self.fns.decode(self.params, self.cache, toks, pos)
+        nxt, self.cache = self.fns.decode(self.params, self.cache,
+                                          self._tok_in, self._pos_in)
         nxt = nxt.cpu().numpy()
         self.ticks += 1
         for i, req in enumerate(self.slots):

@@ -1294,7 +1294,8 @@ def _f32_family(dev, name):
     from repro_torch.models import api
     from repro_torch.models.common import init_params
     from repro_torch.tree import tree_map
-    cfg = dataclasses.replace(ARCHS[name].reduced(), **FAMILY_CASES[name])
+    cfg = dataclasses.replace(ARCHS[name].reduced(),
+                              **FAMILY_CASES.get(name, {}))
     g = torch.Generator().manual_seed(0)
     tree = init_params(api.layout(cfg), g, device="cpu", dtype=torch.float32)
     ranges = {"A_log": (-2.0, 1.0), "dt_bias": (-1.0, 1.0), "D": (0.5, 1.5),
@@ -1399,6 +1400,155 @@ def test_family_f32_train_step_on_card_equals_its_cpu_run(dev, name):
     assert s_cpu == s_card == 1
     for k in ("loss", "zloss", "grad_norm"):
         assert float(m_card[k]) == pytest.approx(float(m_cpu[k]), rel=1e-4), k
+
+
+# -- the captured serve steps --------------------------------------------------
+
+# The six families at reduced size in float32 (_f32_family's weights): the
+# dense and MoE ones stock, the others as FAMILY_CASES has them.
+GRAPH_CASES = ["qwen2-0.5b", "mixtral-8x22b", *FAMILY_CASES]
+
+
+def _card_cache(cfg, B, Smax, seed):
+    """A float32 cache on the card, its cross-attention source (encdec's
+    enc_out, vlm's vis) filled with values, so decode reads it."""
+    from repro_torch.models import api
+    cache = api.init_cache(cfg, B, Smax, torch.float32, device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    for key in ("enc_out", "vis"):
+        if key in cache:
+            cache[key].normal_(generator=g)
+    return cache
+
+
+def _clone_tree(t):
+    if isinstance(t, dict):
+        return {k: _clone_tree(v) for k, v in t.items()}
+    return None if t is None else t.clone()
+
+
+def _plain_decode(model, cfg, cache, toks, pos):
+    """The eager step on the card with the plain versions (the oracle)."""
+    from repro_torch.models import api
+    model.use_kernels = False
+    try:
+        lg, _ = api.decode_step(model, cfg, cache, {"tokens": toks.cuda()},
+                                pos.cuda())
+    finally:
+        model.use_kernels = True
+    return lg[:, -1].argmax(-1).to(torch.int32)
+
+
+def _same_tree(a, b):
+    from repro_torch.tree import flatten
+    fa, fb = flatten(a), flatten(b)
+    assert fa.keys() == fb.keys()
+    for k in fa:
+        assert (fa[k] is None) == (fb[k] is None), k
+        if fa[k] is not None:
+            assert torch.equal(fa[k], fb[k]), k
+
+
+@pytest.mark.parametrize("name", GRAPH_CASES)
+def test_graph_decode_equals_eager_on_card(dev, name):
+    """Eight greedy steps through `build_decode_step` on the card (the
+    first eager, the second captured, six replays) against the eager step
+    on the plain versions: `torch.equal` tokens every step and every cache
+    leaf after (zamba2's ring of 6 slots wraps); the MoE histogram
+    launched from the host at the eager call and the capture only."""
+    from repro_torch.serve import build_decode_step
+    cfg, _, card = _f32_family(dev, name)
+    B, Smax = 2, 6 if cfg.family == "hybrid" else 12
+    fns = build_decode_step(cfg, B, Smax, device=dev)
+    cache = _card_cache(cfg, B, Smax, 1)
+    want_cache = _clone_tree(cache)
+    toks = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab, (B, 1)).astype(np.int32))
+    ops.reset_launches()
+    for step in range(8):
+        pos = torch.full((B,), step, dtype=torch.int32)
+        nxt, got = fns.decode(card, cache, toks, pos)
+        want = _plain_decode(card, cfg, want_cache, toks, pos)
+        assert got is cache and nxt.dtype == torch.int32
+        _eq(nxt, want)
+        toks = want[:, None].cpu()
+    torch.cuda.synchronize()
+    _same_tree(cache, want_cache)
+    assert (fns.eager_calls, fns.captures, fns.replays) == (1, 1, 7)
+    layers = cfg.n_layers if cfg.family == "moe" else 0
+    assert ops.LAUNCHES["segment_histogram"] == 2 * layers
+
+
+@pytest.mark.parametrize("name", GRAPH_CASES)
+def test_graph_engine_gives_the_eager_engines_tokens(dev, name):
+    """Seven requests on three slots: the engine on the graph and one on
+    the eager step of the plain versions (`use_kernels=False`), the same
+    tokens for every request."""
+    from repro_torch.serve import ServingEngine, build_decode_step
+    cfg, _, card = _f32_family(dev, name)
+    rng = np.random.default_rng(5)
+    requests = [(rng.integers(0, cfg.vocab, n).tolist(), int(m))
+                for n, m in zip(rng.integers(1, 6, 7), rng.integers(2, 9, 7))]
+    outs = {}
+    for graph in (True, False):
+        fns = build_decode_step(cfg, 3, 24, device=dev)
+        eng = ServingEngine(cfg, 3, 24, card, fns, device=dev)
+        reqs = [eng.submit(p, m) for p, m in requests]
+        card.use_kernels = graph
+        try:
+            eng.run()
+        finally:
+            card.use_kernels = True
+        assert all(r.done and len(r.out) == m
+                   for r, (_, m) in zip(reqs, requests))
+        outs[graph] = [r.out for r in reqs]
+        assert fns.captures == int(graph)
+        assert fns.replays == (eng.ticks - 1 if graph else 0)
+    assert outs[True] == outs[False]
+
+
+@pytest.mark.parametrize("name", ["seamless-m4t-medium",
+                                  "llama-3.2-vision-90b"])
+def test_graph_decode_recaptures_on_other_tensors(dev, name):
+    """A call with another cache, or after `api.prefill` replaced the
+    cache's enc_out (encdec) or vis (vlm), runs eagerly and its next call
+    captures anew; the old graph is freed, and every call's tokens equal
+    the plain eager step's."""
+    import weakref
+    from repro_torch.models import api
+    from repro_torch.serve import build_decode_step
+    cfg, _, card = _f32_family(dev, name)
+    B, Smax = 2, 12
+    fns = build_decode_step(cfg, B, Smax, device=dev)
+    caches = {"a": _card_cache(cfg, B, Smax, 1),
+              "b": _card_cache(cfg, B, Smax, 2)}
+    want = {k: _clone_tree(c) for k, c in caches.items()}
+    step = {"a": 0, "b": 0}
+    toks = torch.tensor([[3], [11]], dtype=torch.int32)
+
+    def call(k):
+        pos = torch.full((B,), step[k], dtype=torch.int32)
+        step[k] += 1
+        nxt, _ = fns.decode(card, caches[k], toks, pos)
+        _eq(nxt, _plain_decode(card, cfg, want[k], toks, pos))
+        return (fns.eager_calls, fns.captures, fns.replays)
+
+    assert [call("a") for _ in range(3)] == [(1, 0, 0), (1, 1, 1), (1, 1, 2)]
+    old = weakref.ref(fns.compiled.graph)
+    assert call("b") == (2, 1, 2)           # another cache: eager
+    assert old() is None
+    assert call("b") == (2, 2, 3)           # captured anew
+    assert call("a") == (3, 2, 3)           # back: eager again
+    b = _family_batch(cfg, B, 4, 3)
+    del b["labels"]
+    b = {k: v.cuda() for k, v in b.items()}
+    for cache in (caches["a"], want["a"]):
+        api.prefill(card, cfg, b, cache)     # replaces enc_out / vis
+    step["a"] = 4
+    assert call("a") == (4, 2, 3)
+    assert call("a") == (4, 3, 4)
+    assert call("a") == (4, 3, 5)
+    _same_tree(caches["a"], want["a"])
 
 
 def test_checkpoint_of_card_tensors_round_trips(dev, tmp_path):

@@ -52,9 +52,11 @@ def _plan_with_max_group(g):
 
 
 @pytest.mark.parametrize("max_group", [1, 2, 4])
-def test_route_tokens_matches_reference(max_group):
+def test_route_tokens_matches_reference(max_group, monkeypatch):
     """Token ids near 2^31 (and negative ones) wrap mod 2^32 before the
-    top-bits shift."""
+    top-bits shift.  The first call on a device uploads the plan's two
+    tables; the second routes from the kept ones, uploading nothing, and
+    is bit-equal too."""
     plan, jplan = _plan_with_max_group(max_group)
     rng = np.random.default_rng(max_group)
     n = 4096
@@ -63,12 +65,20 @@ def test_route_tokens_matches_reference(max_group):
         np.arange(n // 4), 2**31 - 1 - np.arange(n // 4),
         rng.integers(2**30, 2**31 - 1, n // 4),
         rng.integers(-2**31, 0, n // 4)]).astype(np.int32)
-    got = route_tokens(plan, torch.from_numpy(experts),
-                       torch.from_numpy(tokens))
     want = np.asarray(jms.route_tokens(jplan, jnp.asarray(experts),
                                        jnp.asarray(tokens)))
-    assert got.dtype == torch.int32
-    np.testing.assert_array_equal(got.numpy(), want)
+    uploads = []
+    as_tensor = torch.as_tensor
+    monkeypatch.setattr(torch, "as_tensor",
+                        lambda *a, **kw: uploads.append(1) or
+                        as_tensor(*a, **kw))
+    for want_uploads in (2, 2):
+        got = route_tokens(plan, torch.from_numpy(experts),
+                           torch.from_numpy(tokens))
+        assert got.dtype == torch.int32
+        np.testing.assert_array_equal(got.numpy(), want)
+        assert len(uploads) == want_uploads
+    assert list(plan._tables) == [torch.device("cpu")]
 
 
 @pytest.mark.parametrize("nbuckets", [1, 2, 4, 128, 2**16])
