@@ -188,17 +188,23 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
          read just after the fifth.  Every loss finite and the last below
          the first; the optimizer's step 5; every step's expert_load sums
          to B·S·K·L and the first step's is `torch.equal` to the same
-         forward on the plain versions; segment_histogram launched 2·L a
-         step (the forward and its recompute) and equal to plain on the
-         step's input.  Prints the losses, the cold first step, the warm
-         median of steps 2-5, tokens/s, the peak and a profile of a sixth
-         step (device-busy share, top device operations);
+         forward on the plain versions.  The step is a CUDA graph: the
+         first runs eagerly, the second captures it (its capture time and
+         the memory it pins printed), steps 3-5 replay; segment_histogram
+         launched 2·L by each host pass that launches kernels (the eager
+         step and the capture: the forward and its recompute) and equal
+         to plain on the step's input.  Prints the losses, the cold first
+         step, the capturing step, the warm median of the replays
+         (steps 3-5), tokens/s, the peak and a profile of a sixth step, a
+         replay (device-busy share, top device operations);
      9b. the training driver (`repro_torch.launch.train`'s main) on
          qwen2-0.5b at its full size on the card, into a temporary
          directory: 12 steps of 8 x 512 tokens, checkpoints every 4, a
          simulated node failure at step 6 (re-mesh, restore), then
          `--resume --steps 15`.  The FT lines printed, the loss descends,
-         the latest committed step is 15; prints the warm step median and
+         the latest committed step is 15; the step is a graph, captured
+         anew after each restore (3 captures, each one's time and pinned
+         memory printed); prints the warm step median (the replays) and
          the final blocking save's wall time;
  10. the ssm, hybrid, encdec and vlm families at their published widths,
      after phase 9 (its memory freed), each through `api.prefill` /
@@ -215,11 +221,13 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      count; the median of 3 prefills of 4 x 2,048 tokens, then 16 decode
      steps from the prefilled cache; 24 seeded requests on 8 slots on an
      eager engine and on a graph one (as 7b: the same tokens; median
-     tick, decode tokens/s, captures, pinned memory); the cold and warm
-     train step and tokens/s on one `TokenPipeline` batch of 4 x 2,048
-     (stub frontends from the driver's `make_batch`; remat "full", lr
-     1e-4, warmup 1); the peaks (under 76 GB); a profile of one more warm
-     step (device-busy share, top device operations).  Every logit
+     tick, decode tokens/s, captures, pinned memory); 4-5 train steps
+     on one `TokenPipeline` batch of 4 x 2,048 (stub frontends from the
+     driver's `make_batch`; remat "full", lr 1e-4, warmup 1) through the
+     train step's graph: the cold (eager) step, the capturing one (its
+     capture time and pinned memory), the warm median of the replays and
+     tokens/s; the peaks (under 76 GB); a profile of one more warm step,
+     a replay (device-busy share, top device operations).  Every logit
      finite; caches keep their keys, shapes and dtypes through decode;
      every loss and grad_norm finite, the last loss below the first; the
      optimizer's step the steps taken; no custom kernel launched (no TPU
@@ -395,10 +403,10 @@ DRIVER = dict(arch="qwen2-0.5b", batch=8, seq=512, steps=12, fail_at=6,
 FAMILIES = (
     dict(tag="10a", arch="mamba2-370m", state_bits=32, steps=5,
          duality=512, duality_tol=1e-4),
-    dict(tag="10b", arch="zamba2-7b", state_bits=8, steps=3),
-    dict(tag="10c", arch="seamless-m4t-medium", state_bits=32, steps=3),
+    dict(tag="10b", arch="zamba2-7b", state_bits=8, steps=4),
+    dict(tag="10c", arch="seamless-m4t-medium", state_bits=32, steps=4),
     dict(tag="10d", arch="llama-3.2-vision-90b", layers=5, gate=0.5,
-         state_bits=8, steps=3),
+         state_bits=8, steps=4),
 )
 FAMILY_RUN = dict(seed=0, batch=4, seq=2048, prefill_reps=3,
                   decode_steps=16, slots=8, max_seq=128, n_requests=24,
@@ -490,6 +498,45 @@ def time_ms(fn, iters: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+class captures_watched:
+    """Within the block, each `graph.CapturedStep` capture's host time and
+    the card memory it pins: allocated and reserved after it less before
+    it (the allocator's cache emptied first, as `torch.cuda.graph` empties
+    it on entry).  `self.seen` lists them in order."""
+
+    def __enter__(self):
+        from repro_torch.graph import CapturedStep
+        self.cls, self.real, self.seen = CapturedStep, CapturedStep.capture, []
+        real, seen = self.real, self.seen
+
+        def capture(step, bound, inputs):
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            a0 = torch.cuda.memory_allocated()
+            r0 = torch.cuda.memory_reserved()
+            t0 = time.perf_counter()
+            real(step, bound, inputs)
+            torch.cuda.synchronize()
+            seen.append(dict(
+                capture_ms=(time.perf_counter() - t0) * 1e3,
+                pinned_allocated_gb=(torch.cuda.memory_allocated() - a0) / 1e9,
+                pinned_reserved_gb=(torch.cuda.memory_reserved() - r0) / 1e9))
+
+        CapturedStep.capture = capture
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.capture = self.real
+        return False
+
+
+def capture_line(seen: list[dict]) -> str:
+    return "; ".join(f"capture {c['capture_ms']:.1f} ms, pins "
+                     f"{c['pinned_allocated_gb']:.3f} GB allocated, "
+                     f"{c['pinned_reserved_gb']:.3f} GB reserved"
+                     for c in seen)
 
 
 def device_ms(fn, iters: int = 20, split: str = "") -> float:
@@ -1711,12 +1758,12 @@ def exchange_graph(ex, s, n_rel: int, chunks: int) -> dict:
     real = torch.cuda.CUDAGraph
     torch.cuda.CUDAGraph = lambda: real(keep_graph=True)
     try:
-        step._capture(ex, s._ptable, list(s._device_args))
+        step.compiled.capture((), (s._ptable, *s._device_args))
     finally:
         torch.cuda.CUDAGraph = real
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "step.dot")
-        step.graph.debug_dump(path)
+        step.compiled.graph.debug_dump(path)
         with open(path) as f:
             dot = f.read()
     del step
@@ -2821,7 +2868,8 @@ def moe_train(dev):
     launch_hist = ops.segment_histogram
 
     def keep_input(values, n_bins, **kw):
-        captured.setdefault(values.numel(), values.detach().clone())
+        if values.numel() not in captured:      # the eager step's, not
+            captured[values.numel()] = values.detach().clone()  # captured
         return launch_hist(values, n_bins, **kw)
 
     # The path: counts zeroed just before, read just after.
@@ -2829,17 +2877,23 @@ def moe_train(dev):
     torch.cuda.synchronize()
     ops.reset_launches()
     step_s, metrics = [], []
-    for _ in range(n_steps):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        model, opt, m = fns.step(model, opt, batch)
-        m = {k: v.detach().cpu() for k, v in m.items()}
-        step_s.append(time.perf_counter() - t)
-        metrics.append(m)
+    with captures_watched() as watch:
+        for _ in range(n_steps):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            model, opt, m = fns.step(model, opt, batch)
+            m = {k: v.detach().cpu() for k, v in m.items()}
+            step_s.append(time.perf_counter() - t)
+            metrics.append(m)
     torch.cuda.synchronize()
     launches = dict(ops.LAUNCHES)
     ops.segment_histogram = launch_hist
     peak = torch.cuda.max_memory_allocated()
+    c = fns.compiled
+    passes = c.eager_calls + c.captures
+    check((c.eager_calls, c.captures, c.replays) == (1, 1, n_steps - 1),
+          f"9a: eager calls, captures, replays {c.eager_calls}, "
+          f"{c.captures}, {c.replays}; expected 1, 1, {n_steps - 1}")
 
     losses = [float(m["loss"]) for m in metrics]
     check(all(np.isfinite(losses)), f"train losses {losses} not finite")
@@ -2854,13 +2908,13 @@ def moe_train(dev):
           f"first step's expert_load {metrics[0]['expert_load'].tolist()} "
           f"!= the plain forward's {plain_load.tolist()}")
     want = dict.fromkeys(KERNEL_SITES, 0)
-    want["segment_histogram"] = 2 * L * n_steps
+    want["segment_histogram"] = 2 * L * passes
     check(launches == want, f"moe_train launches {launches}, expected {want}")
     vals = captured[B * S * K]
     check(torch.equal(sh.segment_histogram_cuda(vals, cfg.n_experts),
                       sh.segment_histogram_host(vals, cfg.n_experts)),
           "segment_histogram differs from plain on the train step's input")
-    warm = float(np.median(step_s[1:]))
+    warm = float(np.median(step_s[2:]))
     series = {k: ", ".join(f"{float(m[k]):.4f}" for m in metrics)
               for k in ("loss", "grad_norm", "lr_scale")}
     print(f"[train] 9a losses {series['loss']}; zloss "
@@ -2870,12 +2924,15 @@ def moe_train(dev):
           f"{B * S * K * L}; step 1's {metrics[0]['expert_load'].tolist()} "
           f"equals the plain forward's (torch.equal); opt step {n_steps}; "
           f"segment_histogram launches {launches['segment_histogram']} = 2 "
-          f"(forward + recompute) x {L} layers x {n_steps} steps, equal to "
-          f"plain on its {vals.numel()} values")
+          f"(forward + recompute) x {L} layers x {passes} host passes (the "
+          f"eager step and the capture; {c.replays} replays launch it from "
+          f"the graph), equal to plain on its {vals.numel()} values")
     print(f"[train] 9a steps {', '.join(f'{t * 1e3:.1f}' for t in step_s)} "
-          f"ms: cold first {step_s[0] * 1e3:.1f} ms, warm median (steps "
-          f"2-{n_steps}) {warm * 1e3:.1f} ms, {B * S / warm:.0f} tokens/s; "
+          f"ms: cold first (eager) {step_s[0] * 1e3:.1f} ms, capturing "
+          f"{step_s[1] * 1e3:.1f} ms, warm median (replays, steps "
+          f"3-{n_steps}) {warm * 1e3:.1f} ms, {B * S / warm:.0f} tokens/s; "
           f"peak allocated (measured) {peak / 1e9:.2f} GB")
+    print(f"[train] 9a graph: {capture_line(watch.seen)}")
     # Where a warm step's time goes (a sixth step, not counted above).
     profile_calls(lambda: fns.step(model, opt, batch),
                   f"one warm train step ({B} x {S} tokens, {L} layers)", 1,
@@ -2883,8 +2940,8 @@ def moe_train(dev):
     out = dict(launches=launches, losses=losses, step_ms=[t * 1e3 for t in
                                                           step_s],
                warm_ms=warm * 1e3, tokens_per_s=B * S / warm,
-               peak_gb=peak / 1e9, n_layers=L)
-    del model, opt, fns, batch, captured, vals, metrics
+               peak_gb=peak / 1e9, n_layers=L, graph=watch.seen)
+    del model, opt, fns, c, batch, captured, vals, metrics
     torch.cuda.empty_cache()
     return out
 
@@ -2928,10 +2985,12 @@ def train_driver(dev):
                 "--ckpt-every",
                 str(DRIVER["ckpt_every"]), "--log-every", "1",
                 "--ckpt-dir", d]
-        out1, wall1 = run(base + ["--steps", str(DRIVER["steps"]),
-                                  "--fail-at-step", str(DRIVER["fail_at"])])
-        out2, wall2 = run(base + ["--steps", str(DRIVER["resume_steps"]),
-                                  "--resume"])
+        with captures_watched() as watch:
+            out1, wall1 = run(base + ["--steps", str(DRIVER["steps"]),
+                                      "--fail-at-step",
+                                      str(DRIVER["fail_at"])])
+            out2, wall2 = run(base + ["--steps", str(DRIVER["resume_steps"]),
+                                      "--resume"])
         latest = Checkpointer(d).latest_step()
     for line in (f"[FT] injecting node failure at step {DRIVER['fail_at']}",
                  "[FT] re-meshing {'data': 2, 'model': 4} -> {'data': 1, "
@@ -2945,18 +3004,27 @@ def train_driver(dev):
           f"9b: the loss did not descend: {l1} then {l2}")
     check(latest == DRIVER["resume_steps"], f"9b: latest committed step "
           f"{latest}, not {DRIVER['resume_steps']}")
+    check(len(watch.seen) == 3, f"9b: {len(watch.seen)} captures, not 3 "
+          f"(a run's second step, and the second after the restore)")
     ms1 = step_ms(out1)
-    warm = [v for k, v in ms1.items() if k not in (0, DRIVER["fail_at"])]
+    # Eager first steps of a binding (0, and the failure's restored model)
+    # and the captures after them are not warm.
+    fail = DRIVER["fail_at"]
+    warm = [v for k, v in ms1.items() if k not in (0, 1, fail, fail + 1)]
     warm_ms = float(np.median(warm))
+    cap_ms = [ms1[1], ms1[fail + 1]]
     print(f"[driver] 9b qwen2-0.5b: loss {l1[0]:.4f} -> {l1[-1]:.4f} "
           f"(failure at step {DRIVER['fail_at']}), resumed {l2[0]:.4f} -> "
           f"{l2[-1]:.4f}; latest committed step {latest}; warm step median "
           f"{warm_ms:.0f} ms ({DRIVER['batch'] * DRIVER['seq'] / warm_ms * 1e3:.0f}"
           f" tokens/s); final checkpoint save (blocking) {save_s(out1):.2f} / "
           f"{save_s(out2):.2f} s; runs {wall1:.1f} s and {wall2:.1f} s")
+    print(f"[driver] 9b graph: capturing steps 1 and {fail + 1} "
+          f"{cap_ms[0]:.0f} / {cap_ms[1]:.0f} ms; {capture_line(watch.seen)}")
     torch.cuda.empty_cache()
     return dict(warm_ms=warm_ms, save_s=[save_s(out1), save_s(out2)],
-                losses=l1 + l2, walls_s=[wall1, wall2])
+                losses=l1 + l2, walls_s=[wall1, wall2], step_ms=ms1,
+                capture_step_ms=cap_ms, graph=watch.seen)
 
 
 def family_cell(dev, spec) -> dict:
@@ -3138,14 +3206,19 @@ def family_cell(dev, spec) -> dict:
     pipe = TokenPipeline(PipelineConfig(cfg.vocab, S, B, seed=R["seed"]))
     batch = make_batch(cfg, pipe, 0, np.random.default_rng(R["seed"]), dev)
     step_s, metrics = [], []
-    for _ in range(steps):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        model, opt, m = fns.step(model, opt, batch)
-        m = {k: v.detach().cpu() for k, v in m.items()}
-        step_s.append(time.perf_counter() - t)
-        metrics.append(m)
+    with captures_watched() as watch:
+        for _ in range(steps):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            model, opt, m = fns.step(model, opt, batch)
+            m = {k: v.detach().cpu() for k, v in m.items()}
+            step_s.append(time.perf_counter() - t)
+            metrics.append(m)
     train_peak = peak_gb("train step")
+    c = fns.compiled
+    check((c.eager_calls, c.captures, c.replays) == (1, 1, steps - 1),
+          f"{tag}: eager calls, captures, replays {c.eager_calls}, "
+          f"{c.captures}, {c.replays}; expected 1, 1, {steps - 1}")
     losses = [float(m["loss"]) for m in metrics]
     norms = [float(m["grad_norm"]) for m in metrics]
     check(all(np.isfinite(losses + norms)),
@@ -3153,15 +3226,17 @@ def family_cell(dev, spec) -> dict:
     check(losses[-1] < losses[0], f"{tag}: the loss did not descend: "
           f"{losses}")
     check(int(opt["step"]) == steps, f"{tag}: opt step {int(opt['step'])}")
-    warm = float(np.median(step_s[1:]))
+    warm = float(np.median(step_s[2:]))
     print(f"[family] {tag} training ({n_train} parameters, "
           f"{spec['state_bits']}-bit AdamW states, remat {cfg.remat!r}; "
           f"cut: {cut(cfg)}): losses {', '.join(f'{v:.4f}' for v in losses)}"
           f"; grad_norm {', '.join(f'{v:.4f}' for v in norms)}; steps "
           f"{', '.join(f'{t * 1e3:.1f}' for t in step_s)} ms: cold first "
-          f"{step_s[0] * 1e3:.1f} ms, warm median {warm * 1e3:.1f} ms, "
-          f"{B * S / warm:.0f} tokens/s; opt step {steps}; peak allocated "
-          f"(measured) {train_peak:.2f} GB")
+          f"(eager) {step_s[0] * 1e3:.1f} ms, capturing "
+          f"{step_s[1] * 1e3:.1f} ms, warm median (replays) "
+          f"{warm * 1e3:.1f} ms, {B * S / warm:.0f} tokens/s; opt step "
+          f"{steps}; peak allocated (measured) {train_peak:.2f} GB")
+    print(f"[family] {tag} train graph: {capture_line(watch.seen)}")
     prof = {}
     t0 = time.perf_counter()
     profile_calls(lambda: fns.step(model, opt, batch),
@@ -3174,8 +3249,9 @@ def family_cell(dev, spec) -> dict:
     out.update(train_params=n_train, train_cut=cut(cfg), losses=losses,
                grad_norms=norms, step_ms=[t * 1e3 for t in step_s],
                warm_step_ms=warm * 1e3, train_tokens_per_s=B * S / warm,
-               train_peak_gb=train_peak, warm_step_profile=prof)
-    del model, opt, fns, batch, metrics
+               train_peak_gb=train_peak, warm_step_profile=prof,
+               train_graph=watch.seen)
+    del model, opt, fns, c, batch, metrics     # the graph and its pool too
     gc.collect()
     torch.cuda.empty_cache()
     return out

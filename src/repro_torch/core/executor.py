@@ -49,7 +49,8 @@ drained lazily so a warm loop never waits on the card);
 `serve.engine.SelfHealingSession` drives them.
 
 The step cache.  On the card with `use_kernels=True` a step is a CUDA
-graph, the counterpart of the reference's jitted executable.  A key's
+graph, the counterpart of the reference's jitted executable, under the
+capture policy that the decode and train steps share (`graph.py`).  A key's
 first `run_batch` runs the step eagerly and returns its result: the
 warm-up, which makes each kernel's first call (the library's nvcc build,
 its attributes, the route descriptors' uploads, the chunked exchange's
@@ -85,6 +86,7 @@ from typing import Mapping
 import numpy as np
 import torch
 
+from ..graph import CapturedStep
 from ..kernels import ops
 from ..kernels.join_probe import default_bits
 from ..kernels.map_pack import count_scatter, scatter_desc_tensor
@@ -824,61 +826,67 @@ class ShardedJoinExecutor:
 
 
 class _GraphStep:
-    """One (shapes, caps, cap_out) step on the card, built as a CUDA graph.
+    """One (shapes, caps, cap_out) step on the card, under the capture
+    policy of `graph.CapturedStep`, which binds nothing (the step reads
+    the executor's descriptors, kept in `held`) and copies the (k,)
+    placement table and each relation's (n, w) rows in.
 
     The first call runs the step eagerly and returns that run's own
     tensors.  It is the warm-up, where each kernel's first call happens
     (the library's build, its attributes, the route descriptors' uploads,
     the chunked exchange's stream), so a key run once, as most rungs of a
     retry ladder are, is never captured.  The second call captures the
-    step into the executor's graph pool, with static inputs (the (k,)
-    placement table, then each relation's (n, w) rows) cloned from its
-    arguments, and replays it; every later call copies its arguments into
-    the static inputs and replays.  Before either, each live result of the
-    executor's graphs gets tensors of its own (copy-on-replay: the graphs
-    share a pool, so a replay may write over any of their outputs).
-    `held` keeps the route descriptors that the kernels read by address.
+    step into the executor's graph pool and replays it; every later call
+    copies its arguments in and replays.  Before either, each live result
+    of the executor's graphs gets tensors of its own (copy-on-replay: the
+    graphs share a pool, so a replay may write over any of their outputs).
     A capture that fails raises."""
 
     def __init__(self, ex: "ShardedJoinExecutor", caps: tuple[int, ...],
                  cap_out: int):
         self._ex = weakref.ref(ex)      # the executor's cache holds the step
-        self.caps, self.cap_out = caps, cap_out
-        self.warm = False
-        self.graph = self.inputs = self.outputs = self.held = None
+        self.held = None
+        # Partials of weak references: nothing here refers back to the step,
+        # so an evicted step frees its graph at once.
+        self.compiled = CapturedStep(
+            functools.partial(_run_step, self._ex, caps, cap_out), ex.device,
+            pool=functools.partial(_graph_pool, self._ex),
+            before_graph=functools.partial(_own_results, self._ex))
 
     def __call__(self, ptable: torch.Tensor, *arrs: torch.Tensor):
         ex = self._ex()
-        if not self.warm:
-            out = ex._step(ptable, arrs, self.caps, self.cap_out)
-            self.warm = True
-            return out
-        for res in list(ex._live_results.values()):
-            res._own_tensors()
-        ex._live_results.clear()
-        if self.graph is None:
-            self._capture(ex, ptable, arrs)
-        else:
-            for dst, src in zip(self.inputs, (ptable, *arrs)):
-                dst.copy_(src)
-        self.graph.replay()
-        return self.outputs
+        if self.held is None:
+            self.held = [scatter_desc_tensor(spec, ptable.device)
+                         if ex.config.fuse_map
+                         else _route_tensors(spec, ptable.device)
+                         for spec in ex.route_specs.values()]
+        captured = self.compiled.captures
+        out = self.compiled((), (ptable, *arrs))
+        ex.captures += self.compiled.captures - captured
+        return out
 
-    def _capture(self, ex: "ShardedJoinExecutor", ptable: torch.Tensor,
-                 arrs) -> None:
-        dev = ptable.device
-        self.inputs = [ptable.clone()] + [a.clone() for a in arrs]
-        self.held = [scatter_desc_tensor(spec, dev) if ex.config.fuse_map
-                     else _route_tensors(spec, dev)
-                     for spec in ex.route_specs.values()]
-        if ex._graph_pool is None:
-            ex._graph_pool = torch.cuda.graph_pool_handle()
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, pool=ex._graph_pool):
-            self.outputs = ex._step(self.inputs[0], self.inputs[1:],
-                                    self.caps, self.cap_out)
-        self.graph = graph
-        ex.captures += 1
+
+def _run_step(ex_ref, caps: tuple[int, ...], cap_out: int,
+              ptable: torch.Tensor, *arrs: torch.Tensor):
+    return ex_ref()._step(ptable, arrs, caps, cap_out)
+
+
+def _graph_pool(ex_ref):
+    """The memory pool that every captured step of the executor allocates
+    from."""
+    ex = ex_ref()
+    if ex._graph_pool is None:
+        ex._graph_pool = torch.cuda.graph_pool_handle()
+    return ex._graph_pool
+
+
+def _own_results(ex_ref) -> None:
+    """Copy-on-replay: every live result of the executor's graphs gets
+    tensors of its own."""
+    ex = ex_ref()
+    for res in list(ex._live_results.values()):
+        res._own_tensors()
+    ex._live_results.clear()
 
 
 class BatchResult(collections.abc.Mapping):
@@ -1158,7 +1166,7 @@ class ExecutorSession:
         f = ex._compiled_step(shapes, self.caps, self.cap_out)
         res = BatchResult(*f(self._ptable, *args))
         sh_over, j_over = res.tensors[2:4]
-        if isinstance(f, _GraphStep) and f.graph is not None:
+        if isinstance(f, _GraphStep) and f.compiled.graph is not None:
             # The next replay overwrites the graph's outputs: the result is
             # copied before it, and the overflow parked for `stats` now.
             ex._live_results[id(res)] = res

@@ -33,7 +33,10 @@ def layout(cfg) -> Layout:
 def _remat(fn: Callable, mode: str) -> Callable:
     """fn, recomputed in the backward pass under "full".  "dots" (the
     reference's policy that saves the matmuls' outputs) is refused: no
-    config uses it.  Outside autograd (grad mode off) fn runs as it is."""
+    config uses it.  Outside autograd (grad mode off) fn runs as it is.
+    No model draws random numbers in a step, so the recompute keeps no
+    generator state (`preserve_rng_state=False`): stashing and restoring
+    the card's generator has no place in a captured train step."""
     if mode == "dots":
         raise NotImplementedError(
             'remat="dots" is not ported; use "full" or "none"')
@@ -43,7 +46,8 @@ def _remat(fn: Callable, mode: str) -> Callable:
     def recomputed(*args):
         if not torch.is_grad_enabled():
             return fn(*args)
-        return checkpoint(fn, *args, use_reentrant=False)
+        return checkpoint(fn, *args, use_reentrant=False,
+                          preserve_rng_state=False)
 
     return recomputed
 

@@ -6,11 +6,11 @@ interchange: {"mu": <the parameter tree with {"m", "v"} (float32) or
 the last axis) at each leaf>, "step": int32 scalar}.  The 8-bit mode keeps
 v in the square-root domain, as the reference does.
 
-`apply` updates the parameters and the state in place.  It walks each
-leaf in slices of whole rows (`_SLICE` elements): `_q8` scales each row
-over the last axis only, so a sliced update gives the same bits as the
-reference's whole-leaf one while its float32 temporaries stay a slice's
-size.  (The reference's `init_abstract` and `state_pspecs` describe
+`apply` updates the parameters and the state (its `step` too) in place.
+It walks each leaf in slices of whole rows (`_SLICE` elements): `_q8`
+scales each row over the last axis only, so a sliced update gives the same
+bits as the reference's whole-leaf one while its float32 temporaries stay
+a slice's size.  (The reference's `init_abstract` and `state_pspecs` describe
 sharded layouts for its mesh; on one card there is none, so they are not
 ported.)
 """
@@ -98,8 +98,10 @@ def global_norm(grads) -> torch.Tensor:
 
 @torch.no_grad()
 def apply(params, state, grads, cfg: AdamWConfig, lr_scale=1.0):
-    """One AdamW step, in place; returns (params, state, metrics)."""
-    step = state["step"] + 1
+    """One AdamW step, in place, the state's step counter too (a captured
+    train step replaces no tensor it was given); returns (params, state,
+    metrics)."""
+    step = state["step"].add_(1)
     gnorm = global_norm(grads)
     clip = (torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-12),
                         max=1.0) if cfg.grad_clip else 1.0)
@@ -140,4 +142,4 @@ def apply(params, state, grads, cfg: AdamWConfig, lr_scale=1.0):
             new = upd(p_rows[sl], g_rows[sl], {k: v[sl] for k, v in mu.items()})
             for k, v in new.items():
                 mu[k][sl].copy_(v)
-    return params, {"mu": state["mu"], "step": step}, {"grad_norm": gnorm}
+    return params, state, {"grad_norm": gnorm}

@@ -33,7 +33,7 @@ from ..core.adapt import AdaptPolicy, DriftDetector
 from ..core.executor import (DeviceLossError, ExecutorSession, RetryPolicy,
                              ShardedJoinExecutor, _struct_key, resolve_device)
 from ..core.placement import lpt_placement
-from ..core.skewjoin import plan_from_hhs
+from ..core.skewjoin import fills_pruned, plan_from_hhs, pruned_combos
 from ..ft import ChaosInjector, HealthMonitor, StragglerWatchdog
 from ..models import api
 from .serve_step import ServeFns, build_decode_step
@@ -191,7 +191,13 @@ class SelfHealingSession:
                      counts `replacements` / `replans` and, in
                      `replace_compiles` / `replan_compiles`, those whose
                      step-cache key is new (0 on stable structure; a new
-                     HH set builds a step, counted, never hidden).
+                     HH set builds a step, counted, never hidden).  A
+                     re-plan sizes its plan from one batch, and prunes
+                     each type combination that batch left empty in some
+                     relation; before a batch runs, one that fills a
+                     combination the current plan pruned (rows the plan
+                     would route nowhere) re-plans on itself with the
+                     plan's HHs, counted in `replans`.
                      Adaptation re-plans from the planner's plan, so an
                      executor made by `from_specs` (no plan) refuses it.
 
@@ -248,6 +254,7 @@ class SelfHealingSession:
         self._last_data: Mapping[str, np.ndarray] | None = None
         self._last_counts: list[np.ndarray] | None = None
         self._retired_stats: dict | None = None   # superseded sessions' sums
+        self._pruned: tuple | None = None   # (plan, its HHs, its pruned combos)
 
     def prepare(self, data: Mapping[str, np.ndarray], **kw
                 ) -> "SelfHealingSession":
@@ -298,6 +305,10 @@ class SelfHealingSession:
         # Failures detected since the last batch (heartbeats aged out).
         self._evict([d for d in self.health.failed_nodes()
                      if d in self.alive])
+        if self.detector is not None:
+            self._replan_if_pruned(chunks if chunks is not None
+                                   else self._prepared_data)
+            ses, ex = self.session, self.executor
         t0 = time.perf_counter()
         try:
             res = ses.run_with_retry(chunks, self.retry)
@@ -459,7 +470,6 @@ class SelfHealingSession:
         one's caps: one prepare, no step built.  A new plan makes a new
         executor on the old one's device, which builds its step on the next
         batch: counted in `replan_compiles`, never hidden."""
-        ses, ex = self.session, self.executor
         det = self.detector
         if det is None:
             raise RuntimeError(
@@ -468,9 +478,28 @@ class SelfHealingSession:
                   else self._prepared_data)
         if sample is None:
             raise RuntimeError("force_replan before prepare()")
+        self._replan(sample, det.sketched_hhs())
+
+    def _replan_if_pruned(self, data: Mapping[str, np.ndarray]) -> None:
+        """Before a batch runs: if every relation of `data` has rows in a
+        type combination the current plan pruned (its sample had none of
+        them in some relation, so the plan has no residual join for them
+        and its routing would drop them), re-plan on `data` with the
+        plan's own HHs, counted in `replans`."""
+        plan = self.executor.plan
+        if self._pruned is None or self._pruned[0] is not plan:
+            self._pruned = (plan, *pruned_combos(plan))
+        _, hh, pruned = self._pruned
+        if len(pruned) and fills_pruned(plan.query, data, hh, pruned):
+            self._replan(data, plan.hhs)
+
+    def _replan(self, sample: Mapping[str, np.ndarray], hhs) -> None:
+        """Plan on `sample` (its sizes) with the HH set `hhs` and swap the
+        wrapped session (see `force_replan`)."""
+        ses, ex = self.session, self.executor
+        det = self.detector
         plan = ex.plan
-        new_plan = plan_from_hhs(plan.query, sample, plan.k,
-                                 det.sketched_hhs())
+        new_plan = plan_from_hhs(plan.query, sample, plan.k, hhs)
         key = _struct_key(new_plan)
         ex2 = self._plan_cache.get(key)
         if ex2 is None:

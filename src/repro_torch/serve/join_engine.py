@@ -67,7 +67,8 @@ from ..core.executor import (INVALID, BatchResult, ExecutorConfig,
 from ..core.placement import lpt_placement
 from ..core.plan import JoinQuery
 from ..core.residual import enumerate_combinations
-from ..core.skewjoin import SkewJoinPlan, plan_skew_join
+from ..core.skewjoin import (SkewJoinPlan, fills_pruned, plan_skew_join,
+                             pruned_combos)
 from .engine import SelfHealingSession
 
 
@@ -83,53 +84,6 @@ class JoinRequest:
     latency_s: float = 0.0                  # the run + the rows on the host
     copy_s: float = 0.0                     # of it: the rows' copy to the host
     done: bool = False
-
-
-def _pruned_combos(plan: SkewJoinPlan
-                   ) -> tuple[dict[str, np.ndarray], np.ndarray]:
-    """The plan's sorted HH values per attribute, and the type combinations
-    it pruned (some relation had no row of them in the data it was planned
-    on) as a (combinations, attributes) array of codes, the attributes in
-    the dict's order: 0 for ordinary, else 1 + the value's rank among the
-    attribute's HH values."""
-    hh = {a: np.sort(np.asarray(plan.hhs.values(a), np.int64))
-          for a in plan.query.join_attributes() if plan.hhs.values(a)}
-    if not hh:                  # one combination, pruned iff unplanned
-        return hh, np.zeros((0 if plan.residuals else 1, 0), np.int64)
-    dims = [len(v) + 1 for v in hh.values()]
-    kept = [[1 + int(np.searchsorted(v, rp.residual.combo.as_dict[a]))
-             if a in rp.residual.combo.as_dict else 0 for a, v in hh.items()]
-            for rp in plan.residuals]
-    kept = np.ravel_multi_index(
-        np.array(kept, np.int64).reshape(-1, len(hh)).T, dims)
-    pruned = np.setdiff1d(np.arange(int(np.prod(dims))), kept)
-    return hh, np.stack(np.unravel_index(pruned, dims), 1)
-
-
-def _fills_pruned(query: JoinQuery, data: Mapping[str, np.ndarray],
-                  hh: Mapping[str, np.ndarray], pruned: np.ndarray) -> bool:
-    """Whether every relation of `data` has rows in one of the `pruned`
-    combinations: rows the plan has no residual join for, which its
-    routing would drop."""
-    fills = np.ones(len(pruned), bool)
-    order = list(hh)
-    for rel in query.relations:
-        arr = np.asarray(data[rel.name])
-        attrs = [a for a in rel.attrs if a in hh]
-        if not attrs:
-            fills &= len(arr) > 0
-            continue
-        dims = [len(hh[a]) + 1 for a in attrs]
-        codes = []
-        for a in attrs:
-            col = arr[:, rel.attrs.index(a)].astype(np.int64)
-            idx = np.searchsorted(hh[a], col)
-            hit = hh[a][np.minimum(idx, len(hh[a]) - 1)] == col
-            codes.append(np.where(hit, idx + 1, 0))
-        seen = np.unique(np.ravel_multi_index(codes, dims))
-        want = pruned[:, [order.index(a) for a in attrs]].T
-        fills &= np.isin(np.ravel_multi_index(want, dims), seen)
-    return bool(fills.any())
 
 
 def _valid_rows(res) -> np.ndarray:
@@ -317,14 +271,14 @@ class JoinServingEngine:
         residual join for them and would drop them), counted in the
         tenant's `replans`."""
         if t.plan is not None:
-            if not _fills_pruned(req.query, req.data, t.hh_vals, t.pruned):
+            if not fills_pruned(req.query, req.data, t.hh_vals, t.pruned):
                 return
             t.stats["replans"] += 1
             if self.adapt is not None:      # the cells are the new plan's
                 self.adapt.detectors.pop(t.name, None)
         t.plan = plan_skew_join(req.query, req.data, self.k)
         t.struct_key = _struct_key(t.plan)
-        t.hh_vals, t.pruned = _pruned_combos(t.plan)
+        t.hh_vals, t.pruned = pruned_combos(t.plan)
 
     def _session_for(self, t: _Tenant, req: JoinRequest
                      ) -> tuple[ExecutorSession, tuple]:

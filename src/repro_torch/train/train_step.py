@@ -14,6 +14,25 @@ layout-shaped tree (`model.tree()`, leaves with `requires_grad` on); the
 stacked leaves get theirs slice by slice (`common.take_layer`).
 Microbatching: the batch splits into `n_micro` slices along its leading
 axis; their gradients accumulate in float32 and the metrics are means.
+
+The compiled step.  The reference jits its step; here, on the card with
+`model.use_kernels`, the whole step is one CUDA graph under the policy of
+`graph.CapturedStep`, shared with the join and decode steps: the forward,
+each layer's recompute (`remat="full"`), the backward, the microbatch
+loop, the gradient norm, the sliced update and the schedule on the state's
+step counter.  The binding is the parameters and the optimizer state
+(addresses, shapes, strides, dtypes) and the batch's keys, shapes and
+dtypes.  A binding's first call runs eagerly, its second captures the step
+into a pool of its own and replays it, later calls copy the batch into the
+graph's buffers (outside the captured region: nothing is uploaded from the
+host inside it) and replay.  The step replaces none of the tensors it is
+given (the update and the step counter are in place), so the driver and
+the checkpointer read them where they lie; a restored model or state is
+another binding, which runs eagerly once and then captures anew.  The
+metrics come back as clones, which no later replay overwrites.  A capture
+that fails raises.  The CPU and `use_kernels=False` run every call eagerly:
+that is the reference.  `StepFns.compiled` holds the graph and its
+counters (`eager_calls`, `captures`, `replays`).
 """
 from __future__ import annotations
 
@@ -24,6 +43,7 @@ import torch
 
 from ..configs.base import ArchConfig
 from ..core.executor import resolve_device
+from ..graph import CapturedStep
 from ..models import api
 from ..models.common import map_layout
 from ..optim import adamw
@@ -38,6 +58,7 @@ class StepFns:
     opt_abstract: Any
     layout: Any
     device: torch.device
+    compiled: CapturedStep            # the step's graph and its counters
 
 
 def loss_fn(params, cfg: ArchConfig, batch: dict):
@@ -88,8 +109,8 @@ def build_train_step(
             p.grad = None
         return grads, metrics
 
-    def step(model, opt_state, batch):
-        batch = {k: torch.as_tensor(v).to(dev) for k, v in batch.items()}
+    def run(model, opt_state, keys, *values):
+        batch = {k: v.to(dev) for k, v in zip(keys, values)}
         tree = model.tree()
         model.requires_grad_(True)
         with torch.enable_grad():
@@ -111,10 +132,21 @@ def build_train_step(
 
         lr_scale = warmup_cosine(opt_state["step"], warmup=warmup_steps,
                                  total=total_steps)
-        _, opt_state, opt_metrics = adamw.apply(tree, opt_state, grads,
-                                                opt_cfg, lr_scale)
-        metrics = {**metrics, **opt_metrics, "lr_scale": lr_scale}
+        _, _, opt_metrics = adamw.apply(tree, opt_state, grads, opt_cfg,
+                                        lr_scale)
+        return {**metrics, **opt_metrics, "lr_scale": lr_scale}
+
+    # A graph's metrics are cloned: no later replay overwrites them.
+    compiled = CapturedStep(run, dev, own=lambda m: {k: v.clone()
+                                                     for k, v in m.items()})
+
+    def step(model, opt_state, batch):
+        keys = tuple(batch)
+        values = tuple(torch.as_tensor(v) for v in batch.values())
+        metrics = compiled((model, opt_state, keys), values,
+                           model.use_kernels)
         return model, opt_state, metrics
 
     return StepFns(step=step, params_abstract=params_abs,
-                   opt_abstract=opt_abs, layout=layout, device=dev)
+                   opt_abstract=opt_abs, layout=layout, device=dev,
+                   compiled=compiled)

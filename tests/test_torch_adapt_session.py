@@ -13,7 +13,10 @@ re-placement and a same-structure re-plan build no step, a new heavy
 hitter builds one and counts it.  The forced actions and mild drift also
 run on the port's other three `ExecutorConfig` arms against the JAX
 session (fused + hash, which the reference pins equal to its other arms),
-and a re-plan in degraded mode folds the new plan over the survivors."""
+and a re-plan in degraded mode folds the new plan over the survivors.
+Last, the fault both packages had (ROADMAP §3): a batch filling a type
+combination that an adaptive re-plan pruned re-plans the port's session
+first and stays exact, where the JAX session drops those rows."""
 import functools
 import hashlib
 from types import SimpleNamespace
@@ -248,3 +251,52 @@ def test_adapt_refuses_an_executor_without_a_plan():
     res = SelfHealingSession(ex).prepare(data).run_batch()
     np.testing.assert_array_equal(
         canonical(res["rows"][res["valid"]]), reference_join(two_way(), data))
+
+
+def _set_b(batch, rel, n, seed):
+    """`batch` with column B set to 1 in n rows of `rel`, picked by
+    default_rng(seed)."""
+    out = {k: np.array(v) for k, v in batch.items()}
+    col = two_way().relation(rel).attrs.index("B")
+    rows = np.random.default_rng(seed).choice(len(out[rel]), n, replace=False)
+    out[rel][rows, col] = 1
+    return out
+
+
+def _pruned_after_replan(pkg, arm):
+    """Batches 0-2 put B = 1 in 300 of R's rows only: batch 2 re-plans on
+    its own, with HHs B = 0 and 1, and prunes B = 1 (S has none).  The
+    fourth batch then fills B = 1 in both relations."""
+    ex, eng = _session(pkg, arm)
+    batches = [_set_b(drift_batch(HOT_A, seed=60 + i), "R", 300, i)
+               for i in range(3)]
+    last = _set_b(_set_b(drift_batch(HOT_A, seed=70), "R", 300, 9),
+                  "S", 40, 10)
+    trail = _run(eng, ex, batches)
+    res = eng.run_batch(last)
+    rows = np.asarray(res["rows"])[np.asarray(res["valid"])]
+    return trail, rows, last, eng.stats
+
+
+def test_a_batch_in_a_combination_a_replan_pruned_replans_first():
+    """A batch with rows in a type combination that an adaptive re-plan
+    pruned (its one-batch sample had none of them in S) re-plans before it
+    runs, with the plan's own HHs, counted in `replans`, and is exact:
+    29,380 rows.  The JAX session keeps the pruned plan and drops 12,000
+    of them without an overflow or an error.  Until then the two trails
+    are equal, and the re-plan of batch 2 prunes B = 1 in both."""
+    want_trail, jax_rows, data, jax_st = _pruned_after_replan(JAX, None)
+    trail, rows, _, st = _pruned_after_replan(PORT, "fused+hash")
+    for i, (g, w) in enumerate(zip(trail, want_trail)):
+        for key in w:
+            assert g[key] == w[key], f"state {i}: {key} differs"
+        assert g["exact"], f"state {i}: rows differ from reference_join"
+    assert trail[-1]["stats"]["replans"] == 1
+    assert trail[-1]["hhs"] == {"B": (0, 1)}
+    want = reference_join(two_way(), data)
+    assert len(want) == 29_380 and len(jax_rows) == 17_380
+    assert jax_st["replans"] == 1
+    assert not np.asarray(jax_st["shuffle_overflow"]).any()
+    assert not np.asarray(jax_st["join_overflow"]).any()
+    np.testing.assert_array_equal(canonical(rows), want)
+    assert st["replans"] == 2 and st["replan_compiles"] == 2

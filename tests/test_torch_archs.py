@@ -3,7 +3,8 @@
 count equal the reference's (full and reduced), and every one builds,
 runs a forward and a decode step and (one per family) takes a train step
 at reduced size in bf16 on the CPU, with finite outputs of the
-reference's shapes."""
+reference's shapes; `input_specs` gives every (arch, shape) cell's inputs
+as meta tensors of the reference's shapes and dtypes."""
 import dataclasses
 
 import numpy as np
@@ -11,10 +12,11 @@ import pytest
 import torch
 
 from repro.configs import ARCHS as JARCHS
+from repro.configs import input_specs as jinput_specs
 from repro.models import api as japi
 from repro.models.common import count_params as jcount_params
 from repro.models.common import map_layout as jmap_layout
-from repro_torch.configs import ARCHS
+from repro_torch.configs import ARCHS, SHAPES, cell_applicable, input_specs
 from repro_torch.launch.train import frontend_shapes
 from repro_torch.models import api
 from repro_torch.models.common import count_params, map_layout
@@ -124,3 +126,41 @@ def test_train_step_smoke(name):
     gsum = sum(float(p.grad.float().abs().sum()) for p in model.parameters()
                if p.grad is not None)
     assert np.isfinite(gsum) and gsum > 0
+
+
+def test_input_specs_cells():
+    """All 40 cells well-defined; skip rules match DESIGN.md (the
+    reference's test_archs_smoke.py::test_input_specs_cells)."""
+    n_run = 0
+    for name, cfg in ARCHS.items():
+        for shape in SHAPES:
+            ok, reason = cell_applicable(cfg, shape)
+            if shape == "long_500k":
+                assert ok == (cfg.family in ("ssm", "hybrid")), name
+            if not ok:
+                assert reason
+                continue
+            spec = input_specs(cfg, shape)
+            assert "tokens" in spec
+            cell = SHAPES[shape]
+            if cell.kind == "decode":
+                assert spec["tokens"].shape == (cell.global_batch, 1)
+                assert spec["pos"].shape == (cell.global_batch,)
+            else:
+                assert spec["tokens"].shape == (cell.global_batch, cell.seq_len)
+            n_run += 1
+    assert n_run == 32    # 40 cells - 8 long_500k skips (ssm+hybrid run theirs)
+
+
+@pytest.mark.parametrize("name", ALL_ARCHS)
+def test_input_specs_equal_the_reference(name):
+    """Every shape cell of the arch: the same keys, shapes and dtypes as
+    the reference's ShapeDtypeStructs, as meta tensors (no storage)."""
+    for shape in SHAPES:
+        got = input_specs(ARCHS[name], shape)
+        want = jinput_specs(JARCHS[name], shape)
+        assert list(got) == list(want), shape
+        for k, t in got.items():
+            assert t.device.type == "meta"
+            assert tuple(t.shape) == tuple(want[k].shape), (shape, k)
+            assert str(t.dtype).removeprefix("torch.") == str(want[k].dtype)

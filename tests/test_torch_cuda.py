@@ -1241,7 +1241,10 @@ def test_reduced_moe_train_step_on_card_equals_its_cpu_run(dev):
     (remat="full") on the card against the same steps on the CPU: loss,
     zloss and grad_norm within rtol 1e-4 (the card sums in other orders),
     lr_scale within 1e-7, expert_load and `step` equal; segment_histogram
-    launched twice a layer a step (the forward and its recompute)."""
+    launched twice a layer (the forward and its recompute) by each host
+    pass that launches kernels: the eager first step and the capture of
+    the second (the replays of the second and third launch it from the
+    graph)."""
     from repro_torch.optim import AdamWConfig, adamw
     from repro_torch.train import build_train_step
     cfg, cpu, card = _f32_mixtral(dev)
@@ -1262,10 +1265,12 @@ def test_reduced_moe_train_step_on_card_equals_its_cpu_run(dev):
             ms.append({k: v.cpu() for k, v in m.items()})
         torch.cuda.synchronize()
         runs[name] = (ms, dict(ops.LAUNCHES), int(opt["step"]))
+        passes = fns.compiled.eager_calls + fns.compiled.captures
     (cpu_ms, cpu_l, cpu_step), (card_ms, card_l, card_step) = (
         runs["cpu"], runs["card"])
     assert cpu_l["segment_histogram"] == 0
-    assert card_l["segment_histogram"] == 3 * 2 * cfg.n_layers
+    assert passes == 2
+    assert card_l["segment_histogram"] == passes * 2 * cfg.n_layers
     assert cpu_step == card_step == 3
     for a, b in zip(card_ms, cpu_ms):
         for k in ("loss", "zloss", "grad_norm"):
@@ -1549,6 +1554,121 @@ def test_graph_decode_recaptures_on_other_tensors(dev, name):
     assert call("a") == (4, 3, 4)
     assert call("a") == (4, 3, 5)
     _same_tree(caches["a"], want["a"])
+
+
+# -- the captured train step ----------------------------------------------------
+
+# (name, n_micro, AdamW state bits): the three families of the train graph's
+# card test, at reduced size in float32 (_f32_family's weights).
+TRAIN_GRAPH_CASES = [("qwen2-0.5b", 2, 32), ("mixtral-8x22b", 1, 8),
+                     ("mamba2-370m", 1, 32)]
+
+
+def _train_run(dev, name, n_micro, bits, graph, steps=3, model=None,
+               opt=None, fns=None):
+    """`steps` train steps on the card of `model` (a fresh _f32_family one
+    by default), on the graph (`use_kernels`) or eagerly on the plain
+    versions, each step on a batch of its own: (model, opt, fns, each
+    step's metrics on the host)."""
+    from repro_torch.optim import AdamWConfig, adamw
+    from repro_torch.train import build_train_step
+    if model is None:
+        _, _, model = _f32_family(dev, name)
+    cfg = model.cfg
+    ocfg = AdamWConfig(lr=1e-2, state_bits=bits)
+    opt = adamw.init(model.tree(), ocfg) if opt is None else opt
+    fns = fns or build_train_step(cfg, ocfg, n_micro=n_micro, device=dev,
+                                  total_steps=10, warmup_steps=1)
+    model.use_kernels = graph
+    ms = []
+    try:
+        for i in range(steps):
+            b = _family_batch(cfg, 4, 16, 10 + int(opt["step"]))
+            model, opt, m = fns.step(model, opt, b)
+            ms.append({k: v.cpu() for k, v in m.items()})
+    finally:
+        model.use_kernels = True
+    torch.cuda.synchronize()
+    return model, opt, fns, ms
+
+
+def _same_run(a, b):
+    """Two runs' metrics every step and their final parameters and states:
+    bit for bit."""
+    from repro_torch.tree import flatten
+    (ma, oa, _, msa), (mb, ob, _, msb) = a, b
+    for x, y in zip(msa, msb):
+        assert x.keys() == y.keys()
+        for k in x:
+            assert torch.equal(x[k], y[k]), k
+    for fa, fb in ((flatten(ma.tree()), flatten(mb.tree())),
+                   (flatten(oa), flatten(ob))):
+        assert fa.keys() == fb.keys()
+        for k in fa:
+            assert torch.equal(fa[k], fb[k]), k
+
+
+@pytest.mark.parametrize("name,n_micro,bits", TRAIN_GRAPH_CASES)
+def test_graph_train_step_equals_eager_on_card(dev, name, n_micro, bits):
+    """Three steps through `build_train_step` on the card (the first
+    eager, the second captured, the third a replay, each on a batch of its
+    own) against the eager step on the plain versions: the same losses,
+    grad_norm, lr_scale and expert_load every step, and the same
+    parameters and optimizer states after, bit for bit.  Two eager runs
+    first show that the eager step repeats itself bit for bit.  The graph
+    step replaces none of the tensors it was given; the MoE histogram is
+    launched from the host by the eager step and the capture only."""
+    eager = _train_run(dev, name, n_micro, bits, False)
+    _same_run(eager, _train_run(dev, name, n_micro, bits, False))
+    assert (eager[2].compiled.eager_calls, eager[2].compiled.captures) == \
+        (3, 0)
+    from repro_torch.optim import AdamWConfig, adamw
+    from repro_torch.tree import flatten
+    cfg, _, card = _f32_family(dev, name)
+    opt = adamw.init(card.tree(), AdamWConfig(lr=1e-2, state_bits=bits))
+    given = [(t, t.data_ptr()) for t in [*card.parameters(),
+                                         *flatten(opt).values()]]
+    ops.reset_launches()
+    graph = _train_run(dev, name, n_micro, bits, True, model=card, opt=opt)
+    c = graph[2].compiled
+    assert (c.eager_calls, c.captures, c.replays) == (1, 1, 2)
+    now = [*card.parameters(), *flatten(opt).values()]
+    assert all(a is t and t.data_ptr() == p for (t, p), a in zip(given, now))
+    assert int(opt["step"]) == 3
+    layers = cfg.n_layers if cfg.family == "moe" else 0
+    assert ops.LAUNCHES["segment_histogram"] == 2 * 2 * layers
+    _same_run(graph, eager)
+
+
+def test_graph_train_step_recaptures_on_a_restored_model(dev, tmp_path):
+    """Three graph steps, a checkpoint, the model and state restored from
+    it (new tensors): the restored model's first step runs eagerly and
+    frees the old graph, its second captures anew, its third replays; all
+    six steps equal an eager run's on the plain versions, bit for bit."""
+    import weakref
+    from repro_torch.ckpt import Checkpointer
+    from repro_torch.models import api
+    name, n_micro, bits = TRAIN_GRAPH_CASES[0]
+    eager = _train_run(dev, name, n_micro, bits, False, steps=6)
+    model, opt, fns, ms = _train_run(dev, name, n_micro, bits, True)
+    old = weakref.ref(fns.compiled.graph)
+    ck = Checkpointer(str(tmp_path))
+    ck.save(3, {"params": model.tree(), "opt": opt}, blocking=True)
+    # The abstract tree is the float32 run's own (the step's abstract
+    # parameters are bf16).
+    state = ck.restore(3, {"params": model.tree(), "opt": opt}, dev)
+    model = api.build(model.cfg, state["params"])
+    model, opt, fns, more = _train_run(dev, name, n_micro, bits, True,
+                                       steps=1, model=model,
+                                       opt=state["opt"], fns=fns)
+    assert old() is None
+    c = fns.compiled
+    assert (c.eager_calls, c.captures, c.replays) == (2, 1, 2)
+    model, opt, fns, rest = _train_run(dev, name, n_micro, bits, True,
+                                       steps=2, model=model, opt=opt,
+                                       fns=fns)
+    assert (c.eager_calls, c.captures, c.replays) == (2, 2, 4)
+    _same_run((model, opt, fns, ms + more + rest), eager)
 
 
 def test_checkpoint_of_card_tensors_round_trips(dev, tmp_path):

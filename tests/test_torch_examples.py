@@ -3,9 +3,12 @@ sizes: each join example's rows equal the JAX package's `reference_join`
 on the same data, as the JAX examples check themselves against it; the
 serving example's greedy tokens equal JAX's `build_decode_step` on the
 same parameters; the MoE dispatch example's plans, costs, expert loads
-and hot-expert split equal the JAX functions' on the same inputs."""
+and hot-expert split equal the JAX functions' on the same inputs; the
+training example's losses equal the JAX example's over its first steps."""
 import dataclasses
 import importlib.util
+import os
+import sys
 from pathlib import Path
 
 import jax
@@ -24,16 +27,20 @@ from repro.launch.mesh import make_mesh_compat
 from repro.models import api as japi
 from repro.models import moe as jmoe
 from repro.models.common import init_params as jinit_params
+from repro.optim import AdamWConfig as JAdamWConfig
+from repro.optim import adamw as jadamw
 from repro.serve import build_decode_step as jax_build_decode_step
 from repro_torch.configs import ARCHS
 from repro_torch.models.convert import params_from_jax
 
+from _torch_family_cases import driver_losses
+
 EXAMPLES = Path(__file__).resolve().parents[1] / "examples" / "torch_port"
 
 
-def _load(name):
+def _load(name, where=EXAMPLES):
     spec = importlib.util.spec_from_file_location(
-        f"torch_port_{name}", EXAMPLES / f"{name}.py")
+        f"{where.name}_{name}", where / f"{name}.py")
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
@@ -116,3 +123,34 @@ def test_moe_skew_dispatch_equals_jax():
     uniq, cnt = np.unique(slots, return_counts=True)
     np.testing.assert_array_equal(got["split"][0], uniq)
     np.testing.assert_array_equal(got["split"][1], cnt)
+
+
+def test_train_lm_losses_equal_the_jax_example(tmp_path, capsys, monkeypatch):
+    """Both examples for 3 steps on the CPU with their own arguments
+    (reduced qwen2-0.5b, batch 8 x 64, lr 1e-3): the JAX example from its
+    driver's own init_params(key(0)), the port's resumed from a step-0
+    checkpoint of those parameters and their state in the reference's
+    format.  The bf16 losses agree within rtol 1e-3, the tolerance of
+    `_torch_family_cases.check_driver`."""
+    from repro.ckpt.checkpoint import Checkpointer as JCheckpointer
+    monkeypatch.setenv("XLA_FLAGS", os.environ.get("XLA_FLAGS", "") +
+                       " --xla_force_host_platform_device_count=8")
+    jex = _load("train_lm", EXAMPLES.parent)
+    ex = _load("train_lm")
+    steps = ["--steps", "3", "--log-every", "1"]
+    jdir, tdir = tmp_path / "jax", tmp_path / "port"
+    jcfg = JARCHS["qwen2-0.5b"].reduced()
+    jparams = jinit_params(japi.layout(jcfg), jax.random.key(0))
+    jopt = jadamw.init(jparams, JAdamWConfig(lr=1e-3))
+    JCheckpointer(str(tdir)).save(0, {"params": jparams, "opt": jopt},
+                                  blocking=True)
+    monkeypatch.setattr(sys, "argv", ["train_lm.py", *steps,
+                                      "--ckpt-dir", str(jdir)])
+    jex.main()
+    want = driver_losses(capsys.readouterr().out)
+    ex.main([*steps, "--ckpt-dir", str(tdir), "--resume", "--device", "cpu"])
+    out = capsys.readouterr().out
+    assert "resumed from step 0" in out
+    got = driver_losses(out)
+    assert len(got) == len(want) == 3
+    np.testing.assert_allclose(got, want, rtol=1e-3)

@@ -32,6 +32,7 @@ def test_port_imports_with_jax_and_repro_blocked():
         "sys.modules['jax'] = None\n"
         "sys.modules['repro'] = None\n"
         "import repro_torch, repro_torch.core, repro_torch.data\n"
+        "import repro_torch.graph\n"
         "import repro_torch.core.executor, repro_torch.kernels.ops\n"
         "import repro_torch.kernels.ref, repro_torch.kernels._build\n"
         "import repro_torch.kernels.route_cells, repro_torch.kernels.bucket_pack\n"

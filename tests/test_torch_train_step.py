@@ -9,7 +9,9 @@ Tolerances: loss, zloss and grad_norm within rtol = 1e-5 (the two
 frameworks sum the matrix products, softmaxes and the norm in other
 orders, and the updates carry it on); lr_scale within 1e-7; expert_load
 equal.  The reference's train-step tests (loss descends, the expert-load
-metric) are mirrored on the port alone.
+metric) are mirrored on the port alone, and so is what a captured step
+needs of the eager one: it replaces no tensor it was given, and the
+capture helper's binding changes exactly when one is replaced.
 """
 import dataclasses
 
@@ -32,6 +34,7 @@ from repro_torch.models import api
 from repro_torch.models.convert import opt_state_from_jax, params_from_jax
 from repro_torch.optim import AdamWConfig, adamw
 from repro_torch.train import build_train_step, loss_fn
+from repro_torch.tree import flatten
 
 TOL = dict(rel=1e-5)
 B, S = 4, 16
@@ -161,3 +164,73 @@ def test_step_refuses_without_a_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(ExecutorError, match="CUDA"):
         build_train_step(ARCHS["qwen2-0.5b"].reduced())
+
+
+def _tensors(model, opt):
+    """Every parameter and optimizer-state tensor, by path: (object,
+    address)."""
+    leaves = {**{f"params/{k}": v for k, v in flatten(model.tree()).items()},
+              **{f"opt/{k}": v for k, v in flatten(opt).items()}}
+    return {k: (v, v.data_ptr()) for k, v in leaves.items()}
+
+
+@pytest.mark.parametrize("name,n_micro,bits", [
+    ("qwen2-0.5b", 2, 32),
+    ("mixtral-8x22b", 1, 8),
+])
+def test_step_replaces_no_tensor_it_was_given(name, n_micro, bits):
+    """After each step every parameter and state tensor, `opt["step"]`
+    too, is the same object at the same address (a captured step reads
+    them there), and the counter advanced in place."""
+    cfg = ARCHS[name].reduced()
+    ocfg = AdamWConfig(lr=1e-2, state_bits=bits)
+    fns = build_train_step(cfg, ocfg, n_micro=n_micro, device="cpu")
+    model = api.init_model(cfg, torch.Generator().manual_seed(0),
+                           device="cpu")
+    opt = adamw.init(model.tree(), ocfg)
+    before = _tensors(model, opt)
+    counter = opt["step"]
+    for i in range(2):
+        model2, opt2, _ = fns.step(model, opt, _batch(cfg, 5))
+        assert model2 is model and opt2 is opt
+        after = _tensors(model, opt)
+        assert after.keys() == before.keys()
+        for k, (t, ptr) in before.items():
+            assert after[k][0] is t and after[k][1] == ptr, k
+        assert opt["step"] is counter and int(counter) == i + 1
+    assert fns.compiled.eager_calls == 2 and fns.compiled.captures == 0
+
+
+def test_binding_changes_when_a_bound_tensor_is_replaced(tmp_path):
+    """The capture helper's binding of (model, optimizer state, batch keys)
+    is unchanged by a step and changes when a tensor is replaced: the
+    state's counter, a parameter, or the whole model and state restored
+    from a checkpoint (new tensors of the same values)."""
+    from repro_torch.ckpt import Checkpointer
+    from repro_torch.graph import binding
+    cfg = ARCHS["qwen2-0.5b"].reduced()
+    ocfg = AdamWConfig(lr=1e-2)
+    fns = build_train_step(cfg, ocfg, device="cpu")
+    model = api.init_model(cfg, torch.Generator().manual_seed(0),
+                           device="cpu")
+    opt = adamw.init(model.tree(), ocfg)
+    keys = ("tokens", "labels")
+    key = binding((model, opt, keys))
+    fns.step(model, opt, _batch(cfg, 6))
+    assert binding((model, opt, keys)) == key
+    assert binding((model, opt, ("labels", "tokens"))) != key
+    opt["step"] = opt["step"] + 0
+    assert binding((model, opt, keys)) != key
+    key = binding((model, opt, keys))
+    wq = model.blocks.attn.wq
+    wq.data = wq.data.clone()
+    assert binding((model, opt, keys)) != key
+    key = binding((model, opt, keys))
+    ck = Checkpointer(str(tmp_path))
+    ck.save(1, {"params": model.tree(), "opt": opt}, blocking=True)
+    state = ck.restore(1, {"params": fns.params_abstract,
+                           "opt": fns.opt_abstract}, "cpu")
+    restored = api.build(cfg, state["params"])
+    assert binding((restored, state["opt"], keys)) != key
+    for a, b in zip(restored.parameters(), model.parameters()):
+        assert torch.equal(a, b)
