@@ -76,6 +76,22 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      profile that must name scatter_pack's and segment_scan's kernels
      (3c) or segment_scan's and bucket_pack's (3b); the three arms'
      numbers on a {"join_arms": ...} JSON line;
+  3m. after 3c, phase 3's cell (same plan, data and cap_out, fused +
+     hash) over a mesh of ranks, each a process spawned with the spawn
+     start method and joined with a deadline: W = 4 gloo ranks sharing
+     the card, then W = 1 over NCCL (one card: NCCL across cards runs only
+     where there are several).  In each rank counts are zeroed just before
+     its prepare + first run_batch and read just after (phase 3's counts,
+     its L = 2 or 8 destinations batched); its rows and valid flags
+     `torch.equal` to phase 3's for its destinations (shared through CUDA
+     IPC), zero overflow, the ranks' valid rows summing to the exact join
+     size, no new step at the second batch, 5 eager warm batches (each
+     the step's launches); per rank: prepare, first batch, the warm
+     median, the exchange alone on each relation's send buffer (wall
+     median of 3), the bytes it sends to other ranks (from the buffer's
+     shape) and the valid copies among them (count matrices folded
+     through the placement), valid copies received (recv_counts), the
+     peak; a {"mesh": ...} JSON line;
   4b. the staged arm's kernels (route_cells, fold_cells, bucket_pack,
      segment_scan / run_lengths) against their plain versions at the
      shapes of that run, bit for bit, with kernel, plain, bound and (where
@@ -232,7 +248,7 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      every loss and grad_norm finite, the last loss below the first; the
      optimizer's step the steps taken; no custom kernel launched (no TPU
      kernel lies on this path);
- 11. one JSON line each of phases 3 / 3b / 3c, 6, 6e, 8, 9, 7 and 10's
+ 11. one JSON line each of phases 3 / 3b / 3c, 3m, 6, 6e, 8, 9, 7 and 10's
      numbers, one JSON line of per-kernel results (each with the path its
      launches were counted on: segment_histogram's is phase 9a's, its
      phase 7 count, host passes x layers, beside it as `serve_launches`),
@@ -303,6 +319,10 @@ HAIR_TRIGGER = dict(replace_threshold=0.001, replan_threshold=0.99, window=2,
 # 2^25).
 SERVE = dict(warm=((12, 0), (480, 1)), steady=480, windows=3, full_warm=2,
              full_steady=2, max_retries=16, drift_batches=4)
+# Phase 3m: phase 3's cell over a mesh of ranks, (backend, W): four gloo
+# ranks sharing the card, then one NCCL rank; each run's deadline.
+MESH_RUNS = (("gloo", 4), ("nccl", 1))
+MESH_DEADLINE_S = 240
 # Phase 5's chunked exchange (overlap_shuffle) on fused + hash and
 # staged + sort.
 MODERATE_CHUNKS = 3
@@ -1475,6 +1495,186 @@ def arm_cell(dev, cell, arm: str, named: tuple[str, ...]):
         warm_ms=t_warm * 1e3, first_ms=t_first * 1e3,
         second_ms=t_second * 1e3, peak_gb=peak / 1e9,
         peak_over_held_gb=(peak - held) / 1e9, **pins, device_only=busy))
+
+
+def mesh_rank(rank: int, world: int, backend: str, out_dir: str,
+              cap_out: int, rows, valid) -> None:
+    """One rank of phase 3m (a spawned process): phase 3's plan and data
+    (pickled in `out_dir`) over a mesh of `world` ranks on `backend` (gloo
+    ranks share card 0), fused + hash.  `rows` and `valid` are phase 3's
+    outputs, shared from the parent through CUDA IPC: this rank's
+    destinations' must equal its own, bit for bit.  Writes what it
+    measured to rank<r>.json in `out_dir`."""
+    import pickle
+
+    import torch.distributed as dist
+    from repro_torch.core.executor import (ExecutorConfig,
+                                           ShardedJoinExecutor,
+                                           start_mesh_exchange)
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_join_mesh
+
+    with open(Path(out_dir) / "cell.pkl", "rb") as f:
+        plan, data = pickle.load(f)
+    t0 = time.perf_counter()
+    mesh = make_join_mesh(backend, device="cuda:0" if backend == "gloo"
+                          else None, init_method=f"file://{out_dir}/store",
+                          rank=rank, world_size=world, timeout_s=300)
+    t_mesh = time.perf_counter() - t0
+    try:
+        n_dev = FULL["n_dev"]
+        ex = ShardedJoinExecutor(plan, n_dev,
+                                 ExecutorConfig(out_capacity=cap_out),
+                                 mesh=mesh)
+        label = f"3m {backend} rank {rank} of {world}"
+        # The mesh path: counts zeroed just before, read just after.
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        s = ex.session().prepare(data)
+        torch.cuda.synchronize()
+        t_prepare = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        res = s.run_batch()
+        torch.cuda.synchronize()
+        t_first = time.perf_counter() - t0
+        launches = dict(ops.LAUNCHES)
+        want = expected_launches(ex, ARMS[FUSED_HASH])
+        check(launches == want, f"{label}: launches {launches}, expected "
+              f"{want}")
+        check(int(res["shuffle_overflow"].sum()) == 0
+              and int(res["join_overflow"].sum()) == 0,
+              f"{label}: overflow {res['shuffle_overflow_by_rel'].tolist()} "
+              f"{res['join_overflow'].tolist()}")
+        per = n_dev // world
+        mine = slice(rank * per, (rank + 1) * per)
+        check(torch.equal(res.tensors[0], rows[mine])
+              and torch.equal(res.tensors[1], valid[mine]),
+              f"{label}: rows differ from phase 3's for destinations "
+              f"{mine.start}..{mine.stop - 1}")
+        n_valid = int(res.tensors[1].sum())
+        recv_valid = int(res["recv_counts"][mine].sum())
+        del res
+        # Warm batches: no new step; each runs the step eagerly.
+        compiles = ex.compile_count
+        step = expected_launches(ex, ARMS[FUSED_HASH], prepare=False)
+        ops.reset_launches()
+        times = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r = s.run_batch()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            del r
+        check(ex.compile_count == compiles == 1 and ex.step_hits == 5,
+              f"{label}: {ex.compile_count} steps built, {ex.step_hits} hits")
+        check(dict(ops.LAUNCHES) == {k: 5 * v for k, v in step.items()},
+              f"{label}: warm batches launched {dict(ops.LAUNCHES)}")
+        # The exchange alone on each relation's send buffer: its wall
+        # time, the bytes it sends to other ranks (the buffer's rows for
+        # other ranks' destinations, -1 padding included) and the valid
+        # copies among them (the count matrices folded through the
+        # placement, summed over this rank's sources and the other
+        # ranks' destinations).
+        fold = np.zeros((ex.k, n_dev), np.int64)
+        fold[np.arange(ex.k), s.placement.table] = 1
+        others = np.ones(n_dev, bool)
+        others[mine] = False
+        exchange = {}
+        for rel, a, counts in zip(ex.query.relations, s._device_args,
+                                  s._count_mats):
+            cap = s.caps[rel.name]
+            buf, _ = ex._pack(a.view(per, -1, a.shape[1]),
+                              ex.route_specs[rel.name], s._ptable, cap)
+            walls = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                start_mesh_exchange(buf, ex.group, world)
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+            sent = (counts @ fold)[mine][:, others]
+            exchange[rel.name] = dict(
+                wall_ms=float(np.median(walls)) * 1e3,
+                walls_ms=[t * 1e3 for t in walls],
+                bytes_off_rank=per * (n_dev - per) * cap * buf.shape[-1] * 4,
+                valid_copies_off_rank=int(sent.sum()))
+            del buf
+        got = dict(rank=rank, world=world,
+                   backend=dist.get_backend(ex.group), device=str(ex.device),
+                   mesh_s=t_mesh, prepare_ms=t_prepare * 1e3,
+                   first_ms=t_first * 1e3,
+                   warm_ms=float(np.median(times)) * 1e3,
+                   warm_all_ms=[t * 1e3 for t in times], exchange=exchange,
+                   recv_valid=recv_valid, n_valid=n_valid,
+                   peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                   launches=launches)
+        (Path(out_dir) / f"rank{rank}.json").write_text(json.dumps(got))
+    finally:
+        dist.destroy_process_group()
+
+
+def mesh_cell(cell) -> dict:
+    """Phase 3m: phase 3's cell over a mesh of ranks, spawned processes
+    (`mesh_rank`), each run joined with a deadline and its ranks' rows
+    held to phase 3's."""
+    import pickle
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    runs = {}
+    for backend, world in MESH_RUNS:
+        with tempfile.TemporaryDirectory() as tmp:
+            t0 = time.perf_counter()
+            # Through a file: a start's arguments travel on a pipe that
+            # blocks past its buffer until the rank has imported, which
+            # would start the ranks one after another.
+            with open(Path(tmp) / "cell.pkl", "wb") as f:
+                pickle.dump((cell["plan"], cell["data"]), f)
+            ctx = mp.start_processes(
+                mesh_rank, args=(world, backend, tmp, cell["cap_out"],
+                                 cell["rows"], cell["valid"]),
+                nprocs=world, join=False, start_method="spawn")
+            deadline = time.monotonic() + MESH_DEADLINE_S
+            try:
+                while not ctx.join(timeout=5):
+                    check(time.monotonic() < deadline, f"3m {backend} W="
+                          f"{world}: ranks still running at the deadline")
+            finally:
+                for p in ctx.processes:
+                    if p.is_alive():
+                        p.kill()
+                        p.join()
+                torch.cuda.ipc_collect()
+            ranks = [json.loads((Path(tmp) / f"rank{r}.json").read_text())
+                     for r in range(world)]
+            wall = time.perf_counter() - t0
+        total = sum(r["n_valid"] for r in ranks)
+        check(total == cell["exact"], f"3m {backend} W={world}: the ranks' "
+              f"valid rows sum to {total}, not {cell['exact']}")
+        for r in ranks:
+            ex_ms = ", ".join(
+                f"{rel} {e['wall_ms']:.2f} ms, {e['bytes_off_rank']} B off "
+                f"rank ({e['valid_copies_off_rank']} valid copies)"
+                for rel, e in r["exchange"].items())
+            print(f"[mesh] {backend} W={world} rank {r['rank']} on "
+                  f"{r['device']}, exchange path: CUDA tensors to "
+                  f"{r['backend']}'s all_to_all_single: rendezvous and "
+                  f"mesh {r['mesh_s']:.2f} s; prepare {r['prepare_ms']:.1f} ms; "
+                  f"first run_batch {r['first_ms']:.1f} ms; warm run_batch "
+                  f"median {r['warm_ms']:.2f} ms of 5 (eager); exchange "
+                  f"alone: {ex_ms}; {r['recv_valid']} valid copies "
+                  f"received (recv_counts); {r['n_valid']} valid rows; peak "
+                  f"allocated {r['peak_gb']:.2f} GB")
+        print(f"[mesh] {backend} W={world}: every rank's rows torch.equal to "
+              f"phase 3's for its destinations, zero overflow, {total} valid "
+              f"rows, no new step at the second batch; {wall:.1f} s with "
+              f"the spawn")
+        runs[f"{backend}_w{world}"] = dict(ranks=ranks, wall_s=wall)
+    return runs
 
 
 def staged_kernel_checks(cell):
@@ -3306,6 +3506,9 @@ def main() -> int:
     cell["arms"]["fused+sort"] = fused_sort["summary"]
     del fused_sort
     torch.cuda.empty_cache()
+    t3m = time.perf_counter()
+    mesh = mesh_cell(cell)
+    print(f"[mesh] phase 3m took {time.perf_counter() - t3m:.1f} s")
     staged = arm_cell(dev, cell, STAGED_SORT, SCAN_KERNELS + BUCKET_KERNELS)
     cell["arms"][STAGED_SORT] = staged["summary"]
     cell["sorted"] = packed_rows(cell.pop("rows"), cell.pop("valid"))
@@ -3371,6 +3574,7 @@ def main() -> int:
     print(f"[done] all phases passed in {t_end - t_start:.1f} s (phases 7, "
           f"9 and 10 {t_end - t7:.1f} s)")
     print(json.dumps({"join_arms": cell_arms}))
+    print(json.dumps({"mesh": mesh}))
     print(json.dumps({"self_healing": healing}))
     print(json.dumps({"adaptation": adapt}))
     print(json.dumps({"join_serving": serving}))

@@ -1,6 +1,7 @@
-"""SkewShares execution on one GPU: prepare -> map -> exchange -> reduce.
+"""SkewShares execution: prepare -> map -> exchange -> reduce.
 
-One card stands for n_dev servers.  n_dev is a leading tensor axis:
+n_dev logical servers run in one process or over a mesh of ranks.  In one
+process n_dev is a leading tensor axis:
 
   shard     a relation padded with -1 rows to a multiple of n_dev; source
             shard i is rows [i·n/n_dev, (i+1)·n/n_dev), viewed as
@@ -16,6 +17,21 @@ One card stands for n_dev servers.  n_dev is a leading tensor axis:
   reduce    `_local_join` over all destinations at once: per cascade step
             `join_hash` (left), `build_table` (right), `probe_tables`,
             `expand_rows`, matching only within equal logical cell ids
+
+Over a mesh (`mesh=`, a 1-D DeviceMesh of W ranks from
+`launch.mesh.make_join_mesh`, W dividing n_dev) rank r owns the logical
+devices [r·L, (r+1)·L), L = n_dev / W, as its leading tensor axis.  Every
+rank is given the same relations (SPMD) and uploads the rows of its own L
+sources.  The count pass counts (L, k) and one `all_gather` makes the
+(n_dev, k) matrices on every rank, so placement and caps agree everywhere.
+The exchange is one `all_to_all_single` over the mesh's group (one a chunk
+under the chunked exchange, each started before the next chunk packs):
+fragments arrive in global source order, bit-equal to the transpose's.
+Each rank reduces its L destinations and keeps its rows; one small
+`all_gather` inside the step gives every rank the global overflow and
+receive counters, so retry and `stats` decide alike with no collective of
+their own.  Every rank must call the same session methods in the same
+order; `result_rows` gathers every rank's valid rows on every rank.
 
 Every routed copy carries its UNWRAPPED logical cell id as a hidden last
 column, so cells sharing a device never produce cross-cell matches and the
@@ -72,7 +88,8 @@ the `max_cached_steps` LRU, which frees a graph's outputs.  The table is
 an input, so re-placing builds nothing.  A capture that fails raises.
 Everything else, the CPU and the plain versions on the card
 (`use_kernels=False`, the tests' oracles, which read back to the host),
-runs the step eagerly under the same counters.
+and every step over a mesh (a gloo collective cannot be captured), runs
+the step eagerly under the same counters.
 """
 from __future__ import annotations
 
@@ -85,6 +102,7 @@ from typing import Mapping
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..graph import CapturedStep
 from ..kernels import ops
@@ -427,6 +445,42 @@ def exchange(buf: torch.Tensor) -> torch.Tensor:
     return buf.transpose(0, 1).reshape(d, s * cap, w1)
 
 
+def chunk_parts(rows: torch.Tensor, chunks: int) -> torch.Tensor:
+    """Source shards rows (n_src, n_loc, w) cut for a chunked exchange:
+    each source's rows padded with -1 to chunks·tile (tile =
+    ⌈n_loc/chunks⌉), chunk ci rows [ci·tile, (ci+1)·tile) of every source.
+    Returns (chunks, n_src, tile, w), contiguous."""
+    n_src, n_loc, w = rows.shape
+    tile = -(-n_loc // chunks)
+    if chunks * tile > n_loc:
+        rows = torch.nn.functional.pad(
+            rows, (0, 0, 0, chunks * tile - n_loc), value=INVALID)
+    return rows.view(n_src, chunks, tile, w).transpose(0, 1).contiguous()
+
+
+def start_mesh_exchange(buf: torch.Tensor, group, world: int,
+                        async_op: bool = False):
+    """The all-to-all over a mesh of `world` ranks: this rank's send
+    buffers (L_src, n_dst, cap, w+1), laid out as (W, L_dst, L_src, cap,
+    w+1) (the part for rank j first), through one `all_to_all_single`.
+    Returns (received (W_src, L_dst, L_src, cap, w+1), the work or None);
+    `mesh_fragments` of it are this rank's fragments once the work ends."""
+    s, d, cap, w1 = buf.shape
+    send = buf.view(s, world, d // world, cap, w1).permute(
+        1, 2, 0, 3, 4).contiguous()
+    recv = torch.empty_like(send)
+    work = dist.all_to_all_single(recv, send, group=group, async_op=async_op)
+    return recv, work
+
+
+def mesh_fragments(recv: torch.Tensor) -> torch.Tensor:
+    """Received (W_src, L_dst, L_src, cap, w+1) -> fragments (L_dst,
+    n_src·cap, w+1) in global source order (rank-major, then local): the
+    transpose's order, as the reference's tiled all_to_all."""
+    w, l_dst, l_src, cap, w1 = recv.shape
+    return recv.transpose(0, 1).reshape(l_dst, w * l_src * cap, w1)
+
+
 def shared_columns(acc_attrs: list[str], right_attrs: list[str]
                    ) -> tuple[list[int], list[int]]:
     """Key columns of one cascade step: the shared attributes (incl.
@@ -624,20 +678,25 @@ def _local_join_dense(frags: dict[str, torch.Tensor], query: JoinQuery,
 # ---------------------------------------------------------------------------
 
 class ShardedJoinExecutor:
-    """Runs a SkewJoinPlan as n_devices logical servers on one device.
+    """Runs a SkewJoinPlan as n_devices logical servers on one device, or
+    over the W ranks of `mesh` (L = n_devices / W of them a rank; see the
+    module docstring).
 
     Holds the static side: routing recipes, the placement (or strategy) and
     the cache of built steps keyed on (shapes, caps, cap_out).  Data lives
-    in `ExecutorSession` (see `session()`); `run` is the one-shot wrapper."""
+    in `ExecutorSession` (see `session()`); `run` is the one-shot wrapper.
+    Over a mesh `device` defaults to the rank's (the mesh's device type,
+    the current card), and another device type is refused."""
 
     def __init__(self, plan: SkewJoinPlan, n_devices: int = 8,
                  config: ExecutorConfig = ExecutorConfig(),
                  placement: CellPlacement | None = None,
-                 placement_strategy: str = "lpt", device=None):
+                 placement_strategy: str = "lpt", device=None, mesh=None):
         self._setup(plan.query, plan.k,
                     {name: _route_specs(rs)
                      for name, rs in _build_routes(plan).items()},
-                    n_devices, config, placement, placement_strategy, device)
+                    n_devices, config, placement, placement_strategy, device,
+                    mesh)
         self.plan = plan
 
     @classmethod
@@ -648,16 +707,24 @@ class ShardedJoinExecutor:
         """An executor from a plan's route specs alone (no planner run)."""
         ex = cls.__new__(cls)
         ex._setup(query, k, dict(route_specs), n_devices, config, placement,
-                  "lpt", device)
+                  "lpt", device, None)
         ex.plan = None
         return ex
 
     def _setup(self, query, k, route_specs, n_devices, config, placement,
-               placement_strategy, device):
+               placement_strategy, device, mesh):
+        self._setup_mesh(mesh, n_devices)
         check_fold(k, n_devices)
         if placement is not None:
             _check_placement_compat(placement, k, n_devices)
+        if mesh is not None and device is None:
+            device = (torch.device("cuda", torch.cuda.current_device())
+                      if mesh.device_type == "cuda" else mesh.device_type)
         self.device = resolve_device(device)
+        if mesh is not None and self.device.type != mesh.device_type:
+            raise ExecutorError(
+                f"device {self.device} is not of the mesh's type "
+                f"{mesh.device_type!r}")
         self.query, self.k, self.config = query, k, config
         self.n_devices = n_devices
         self.route_specs = route_specs
@@ -676,6 +743,25 @@ class ShardedJoinExecutor:
         self._live_results: weakref.WeakValueDictionary = \
             weakref.WeakValueDictionary()     # id -> BatchResult
 
+    def _setup_mesh(self, mesh, n_devices: int) -> None:
+        """The mesh's group, this rank, W and the L local devices (one
+        process: no group, rank 0 of 1, L = n_devices)."""
+        self.mesh, self.group = mesh, None
+        self.world, self.rank = 1, 0
+        if mesh is not None:
+            if mesh.ndim != 1:
+                raise ExecutorError(f"the join mesh is 1-D; got "
+                                    f"{mesh.ndim} dimensions")
+            self.group = mesh.get_group(0)
+            self.world = dist.get_world_size(self.group)
+            self.rank = dist.get_rank(self.group)
+            if n_devices % self.world:
+                raise ValueError(
+                    f"{self.world} ranks do not divide n_devices="
+                    f"{n_devices}: each rank holds n_devices / W logical "
+                    f"devices")
+        self.n_local = n_devices // self.world
+
     # -- control plane ------------------------------------------------------
     def _shard(self, arr: np.ndarray) -> np.ndarray:
         """Pad rows to a device-divisible count with INVALID rows."""
@@ -686,25 +772,42 @@ class ShardedJoinExecutor:
     def _upload(self, sharded: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(sharded)).to(self.device)
 
+    def _upload_rows(self, sharded: np.ndarray) -> torch.Tensor:
+        """A sharded relation's rows of this rank's sources (all of them in
+        one process)."""
+        per_rank = len(sharded) // self.world
+        return self._upload(
+            sharded[self.rank * per_rank:(self.rank + 1) * per_rank])
+
     def _upload_table(self, placement: CellPlacement) -> torch.Tensor:
         return self._upload(placement.table.astype(np.int32))
+
+    def _all_gather(self, local: torch.Tensor) -> torch.Tensor:
+        """Every rank's `local` (L, ...) stacked in rank order: (n_dev, ...)
+        on every rank."""
+        parts = [torch.empty_like(local) for _ in range(self.world)]
+        dist.all_gather(parts, local.contiguous(), group=self.group)
+        return torch.cat(parts)
 
     def _count_pass(self, args: list[torch.Tensor]) -> list[torch.Tensor]:
         """Each relation's (n_devices, k) routed-copy counts per (source
         shard, wrapped logical cell): the input of LPT placement and of the
-        capacity fold."""
+        capacity fold.  Over a mesh each rank counts its L sources and one
+        `all_gather` gives every rank the whole matrices."""
         cfg = self.config
         out = []
         for rel, a in zip(self.query.relations, args):
             spec = self.route_specs[rel.name]
             if cfg.fuse_map:
-                out.append(ops.map_count(a, spec, self.k, self.n_devices,
+                out.append(ops.map_count(a, spec, self.k, self.n_local,
                                          use_kernels=cfg.use_kernels))
             else:
                 _, dest = _route_copies(a, spec, self.k, cfg.use_kernels)
                 out.append(count_scatter(dest.reshape(-1), a.shape[0],
-                                         self.k, self.n_devices))
-        return out
+                                         self.k, self.n_local))
+        if self.mesh is None:
+            return out
+        return list(self._all_gather(torch.stack(out, 1)).unbind(1))
 
     def _compiled_step(self, shapes: tuple, caps: Mapping[str, int],
                        cap_out: int | None = None):
@@ -723,7 +826,8 @@ class ShardedJoinExecutor:
         while len(self._step_cache) >= max(int(cfg.max_cached_steps), 1):
             self._step_cache.pop(next(iter(self._step_cache)))
             self.evicted_steps += 1
-        if self.device.type == "cuda" and cfg.use_kernels:
+        if (self.device.type == "cuda" and cfg.use_kernels
+                and self.mesh is None):
             f = _GraphStep(self, caps_t, cap_out)
         else:
             def f(ptable: torch.Tensor, *arrs: torch.Tensor):
@@ -734,14 +838,17 @@ class ShardedJoinExecutor:
 
     def _step(self, ptable: torch.Tensor, arrs, caps: tuple[int, ...],
               cap_out: int):
-        n_dev, cfg = self.n_devices, self.config
+        n_loc, cfg = self.n_local, self.config
         chunks = max(int(cfg.overlap_shuffle), 1)
         frags, overs = {}, []
-        recv = torch.zeros(n_dev, dtype=torch.int64, device=ptable.device)
+        recv = torch.zeros(n_loc, dtype=torch.int64, device=ptable.device)
         for rel, a, cap in zip(self.query.relations, arrs, caps):
-            rows = a.view(n_dev, -1, a.shape[1])          # source shards
+            rows = a.view(n_loc, -1, a.shape[1])          # source shards
             spec = self.route_specs[rel.name]
-            if chunks == 1:
+            if self.mesh is not None:
+                frag, over = self._mesh_exchange(rows, spec, ptable, cap,
+                                                 chunks)
+            elif chunks == 1:
                 buf, over = self._pack(rows, spec, ptable, cap)
                 frag = exchange(buf)
             else:
@@ -754,6 +861,14 @@ class ShardedJoinExecutor:
         out, valid, j_over = _local_join(frags, self.query, cap_out,
                                          cfg.use_kernels, cfg.hash_reduce,
                                          cfg.hash_bits)
+        if self.mesh is not None:
+            # Every rank's counters, in one all_gather.
+            n_rel = sh_over.shape[1]
+            both = self._all_gather(torch.cat(
+                [sh_over.long(), j_over.long()[:, None], recv[:, None]], 1))
+            sh_over = both[:, :n_rel].to(sh_over.dtype)
+            j_over = both[:, n_rel].to(j_over.dtype)
+            recv = both[:, n_rel + 1]
         return out, valid, sh_over, j_over, recv
 
     def _pack(self, rows: torch.Tensor, spec, ptable: torch.Tensor, cap: int
@@ -771,19 +886,13 @@ class ShardedJoinExecutor:
     def _chunked_exchange(self, rows: torch.Tensor, spec,
                           ptable: torch.Tensor, cap: int, chunks: int
                           ) -> tuple[torch.Tensor, torch.Tensor]:
-        """The map and exchange in `chunks` chunks: each source's rows
-        padded with -1 to chunks·tile (tile = ⌈n_loc/chunks⌉), chunk ci
-        rows [ci·tile, (ci+1)·tile) of every source, packed at the
-        per-chunk cap.  Fragments (n_dst, chunks·n_src·cap, w+1) arrive
-        chunk-major, then source-major; overflow (n_src,) is summed over
-        chunks.  On the card each chunk's copy into its slice of the
+        """The map and exchange in `chunks` chunks, cut by `chunk_parts`,
+        each packed at the per-chunk cap.  Fragments (n_dst,
+        chunks·n_src·cap, w+1) arrive chunk-major, then source-major;
+        overflow (n_src,) is summed over chunks.  On the card each chunk's copy into its slice of the
         fragments runs on a side stream while the next chunk packs."""
-        n_src, n_loc, w = rows.shape
-        tile = -(-n_loc // chunks)
-        if chunks * tile > n_loc:
-            rows = torch.nn.functional.pad(
-                rows, (0, 0, 0, chunks * tile - n_loc), value=INVALID)
-        parts = rows.view(n_src, chunks, tile, w).transpose(0, 1).contiguous()
+        parts = chunk_parts(rows, chunks)
+        _, n_src, _, w = parts.shape
         frag = torch.empty((self.n_devices, chunks * n_src * cap, w + 1),
                            dtype=torch.int32, device=rows.device)
         slices = frag.view(self.n_devices, chunks, n_src, cap, w + 1)
@@ -810,19 +919,54 @@ class ShardedJoinExecutor:
             cur.wait_stream(side)          # the reduce reads every slice
         return frag, over
 
+    def _mesh_exchange(self, rows: torch.Tensor, spec, ptable: torch.Tensor,
+                       cap: int, chunks: int
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
+        """The map and exchange over the mesh: this rank's L sources rows
+        (L, n_loc, w) packed, serially or in `chunks` chunks cut by
+        `chunk_parts`, one `all_to_all_single` a chunk, each started
+        (async) before the next chunk packs and all waited for before the
+        reduce.  Fragments (L_dst, chunks·n_dev·cap, w+1)
+        chunk-major, then in global source order; overflow (L,)."""
+        parts = chunk_parts(rows, chunks)
+        over, pending = None, []
+        for ci in range(chunks):
+            buf, o = self._pack(parts[ci], spec, ptable, cap)
+            over = o if over is None else over + o
+            pending.append(start_mesh_exchange(buf, self.group, self.world,
+                                               async_op=True))
+        for _, work in pending:
+            work.wait()
+        return torch.cat([mesh_fragments(recv) for recv, _ in pending],
+                         1), over
+
     # -- data plane ----------------------------------------------------------
     def session(self) -> "ExecutorSession":
         return ExecutorSession(self)
 
     def run(self, data: Mapping[str, np.ndarray]) -> "BatchResult":
+        """prepare + run_batch; over a mesh every rank calls it."""
         return self.session().prepare(data).run_batch()
 
     def result_rows(self, data: Mapping[str, np.ndarray]) -> np.ndarray:
+        """The valid rows of `run(data)` in destination order; raises on
+        overflow.  Over a mesh every rank calls it and gets every rank's
+        rows."""
         res = self.run(data)
         if res["shuffle_overflow"].sum() or res["join_overflow"].sum():
             raise CapacityOverflowError.from_result(
                 res, tuple(r.name for r in self.query.relations))
-        return res["rows"][res["valid"]]
+        if self.mesh is None or not self.has_residuals:
+            return res["rows"][res["valid"]]
+        out, valid = res.tensors[:2]
+        mine = out[valid]
+        sizes = self._all_gather(torch.tensor(
+            [mine.shape[0]], dtype=torch.int64, device=out.device)).tolist()
+        padded = torch.full((max(sizes), mine.shape[1]), INVALID,
+                            dtype=mine.dtype, device=mine.device)
+        padded[:mine.shape[0]] = mine
+        parts = self._all_gather(padded[None])
+        return torch.cat([p[:n] for p, n in zip(parts, sizes)]).cpu().numpy()
 
 
 class _GraphStep:
@@ -898,7 +1042,10 @@ class BatchResult(collections.abc.Mapping):
     overflow by relation, join overflow, received rows).  A result of a
     captured step holds the graph's outputs until the next replay, which
     first gives it copies of its own: read them through `tensors`, not
-    from a reference taken earlier."""
+    from a reference taken earlier.  Over a mesh 'rows' and 'valid' are
+    the rank's own, its L destinations' (L·cap_out rows); the counters are
+    every rank's, (n_devices, ...), equal on every rank.  No key's access
+    runs a collective."""
 
     _KEYS = ("rows", "valid", "shuffle_overflow", "shuffle_overflow_by_rel",
              "join_overflow", "recv_counts")
@@ -1019,8 +1166,8 @@ class ExecutorSession:
         sharded = [ex._shard(_validate_relation(r.name, data[r.name],
                                                 len(r.attrs)))
                    for r in ex.query.relations]
-        self._device_args = [ex._upload(s) for s in sharded]
-        self._shapes = tuple(s.shape for s in sharded)
+        self._device_args = [ex._upload_rows(s) for s in sharded]
+        self._shapes = tuple(tuple(a.shape) for a in self._device_args)
         counts = None
         if placement is None:
             if k == n_dev:
@@ -1147,11 +1294,12 @@ class ExecutorSession:
             for rel, target in zip(query.relations, targets):
                 sh = ex._shard(_validate_relation(rel.name, chunks[rel.name],
                                                   len(rel.attrs)))
-                if target is not None and sh.shape[0] < target[0]:
-                    pad = np.full((target[0] - sh.shape[0], sh.shape[1]),
+                n_target = None if target is None else target[0] * ex.world
+                if n_target is not None and sh.shape[0] < n_target:
+                    pad = np.full((n_target - sh.shape[0], sh.shape[1]),
                                   INVALID, sh.dtype)
                     sh = np.concatenate([sh, pad])
-                args.append(ex._upload(sh))
+                args.append(ex._upload_rows(sh))
         self._last_args = args          # count_batch()'s observation target
         shapes = tuple(tuple(a.shape) for a in args)
         if self._shapes is None:

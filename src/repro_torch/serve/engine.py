@@ -218,6 +218,11 @@ class SelfHealingSession:
                  step_seconds: float = 1.0,
                  timing_fn: Callable[[float], np.ndarray] | None = None,
                  adapt: AdaptPolicy | None = None):
+        if executor.mesh is not None:
+            raise ValueError(
+                "SelfHealingSession runs its executor in one process; an "
+                "executor over a mesh of ranks is driven through its "
+                "ExecutorSession (run_with_retry, refold)")
         if adapt is not None and executor.plan is None:
             raise ValueError(
                 "SelfHealingSession(adapt=...): adaptation re-plans from the "

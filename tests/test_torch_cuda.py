@@ -2143,3 +2143,39 @@ def test_full_sized_request_rows_leave_the_card_compacted(dev, monkeypatch):
     assert 0 < req.copy_s < req.latency_s
     st = eng.stats["tenants"]["full"]
     assert st["overflow"] > 0 and st["rows_out"] == exact
+
+
+# The executor over a mesh of ranks on the one card (tests/_torch_mesh_cases
+# holds the spawned ranks' functions, torch-only).
+@pytest.mark.parametrize("backend,world,chunks", [("gloo", 2, (1, 2)),
+                                                  ("nccl", 1, (1, 2))])
+def test_mesh_on_card_equals_one_process(dev, tmp_path, backend, world,
+                                         chunks):
+    """W = 2 gloo ranks sharing cuda:0, and one NCCL rank: on fused + hash
+    and staged + sort at C = 1 and 2, each rank's rows `torch.equal` to
+    the one-process card session's rows of its destinations, the same
+    counters, caps, placement and result_rows."""
+    import time
+    import _torch_mesh_cases as mc
+    from repro_torch.kernels import _build
+    _build.lib()                  # built once, before the ranks load it
+    ctx = mc.spawn_ranks(mc.card_rank, world, backend,
+                         str(tmp_path / "store"), chunks)
+    mc.join_ranks(ctx, time.monotonic() + mc.DEADLINE_S)
+
+
+def test_make_join_mesh_refuses_two_nccl_ranks_on_one_card(dev, tmp_path):
+    """Two NCCL ranks naming cuda:0 are refused on both (the rendezvous
+    store sees one card twice), and rank 1's default card cuda:1 does not
+    exist on a one-card host."""
+    import time
+    import _torch_mesh_cases as mc
+    from repro_torch.core.executor import ExecutorError
+    from repro_torch.launch.mesh import make_join_mesh
+    ctx = mc.spawn_ranks(mc.nccl_shared_card_rank, 2,
+                         str(tmp_path / "store"))
+    mc.join_ranks(ctx, time.monotonic() + mc.DEADLINE_S)
+    if torch.cuda.device_count() == 1:
+        with pytest.raises(ExecutorError, match="would share a card"):
+            make_join_mesh(init_method=f"file://{tmp_path / 'other'}",
+                           rank=1, world_size=2)

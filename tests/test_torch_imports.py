@@ -56,6 +56,7 @@ def test_port_imports_with_jax_and_repro_blocked():
         "import repro_torch.train, repro_torch.train.train_step\n"
         "import repro_torch.ckpt, repro_torch.ckpt.checkpoint\n"
         "import repro_torch.launch, repro_torch.launch.train\n"
+        "import repro_torch.launch.mesh\n"
         "assert not any(m == 'jax' or m.startswith('jax.') or m == 'repro' "
         "or m.startswith('repro.') for m in sys.modules "
         "if sys.modules[m] is not None)\n"
@@ -134,9 +135,9 @@ def test_default_device_is_cuda_and_raises_without_it(monkeypatch):
 def test_model_and_serving_entry_points_default_to_cuda(monkeypatch, tmp_path):
     """init_params, init_model, init_cache, params_from_jax,
     opt_state_from_jax, build_decode_step, build_prefill, ServingEngine,
-    JoinServingEngine, build_train_step, Checkpointer.restore and
-    SelfHealingSession (on the device of the executor it is given) raise
-    without a card unless given device="cpu"."""
+    JoinServingEngine, build_train_step, Checkpointer.restore,
+    SelfHealingSession (on the device of the executor it is given) and
+    make_join_mesh raise without a card unless given device="cpu"."""
     from repro_torch.configs import ARCHS
     from repro_torch.models import api
     from repro_torch.models.common import init_params
@@ -182,6 +183,18 @@ def test_model_and_serving_entry_points_default_to_cuda(monkeypatch, tmp_path):
         with pytest.raises(ExecutorError, match="CUDA"):
             call()
         assert call(device="cpu") is not None
+    # make_join_mesh: a rank's device is cuda:LOCAL_RANK unless the caller
+    # names the CPU (and gloo with it).
+    from repro_torch.launch.mesh import make_join_mesh
+    store = f"file://{tmp_path / 'mesh_store'}"
+    with pytest.raises(ExecutorError, match="CUDA"):
+        make_join_mesh(init_method=store, rank=0, world_size=1)
+    mesh = make_join_mesh("gloo", device="cpu", init_method=store, rank=0,
+                          world_size=1)
+    try:
+        assert mesh.device_type == "cpu"
+    finally:
+        torch.distributed.destroy_process_group()
 
 
 def test_unported_config_arms_raise():
