@@ -248,8 +248,31 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      every loss and grad_norm finite, the last loss below the first; the
      optimizer's step the steps taken; no custom kernel launched (no TPU
      kernel lies on this path);
- 11. one JSON line each of phases 3 / 3b / 3c, 3m, 6, 6e, 8, 9, 7 and 10's
-     numbers, one JSON line of per-kernel results (each with the path its
+ 11. the dry run (`repro_torch.launch.dryrun`) against the card, after
+     phase 10 (its memory freed); its predictions are traced on fake
+     tensors in a child process (no card) while phases 3-10 run:
+     11a. the predicted peak of each training step of phases 9 and 10
+         (the same config cut, batch, remat and state bits) beside its
+         measured `max_memory_allocated` over the phase's start, and the
+         ratio (printed, not gated);
+     11b. qwen2-0.5b x decode_32k at its published widths and full depth
+         (24 layers): 128 slots, a 32,768-position cache (51.54 GB of
+         bf16 keys and values), bf16 weights from a seeded generator,
+         through `build_decode_step`: 8 ticks of the plain versions'
+         eager step at positions 32,760-32,767 (attention reads the
+         whole cache), the last position's logits finite, then the graph
+         over the same positions and tokens twice (eager, capture, 14
+         replays), its next tokens equal to the eager step's at every
+         position; the dry run's total_per_device within ±10 % of the
+         measured peak over the weights, the cache and the first eager
+         tick; prints the ticks, the graph's warm median, decode tokens/s,
+         the dry run's bound_s, dominant term and roofline_fraction, and
+         the graph's pinned memory;
+     11c. mamba2-370m x long_500k (B 1, ticks at positions 524,284-
+         524,287), the same checks, its peak beside the prediction
+         (printed, not gated);
+ 12. one JSON line each of phases 3 / 3b / 3c, 3m, 6, 6e, 8, 9, 7, 10 and
+     11's numbers, one JSON line of per-kernel results (each with the path its
      launches were counted on: segment_histogram's is phase 9a's, its
      phase 7 count, host passes x layers, beside it as `serve_launches`),
      then the last line {"ok": true, "device": {...}}.
@@ -262,9 +285,11 @@ from __future__ import annotations
 import dataclasses
 import gc
 import json
+import multiprocessing
 import subprocess
 import sys
 import time
+from concurrent.futures import ProcessPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -445,6 +470,19 @@ RANDOM_PAIR = dict(n_keys=1 << 20, n_probe=1 << 14, n_build=1 << 12,
 # thousands of keys (the last one past 1,024).
 DEEP_PROBES = [(2, 3000, 8000, 2, 1, "wide"), (2, 3000, 8000, 1, 2, "wide"),
                (3, 5000, 20000, 2, 2, "few"), (2, 3000, 20000, 2, 1, "wide")]
+# Phase 11: `SHAPES` cells run on the card against the dry run's
+# prediction (`repro_torch.launch.dryrun`), full depth, bf16 weights from a
+# seeded generator: `ticks` decode steps at the cache's last positions, on
+# the plain versions' eager step and then on the graph (`graph_passes`
+# passes over the same positions and tokens); `peak_tol` bounds |the dry
+# run's total_per_device / the measured peak - 1| over the weights, the
+# cache and the first eager tick (None: printed, not gated).
+DECODE_CELLS = (
+    dict(tag="11b", arch="qwen2-0.5b", shape="decode_32k", seed=0, ticks=8,
+         graph_passes=2, peak_tol=0.10),
+    dict(tag="11c", arch="mamba2-370m", shape="long_500k", seed=0, ticks=4,
+         graph_passes=2, peak_tol=None),
+)
 
 
 def fail(msg: str) -> None:
@@ -3140,7 +3178,8 @@ def moe_train(dev):
     out = dict(launches=launches, losses=losses, step_ms=[t * 1e3 for t in
                                                           step_s],
                warm_ms=warm * 1e3, tokens_per_s=B * S / warm,
-               peak_gb=peak / 1e9, n_layers=L, graph=watch.seen)
+               peak_gb=peak / 1e9, base_gb=base / 1e9, n_layers=L,
+               graph=watch.seen)
     del model, opt, fns, c, batch, captured, vals, metrics
     torch.cuda.empty_cache()
     return out
@@ -3179,6 +3218,9 @@ def train_driver(dev):
         return [float(line.split()[-2]) for line in out.splitlines()
                 if line.startswith("[ckpt] final save")][0]
 
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
     with tempfile.TemporaryDirectory() as d:
         base = ["--arch", DRIVER["arch"], "--batch", str(DRIVER["batch"]),
                 "--seq", str(DRIVER["seq"]), "--lr", str(DRIVER["lr"]),
@@ -3192,6 +3234,8 @@ def train_driver(dev):
             out2, wall2 = run(base + ["--steps", str(DRIVER["resume_steps"]),
                                       "--resume"])
         latest = Checkpointer(d).latest_step()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - held
     for line in (f"[FT] injecting node failure at step {DRIVER['fail_at']}",
                  "[FT] re-meshing {'data': 2, 'model': 4} -> {'data': 1, "
                  "'model': 4}, restoring step 4",
@@ -3218,11 +3262,14 @@ def train_driver(dev):
           f"{l2[-1]:.4f}; latest committed step {latest}; warm step median "
           f"{warm_ms:.0f} ms ({DRIVER['batch'] * DRIVER['seq'] / warm_ms * 1e3:.0f}"
           f" tokens/s); final checkpoint save (blocking) {save_s(out1):.2f} / "
-          f"{save_s(out2):.2f} s; runs {wall1:.1f} s and {wall2:.1f} s")
+          f"{save_s(out2):.2f} s; runs {wall1:.1f} s and {wall2:.1f} s; "
+          f"peak allocated (measured, over the phase's start) "
+          f"{peak / 1e9:.2f} GB")
     print(f"[driver] 9b graph: capturing steps 1 and {fail + 1} "
           f"{cap_ms[0]:.0f} / {cap_ms[1]:.0f} ms; {capture_line(watch.seen)}")
     torch.cuda.empty_cache()
-    return dict(warm_ms=warm_ms, save_s=[save_s(out1), save_s(out2)],
+    return dict(warm_ms=warm_ms, peak_gb=peak / 1e9,
+                save_s=[save_s(out1), save_s(out2)],
                 losses=l1 + l2, walls_s=[wall1, wall2], step_ms=ms1,
                 capture_step_ms=cap_ms, graph=watch.seen)
 
@@ -3395,6 +3442,7 @@ def family_cell(dev, spec) -> dict:
 
     # -- training -------------------------------------------------------------
     torch.cuda.synchronize()
+    train_base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     cfg, model = model_of(spec.get("train_layers", spec.get("layers")))
     n_train = count_params(api.layout(cfg))
@@ -3449,7 +3497,8 @@ def family_cell(dev, spec) -> dict:
     out.update(train_params=n_train, train_cut=cut(cfg), losses=losses,
                grad_norms=norms, step_ms=[t * 1e3 for t in step_s],
                warm_step_ms=warm * 1e3, train_tokens_per_s=B * S / warm,
-               train_peak_gb=train_peak, warm_step_profile=prof,
+               train_peak_gb=train_peak, train_base_gb=train_base / 1e9,
+               warm_step_profile=prof,
                train_graph=watch.seen)
     del model, opt, fns, c, batch, metrics     # the graph and its pool too
     gc.collect()
@@ -3469,6 +3518,205 @@ def lm_families(dev) -> dict:
     return out
 
 
+def dryrun_predictions() -> dict:
+    """Phase 11's predictions, traced on fake tensors (no card): the dry
+    run's `size` of each training step that phases 9 and 10 measure (the
+    same config cut, batch, remat and state bits), and its record of each
+    cell of DECODE_CELLS.  Runs in a child process while the card runs
+    phases 3-10."""
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.configs import ARCHS, ShapeCell
+    from repro_torch.launch import dryrun
+
+    def train(tag, arch, n_layers, batch, seq, bits):
+        cfg = ARCHS[arch]
+        if n_layers is not None:
+            cfg = dataclasses.replace(cfg, n_layers=n_layers)
+        return dict(arch=arch, n_layers=cfg.n_layers, **dryrun.size(
+            cfg, ShapeCell(tag, seq, batch, "train"), 1, bits))
+
+    out = {"9a": train("9a", TRAIN["arch"], TRAIN["n_layers"],
+                       TRAIN["batch"], TRAIN["seq"], TRAIN["state_bits"]),
+           "9b": train("9b", DRIVER["arch"], None, DRIVER["batch"],
+                       DRIVER["seq"], 32)}
+    for spec in FAMILIES:
+        out[spec["tag"]] = train(
+            spec["tag"], spec["arch"],
+            spec.get("train_layers", spec.get("layers")),
+            FAMILY_RUN["batch"], FAMILY_RUN["seq"], spec["state_bits"])
+    for spec in DECODE_CELLS:
+        out[spec["tag"]] = dryrun.run_cell(spec["arch"], spec["shape"])
+    return out
+
+
+def decode_cell(dev, spec, pred) -> dict:
+    """Phase 11b / 11c: one `SHAPES` decode cell at full depth through
+    `build_decode_step`: `ticks` eager steps of the plain versions at the
+    cache's last positions (the first one's peak held to the dry run's
+    prediction), then `api.decode_step`'s logits over the same positions
+    and tokens, then the graph over them, its next tokens equal to the
+    eager step's at every position.  A pass over the positions rewrites
+    the same keys and values; a cache that carries a recurrent state (the
+    ssm and hybrid families') is put back to its state before the first
+    tick first, from a copy."""
+    from repro_torch.configs import ARCHS, SHAPES
+    from repro_torch.models import api
+    from repro_torch.serve import build_decode_step
+    from repro_torch.tree import flatten
+
+    tag, cfg, cell = spec["tag"], ARCHS[spec["arch"]], SHAPES[spec["shape"]]
+    check(pred["status"] == "ok", f"{tag}: the dry run of {cfg.name} x "
+          f"{cell.name}: {pred.get('error', pred['status'])}")
+    B, S, n = cell.global_batch, cell.seq_len, spec["ticks"]
+    mem, rl = pred["memory"], pred["roofline"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = api.init_model(cfg, torch.Generator(device=dev).manual_seed(
+        spec["seed"]), device=dev)
+    fns = build_decode_step(cfg, B, S, device=dev)
+    cache = api.init_cache(cfg, B, S, device=dev)
+    leaves = [t for t in flatten(cache).values() if t is not None]
+    start = ([t.clone() for t in leaves]
+             if cfg.family in ("ssm", "hybrid") else None)
+    copies = sum(t.nbytes for t in start or [])
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    rng = np.random.default_rng(spec["seed"])
+    tokens = [torch.from_numpy(rng.integers(0, cfg.vocab, (B, 1)).astype(
+        np.int32)).to(dev)]
+    positions = [torch.full((B,), S - n + t, dtype=torch.int32, device=dev)
+                 for t in range(n)]
+
+    def rewind():
+        for t, s0 in zip(leaves, start or []):
+            t.copy_(s0)
+
+    def tick(t):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        nxt, _ = fns.decode(model, cache, tokens[t], positions[t])
+        torch.cuda.synchronize()
+        return nxt, time.perf_counter() - t0
+
+    model.use_kernels = False             # the plain versions, eager
+    eager_s, eager_next = [], []
+    for t in range(n):
+        nxt, dt = tick(t)
+        if t == 0:
+            peak = torch.cuda.max_memory_allocated() - base - copies
+        eager_s.append(dt)
+        eager_next.append(nxt)
+        if t + 1 < n:
+            tokens.append(nxt[:, None])
+    rewind()
+    with torch.no_grad():
+        for t in range(n):
+            lg, _ = api.decode_step(model, cfg, cache, {"tokens": tokens[t]},
+                                    positions[t])
+            check(bool(torch.isfinite(lg[..., :cfg.vocab]).all()),
+                  f"{tag}: logits at position {S - n + t} not finite")
+            check(torch.equal(lg[:, -1].argmax(-1).to(torch.int32),
+                              eager_next[t]),
+                  f"{tag}: decode_step's argmax at position {S - n + t} "
+                  f"differs from the eager step's")
+    del lg
+    model.use_kernels = True              # the graph
+    graph_s = []
+    with captures_watched() as watch:
+        for _ in range(spec["graph_passes"]):
+            rewind()
+            for t in range(n):
+                nxt, dt = tick(t)
+                check(torch.equal(nxt, eager_next[t]),
+                      f"{tag}: the graph's next tokens at position "
+                      f"{S - n + t} differ from the eager plain step's")
+                graph_s.append(dt)
+    c = fns.compiled
+    ticks = n * spec["graph_passes"]
+    check((c.eager_calls, c.captures, c.replays) == (n + 1, 1, ticks - 1),
+          f"{tag}: eager calls, captures, replays {c.eager_calls}, "
+          f"{c.captures}, {c.replays}; expected {n + 1}, 1, {ticks - 1}")
+    warm = float(np.median(graph_s[2:]))
+    ratio = mem["total_per_device"] / peak
+    print(f"[dryrun] {tag} {cfg.name} x {cell.name} at full depth "
+          f"({cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.n_heads} "
+          f"heads, {cfg.n_kv_heads} KV heads, vocab {cfg.vocab}): {B} slots,"
+          f" {S} positions; weights and cache made in {t_init:.2f} s; "
+          f"positions {S - n}-{S - 1}: logits finite, the graph's next "
+          f"tokens == the eager plain step's at every position")
+    print(f"[dryrun] {tag} memory: predicted {mem['total_per_device'] / 1e9:.3f}"
+          f" GB (arguments {mem['argument_bytes'] / 1e9:.3f}, temp "
+          f"{mem['temp_bytes'] / 1e9:.3f}), measured peak over the weights, "
+          f"the cache and the first eager tick {peak / 1e9:.3f} GB: "
+          f"predicted / measured {ratio:.4f}")
+    print(f"[dryrun] {tag} ticks: eager (plain) median "
+          f"{np.median(eager_s) * 1e3:.2f} ms of "
+          f"{', '.join(f'{t * 1e3:.2f}' for t in eager_s)}; graph warm "
+          f"median {warm * 1e3:.2f} ms ({B / warm:.0f} decode tokens/s); "
+          f"dry run: bound {rl['bound_s'] * 1e3:.2f} ms ({rl['dominant']}),"
+          f" ideal {max(rl['ideal_compute_s'], rl['ideal_memory_s']) * 1e3:.2f}"
+          f" ms, roofline_fraction {rl['roofline_fraction']:.4f}; measured "
+          f"warm tick / bound {warm / rl['bound_s']:.3f}")
+    print(f"[dryrun] {tag} graph: {capture_line(watch.seen)}")
+    prof = {}
+    profile_calls(lambda: fns.decode(model, cache, tokens[-1],
+                                     positions[-1]),
+                  f"{tag} one replayed tick", 1, top=6, tag="dryrun",
+                  sink=prof, cpu=False)
+    if spec["peak_tol"] is not None:
+        check(abs(ratio - 1) <= spec["peak_tol"],
+              f"{tag}: predicted {mem['total_per_device'] / 1e9:.3f} GB, "
+              f"measured {peak / 1e9:.3f} GB: past ±{spec['peak_tol']:.0%}")
+    out = dict(arch=cfg.name, shape=cell.name, n_layers=cfg.n_layers,
+               slots=B, cache_positions=S, positions=[S - n, S - 1],
+               predicted_gb=mem["total_per_device"] / 1e9,
+               measured_peak_gb=peak / 1e9, predicted_over_measured=ratio,
+               eager_tick_ms=[t * 1e3 for t in eager_s],
+               graph_tick_ms=[t * 1e3 for t in graph_s],
+               graph_warm_median_ms=warm * 1e3, tokens_per_s=B / warm,
+               bound_ms=rl["bound_s"] * 1e3, dominant=rl["dominant"],
+               roofline_fraction=rl["roofline_fraction"], graph=watch.seen,
+               replay_profile=prof)
+    del model, cache, fns, c, tokens, positions, eager_next, nxt, leaves
+    del start
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def dryrun_phase(dev, card: str, pred: dict, measured: dict) -> dict:
+    """Phase 11: the dry run's predicted peak of each training step of
+    phases 9 and 10 beside its measured peak (`measured`: tag -> bytes over
+    the phase's start; printed, not gated), then each cell of
+    DECODE_CELLS."""
+    out = {"card": card, "training": {}}
+    for tag, got in measured.items():
+        p = pred[tag]
+        want = p["memory"]["total_per_device"]
+        out["training"][tag] = dict(
+            arch=p["arch"], n_layers=p["n_layers"], predicted_gb=want / 1e9,
+            measured_peak_gb=got / 1e9, predicted_over_measured=want / got,
+            trace_s=p["trace_s"])
+        print(f"[dryrun] {tag} {p['arch']} ({p['n_layers']} layers) train "
+              f"step: predicted {want / 1e9:.2f} GB (arguments "
+              f"{p['memory']['argument_bytes'] / 1e9:.2f}, temp "
+              f"{p['memory']['temp_bytes'] / 1e9:.2f}; traced in "
+              f"{p['trace_s']:.1f} s), measured peak {got / 1e9:.2f} GB: "
+              f"predicted / measured {want / got:.3f}")
+    for spec in DECODE_CELLS:
+        t0 = time.perf_counter()
+        out[spec["tag"]] = decode_cell(dev, spec, pred[spec["tag"]])
+        out[spec["tag"]]["wall_s"] = time.perf_counter() - t0
+        print(f"[dryrun] {spec['tag']} took {out[spec['tag']]['wall_s']:.1f}"
+              f" s")
+    print(f"[dryrun] on {card}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3480,6 +3728,12 @@ def main() -> int:
     t_start = time.perf_counter()
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels import _build, ops
+
+    # Phase 11's predictions need no card: a child process traces them on
+    # fake tensors while the card runs phases 3-10.
+    tracer = ProcessPoolExecutor(1, mp_context=multiprocessing.get_context(
+        "spawn"))
+    predictions = tracer.submit(dryrun_predictions)
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -3559,6 +3813,21 @@ def main() -> int:
     t10 = time.perf_counter()
     families = lm_families(dev)
     print(f"[family] phase 10 took {time.perf_counter() - t10:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t11 = time.perf_counter()
+    pred = predictions.result()
+    tracer.shutdown()
+    print(f"[dryrun] the predictions' traces were ready "
+          f"{time.perf_counter() - t11:.1f} s after phase 10 ended")
+    measured = {"9a": (train["peak_gb"] - train["base_gb"]) * 1e9,
+                "9b": driver["peak_gb"] * 1e9}
+    for spec in FAMILIES:
+        got = families[spec["arch"]]
+        measured[spec["tag"]] = (got["train_peak_gb"]
+                                 - got["train_base_gb"]) * 1e9
+    shapes = dryrun_phase(dev, card, pred, measured)
+    print(f"[dryrun] phase 11 took {time.perf_counter() - t11:.1f} s")
     t_end = time.perf_counter()
 
     kernels = []
@@ -3572,7 +3841,7 @@ def main() -> int:
             kernels[-1]["serve_launches"] = serve["launches"][name]
     check(all(kn["launches"] > 0 for kn in kernels), "a kernel never launched")
     print(f"[done] all phases passed in {t_end - t_start:.1f} s (phases 7, "
-          f"9 and 10 {t_end - t7:.1f} s)")
+          f"9, 10 and 11 {t_end - t7:.1f} s)")
     print(json.dumps({"join_arms": cell_arms}))
     print(json.dumps({"mesh": mesh}))
     print(json.dumps({"self_healing": healing}))
@@ -3582,6 +3851,7 @@ def main() -> int:
         k: v for k, v in train.items() if k != "launches"}, "driver": driver}}))
     print(json.dumps({"moe_serve": serve["summary"]}))
     print(json.dumps({"lm_families": families}))
+    print(json.dumps({"dryrun": shapes}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -33,15 +33,16 @@ def _meta(shape, dtype) -> torch.Tensor:
     return torch.empty(shape, dtype=dtype, device="meta")
 
 
-def input_specs(cfg: ArchConfig, shape: str) -> dict:
-    """Meta tensors for one (arch, shape) cell.
+def input_specs(cfg: ArchConfig, shape: str | ShapeCell) -> dict:
+    """Meta tensors for one (arch, shape) cell (a name of SHAPES, or a
+    ShapeCell of other sizes).
 
     train:   {tokens, labels [, frames | vision_emb]}
     prefill: {tokens [, frames | vision_emb]}
     decode:  {tokens (B,1), pos (B,)}: the cache is made apart
              (`models.api.init_cache(..., device="meta")`).
     """
-    cell = SHAPES[shape]
+    cell = shape if isinstance(shape, ShapeCell) else SHAPES[shape]
     B, S = cell.global_batch, cell.seq_len
     out: dict = {}
     if cell.kind == "train":

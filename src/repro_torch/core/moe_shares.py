@@ -27,6 +27,7 @@ from dataclasses import dataclass, field
 
 import numpy as np
 import torch
+from torch._subclasses.fake_tensor import is_fake
 
 from ..kernels.ref import mulshift
 
@@ -55,7 +56,9 @@ class MoEDispatchPlan:
         if kept is None:
             kept = (torch.as_tensor(self.slots_of_expert, device=device),
                     torch.as_tensor(self.group_size, device=device))
-            self._tables[device] = kept
+            # A dry run's fake tables (launch/dryrun.py) are not kept.
+            if not is_fake(kept[0]):
+                self._tables[device] = kept
         return kept
 
     @property

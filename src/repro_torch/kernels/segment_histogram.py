@@ -6,7 +6,8 @@ Values are any integer dtype, cast to int32 and flattened, as the
 reference's `_flatten_pad` does.  An empty input gives zeros (the
 reference's Pallas kernel raises on one; its oracle gives zeros).
 
-`segment_histogram_host` is the plain version (a mask, then one bincount);
+`segment_histogram_host` is the plain version (one scatter-add, out-of-range
+values into a spare bin);
 `segment_histogram_cuda` launches csrc/segment_histogram.cu on the arm that
 `histogram_plan` picks: one block (a handful of values: one launch, no
 memset), a grid of blocks (many values), a thread-block cluster whose blocks
@@ -70,10 +71,14 @@ def _values(values: torch.Tensor, n_bins: int) -> torch.Tensor:
 
 
 def segment_histogram_host(values: torch.Tensor, n_bins: int) -> torch.Tensor:
-    """Plain version: int32 (n_bins,) count of the values in [0, n_bins)."""
+    """Plain version: int32 (n_bins,) count of the values in [0, n_bins).
+    Every shape is static (a dry run traces it on fake tensors): values
+    out of range count in a spare bin n_bins, which is dropped."""
     v = _values(values, n_bins)
-    v = v[(v >= 0) & (v < n_bins)]
-    return torch.bincount(v.long(), minlength=n_bins).to(torch.int32)
+    v = torch.where((v >= 0) & (v < n_bins), v, n_bins)
+    hist = torch.zeros(n_bins + 1, dtype=torch.int32, device=v.device)
+    hist.scatter_add_(0, v.long(), torch.ones_like(v))
+    return hist[:n_bins]
 
 
 def segment_histogram_cuda(values: torch.Tensor, n_bins: int, *,

@@ -30,6 +30,14 @@ import torch.distributed as dist
 
 from ..core.executor import ExecutorError, resolve_device
 
+# One NVIDIA H100 80GB HBM3 (SXM) at its 700 W limit, NVIDIA's data sheet
+# (dense rates): the roofline rates of `launch.dryrun`, under the
+# reference's names.  ICI_BW_PER_LINK is the card's NVLink, 450 GB/s each
+# way (18 links).
+PEAK_FLOPS_BF16 = 989e12          # FLOP/s
+HBM_BW = 3.35e12                  # B/s
+ICI_BW_PER_LINK = 450e9           # B/s
+
 AXIS = "cells"
 BACKENDS = ("nccl", "gloo")
 

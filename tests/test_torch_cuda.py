@@ -1484,6 +1484,35 @@ def test_graph_decode_equals_eager_on_card(dev, name):
     assert ops.LAUNCHES["segment_histogram"] == 2 * layers
 
 
+def test_dryrun_predicts_a_decode_cells_peak(dev):
+    """The dry run's total_per_device of qwen2-0.5b's decode step at full
+    depth (32 slots, an 8,192-position cache: 3.2 GB of bf16 keys and
+    values) within ±10 % of the measured peak over the weights, the cache
+    and one eager tick of the plain versions."""
+    from repro_torch.configs import ARCHS, ShapeCell
+    from repro_torch.launch import dryrun
+    from repro_torch.models import api
+    from repro_torch.serve import build_decode_step
+    cfg, B, S = ARCHS["qwen2-0.5b"], 32, 8192
+    want = dryrun.size(cfg, ShapeCell("decode_8k", S, B, "decode"))[
+        "memory"]["total_per_device"]
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    model = api.init_model(cfg, torch.Generator(device=dev).manual_seed(0),
+                           device=dev)
+    model.use_kernels = False
+    fns = build_decode_step(cfg, B, S, device=dev)
+    cache = api.init_cache(cfg, B, S, device=dev)
+    toks = torch.zeros((B, 1), dtype=torch.int32, device=dev)
+    pos = torch.full((B,), S - 1, dtype=torch.int32, device=dev)
+    fns.decode(model, cache, toks, pos)
+    torch.cuda.synchronize()
+    got = torch.cuda.max_memory_allocated() - base
+    assert abs(want / got - 1) <= 0.10, (want, got)
+
+
 @pytest.mark.parametrize("name", GRAPH_CASES)
 def test_graph_engine_gives_the_eager_engines_tokens(dev, name):
     """Seven requests on three slots: the engine on the graph and one on

@@ -57,6 +57,7 @@ def test_port_imports_with_jax_and_repro_blocked():
         "import repro_torch.ckpt, repro_torch.ckpt.checkpoint\n"
         "import repro_torch.launch, repro_torch.launch.train\n"
         "import repro_torch.launch.mesh\n"
+        "import repro_torch.launch.dryrun, repro_torch.launch.op_analysis\n"
         "assert not any(m == 'jax' or m.startswith('jax.') or m == 'repro' "
         "or m.startswith('repro.') for m in sys.modules "
         "if sys.modules[m] is not None)\n"

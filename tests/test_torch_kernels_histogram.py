@@ -105,6 +105,17 @@ def test_empty_input_gives_zeros_where_the_pallas_kernel_raises():
     assert plain.dtype == np.int32
 
 
+def test_plain_version_traces_on_fake_tensors():
+    """Every shape of the plain version is static, so a dry run traces the
+    MoE layer on fake tensors (no data, no data-dependent shape)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode, is_fake
+    with FakeTensorMode():
+        got = sh.segment_histogram_host(
+            torch.empty(4096, dtype=torch.int64), 384)
+    assert is_fake(got)
+    assert got.shape == (384,) and got.dtype == torch.int32
+
+
 @pytest.mark.parametrize("bad", [torch.zeros(4), torch.zeros(4).double(),
                                  torch.zeros(4, dtype=torch.bool)])
 def test_rejects_non_integer_values(bad):
