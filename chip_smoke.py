@@ -195,6 +195,25 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
          full-size batches whose hot set moves (re-placed at least once),
          `calm` one small request; each detector windows only its own
          tenant's batches; every request exact;
+  6m. after 8, phase 6's cell (overlap_shuffle = 4, caps squeezed to an
+     eighth) over a mesh of ranks, four gloo ranks sharing the card, then
+     one NCCL rank, spawned as phase 3m's: one adaptive
+     `SelfHealingSession` walks the retry ladder, evicts device 3 on its
+     dropped heartbeats, loses the last rank's devices 6 and 7 in one
+     re-fold (`evict_rank(3)` at W = 4; by hand at W = 1), runs 3 degraded
+     batches, a forced re-place and a warm re-plan; then a
+     `JoinServingEngine` over the mesh serves 24 of mixed_workload's
+     requests (k = 8) and one full-size request (k = 256, cap_out's ladder
+     from 4,096).  The one-process session and engines on the card run the
+     same schedule first: every checkpoint batch's rows and valid flags
+     of each rank `torch.equal` to theirs for its destinations (shared
+     through CUDA IPC), each request's rows at the rank's offset equal to
+     theirs, every counter (retries, escalations, refolds, refold_compiles,
+     re-placements, re-plans and their builds, alive, evicted, placement,
+     caps, step builds, cache hits, misses and builds) equal on every rank
+     and to theirs; launches zeroed in each rank before its schedule and
+     read after it; the healed batch's wall, the degraded median and
+     requests/s;
   9. the training path, after phase 7 (its memory freed):
      9a. mixtral-8x22b at its published widths with its depth cut from 56
          to 1 layer (at 2 a step peaks past 76 GB),
@@ -348,6 +367,18 @@ SERVE = dict(warm=((12, 0), (480, 1)), steady=480, windows=3, full_warm=2,
 # ranks sharing the card, then one NCCL rank; each run's deadline.
 MESH_RUNS = (("gloo", 4), ("nccl", 1))
 MESH_DEADLINE_S = 240
+# Phase 6m: phase 6's cell and fault schedule over the mesh runs of 3m:
+# the devices of the rank lost (W = 4's rank 3; W = 1 evicts them by
+# hand), the degraded batches timed, the mixed requests served, each run's
+# deadline and its collectives' timeout; device 3's heartbeats time out
+# after 0.5 s of the injector's clock (1 s a batch), so it is evicted at
+# the second batch without them.
+MESH_HEAL = dict(lost=(6, 7), degraded=3, requests=24, deadline_s=300,
+                 timeout_s=120, heartbeat_timeout_s=0.5,
+                 suspect_timeout_s=0.25)
+# The fused + hash path's kernels, each launched by every mesh rank.
+MESH_KERNELS = ("map_count", "scatter_pack", "join_hash", "build_table",
+                "probe_tables", "expand_rows")
 # Phase 5's chunked exchange (overlap_shuffle) on fused + hash and
 # staged + sort.
 MODERATE_CHUNKS = 3
@@ -1713,6 +1744,315 @@ def mesh_cell(cell) -> dict:
               f"the spawn")
         runs[f"{backend}_w{world}"] = dict(ranks=ranks, wall_s=wall)
     return runs
+
+
+def heal_schedule(ex, data, lose, checkpoint) -> tuple[object, dict]:
+    """Phase 6m's schedule on executor `ex` (one process, or a rank of a
+    mesh): an adaptive SelfHealingSession with caps squeezed to an eighth
+    (the retry ladder), device 3's heartbeats dropped until it is evicted,
+    `lose(eng)` (the last rank's devices), degraded warm batches, a forced
+    re-place and a warm re-plan.  `checkpoint(label, result)` is given the
+    healed batch, the batch that evicted device 3, the last degraded batch
+    and the batches after each forced action.  Returns the session and the
+    walls of the healed batch and of the degraded ones."""
+    from repro_torch.core import AdaptPolicy
+    from repro_torch.ft import ChaosInjector
+    from repro_torch.serve import SelfHealingSession
+
+    dead = HEALING["dead"]
+    chaos = ChaosInjector(FULL["n_dev"], seed=0)
+    chaos.squeeze_caps(HEALING["squeeze"])
+    eng = SelfHealingSession(
+        ex, chaos=chaos, heartbeat_timeout_s=MESH_HEAL["heartbeat_timeout_s"],
+        suspect_timeout_s=MESH_HEAL["suspect_timeout_s"], step_seconds=1.0,
+        adapt=AdaptPolicy(**ADAPT_POLICY)).prepare(data)
+    res, healed = synced_ms(eng.run_batch)
+    checkpoint("healed", res)
+    chaos.drop_heartbeats(dead)
+    while dead not in eng.evicted and eng.stats["batches"] < 16:
+        res = None
+        res = eng.run_batch()
+    checkpoint("dead", res)
+    chaos.restore_heartbeats(dead)
+    lose(eng)
+    degraded = []
+    for _ in range(MESH_HEAL["degraded"]):
+        res = None
+        res, ms = synced_ms(eng.run_batch)
+        degraded.append(ms)
+    checkpoint("degraded", res)
+    res = None
+    eng.force_replace()
+    checkpoint("replaced", eng.run_batch())
+    eng.force_replan()
+    checkpoint("replanned", eng.run_batch())
+    return eng, dict(healed_ms=healed, degraded_ms=float(np.median(degraded)),
+                     degraded_all_ms=degraded)
+
+
+def heal_counters(eng) -> dict:
+    """What every rank and the one-process session must agree on after the
+    schedule."""
+    st = eng.stats
+    return dict(
+        {k: st[k] for k in ("batches", "retries", "escalations", "refolds",
+                            "refold_compiles", "replacements",
+                            "replace_compiles", "replans", "replan_compiles")},
+        shuffle_overflow=np.asarray(st["shuffle_overflow"]).tolist(),
+        join_overflow=np.asarray(st["join_overflow"]).tolist(),
+        alive=list(eng.alive), evicted=list(eng.evicted),
+        table=np.asarray(eng.session.placement.table).tolist(),
+        caps=dict(eng.session.caps), cap_out=int(eng.session.cap_out),
+        compiles=int(eng.executor.compile_count),
+        plan_hhs={a: [int(x) for x in v]
+                  for a, v in eng.executor.plan.hhs.per_attr.items()})
+
+
+def serve_schedule(data, mesh, dev):
+    """Phase 6m's serving: MESH_HEAL's mixed_workload requests on an
+    engine at k = n_devices, then the full-size cell as one request on an
+    engine at k = 256, over `mesh` (or on `dev`).  Returns the mixed
+    requests, the full request, each engine's stats and the figures."""
+    from repro_torch.core import two_way
+    from repro_torch.core.executor import RetryPolicy
+    from repro_torch.data import mixed_workload
+    from repro_torch.serve import JoinServingEngine
+
+    where = dict(mesh=mesh) if mesh is not None else dict(device=dev)
+    retry = RetryPolicy(max_retries=SERVE["max_retries"])
+    small = JoinServingEngine(FULL["n_dev"], retry=retry, **where)
+    reqs = [small.submit(t, q, d) for t, q, d in
+            mixed_workload(MESH_HEAL["requests"], seed=0)]
+    _, wall = synced_ms(small.run)
+    full = JoinServingEngine(FULL["n_dev"], k=FULL["k"], retry=retry,
+                             **where)
+    req = full.submit("full", two_way(), data)
+    _, full_ms = synced_ms(full.run)
+    return reqs, req, dict(small=small.stats, full=full.stats), dict(
+        requests_per_s=len(reqs) / (wall / 1e3), mixed_wall_ms=wall,
+        full_ms=full_ms)
+
+
+def rank_part(rows, want, label: str) -> None:
+    """A mesh rank's rows of a request: at the rank's offset (the earlier
+    ranks' row counts, one all_gather) equal to the one-process rows
+    `want` (numpy, or a tensor on the card); the ranks' counts sum to
+    len(want)."""
+    import torch.distributed as dist
+    n = torch.tensor([len(rows)], dtype=torch.int64,
+                     device=torch.device("cuda", torch.cuda.current_device()))
+    parts = [torch.empty_like(n) for _ in range(dist.get_world_size())]
+    dist.all_gather(parts, n)
+    counts = [int(p) for p in parts]
+    off = sum(counts[:dist.get_rank()])
+    check(sum(counts) == len(want), f"{label}: the ranks hold "
+          f"{sum(counts)} rows, not {len(want)}")
+    if isinstance(want, torch.Tensor):
+        same = torch.equal(torch.from_numpy(rows).to(want.device),
+                           want[off:off + len(rows)])
+    else:
+        same = np.array_equal(rows, want[off:off + len(rows)])
+    check(same, f"{label}: rows differ from the one-process rows at "
+          f"{off}..{off + len(rows)}")
+
+
+def mesh_heal_rank(rank: int, world: int, backend: str, out_dir: str,
+                   cap_out: int, refs: dict) -> None:
+    """One rank of phase 6m (a spawned process): the schedule and the
+    serving over a mesh of `world` ranks on `backend` (gloo ranks share
+    card 0), each checkpoint and request held to the one-process run's
+    (`refs`: checkpoint tensors through CUDA IPC; the mixed requests' rows
+    and the plan and data in out_dir's pickle).  Writes its counters,
+    figures and launches to rank<r>.json."""
+    import pickle
+
+    import torch.distributed as dist
+    from repro_torch.core.executor import ExecutorConfig, ShardedJoinExecutor
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_join_mesh
+
+    with open(Path(out_dir) / "cell.pkl", "rb") as f:
+        plan, data, mixed_rows = pickle.load(f)
+    mesh = make_join_mesh(backend, device="cuda:0" if backend == "gloo"
+                          else None, init_method=f"file://{out_dir}/store",
+                          rank=rank, world_size=world,
+                          timeout_s=MESH_HEAL["timeout_s"])
+    try:
+        n_dev = FULL["n_dev"]
+        per = n_dev // world
+        mine = slice(rank * per, (rank + 1) * per)
+        label = f"6m {backend} rank {rank} of {world}"
+        ex = ShardedJoinExecutor(plan, n_dev, ExecutorConfig(
+            out_capacity=cap_out, overlap_shuffle=HEALING["chunks"]),
+            mesh=mesh)
+        lost = list(MESH_HEAL["lost"])
+
+        def lose(eng):
+            if world == 1:
+                eng.evict_devices(lost)
+            else:
+                check(list(range(n_dev - per, n_dev)) == lost,
+                      f"{label}: the last rank holds other devices")
+                eng.evict_rank(world - 1)
+
+        def checkpoint(name, res):
+            rows, valid = refs[name]
+            check(torch.equal(res.tensors[0], rows[mine])
+                  and torch.equal(res.tensors[1], valid[mine]),
+                  f"{label}: {name} batch's rows differ from the one-process"
+                  f" session's for destinations {mine.start}..{mine.stop - 1}")
+
+        # The mesh path: counts zeroed just before, read just after.
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        eng, figures = heal_schedule(ex, data, lose, checkpoint)
+        counters = heal_counters(eng)
+        del eng, ex
+        reqs, req, engines, serving = serve_schedule(data, mesh, None)
+        torch.cuda.synchronize()
+        launches = dict(ops.LAUNCHES)
+        for i, (r, want) in enumerate(zip(reqs, mixed_rows)):
+            rank_part(r.rows, want, f"{label}: mixed request {i}")
+        rank_part(req.rows, refs["full"], f"{label}: the full request")
+        del reqs, req
+        got = dict(rank=rank, world=world, device=str(torch.device(
+            "cuda", torch.cuda.current_device())), counters=counters,
+            engines=engines, figures=figures, serving=serving,
+            launches=launches,
+            peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+        (Path(out_dir) / f"rank{rank}.json").write_text(json.dumps(got))
+    finally:
+        # The shared tensors are the parent's until every rank has freed
+        # them: the spawn's arguments still hold this dict, so empty it.
+        refs.clear()
+        gc.collect()
+        dist.destroy_process_group()
+
+
+def mesh_healing(dev, cell, card: str) -> dict:
+    """Phase 6m: phase 6's healing, 6e's forced adaptation and phase 8's
+    serving over a mesh of ranks, held to the same schedule run in this
+    process first (see the module docstring)."""
+    import pickle
+    import tempfile
+
+    import torch.multiprocessing as mp
+    from repro_torch.core import canonical, reference_join
+    from repro_torch.core.executor import ExecutorConfig, ShardedJoinExecutor
+    from repro_torch.data import mixed_workload
+
+    n_dev, data, plan = FULL["n_dev"], cell["data"], cell["plan"]
+    t0 = time.perf_counter()
+    held = torch.cuda.memory_allocated()
+    refs = {}
+
+    def keep(name, res):
+        same_rows(res, cell, f"6m one process, {name}")
+        # A copy of its own: a later replay of the one-process graphs
+        # would write over the result's tensors.
+        refs[name] = tuple(t.clone() for t in res.tensors[:2])
+
+    ex = ShardedJoinExecutor(plan, n_dev, ExecutorConfig(
+        out_capacity=cell["cap_out"], overlap_shuffle=HEALING["chunks"]),
+        device=dev)
+    lost = list(MESH_HEAL["lost"])
+    eng, figures = heal_schedule(ex, data,
+                                 lambda e: e.evict_devices(lost), keep)
+    want = heal_counters(eng)
+    check(want["retries"] >= 1 and want["evicted"] == [HEALING["dead"]] + lost
+          and want["refolds"] == 2 and want["replacements"] == 1
+          and want["replans"] == 1 and want["replan_compiles"] == 0,
+          f"6m one process: the schedule's counters {want}")
+    del eng, ex
+    reqs, req, engines, serving = serve_schedule(data, None, dev)
+    for r, (_, q, d) in zip(reqs, mixed_workload(MESH_HEAL["requests"],
+                                                 seed=0)):
+        check(np.array_equal(canonical(r.rows), canonical(reference_join(q, d))),
+              f"6m one process: mixed request {r.rid} not exact")
+    check(len(req.rows) == cell["exact"], f"6m one process: the full "
+          f"request has {len(req.rows)} rows")
+    refs["full"] = torch.from_numpy(req.rows).to(dev)
+    check(torch.equal(packed_rows(refs["full"], torch.ones(
+        len(req.rows), dtype=torch.bool, device=dev)), cell["sorted"]),
+        "6m one process: the full request's rows differ from phase 3's")
+    mixed_rows = [r.rows for r in reqs]
+    del reqs, req
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_one = time.perf_counter() - t0
+    print(f"[mesh-heal] {card}: one process (the reference) took "
+          f"{t_one:.1f} s: healed batch {figures['healed_ms']:.1f} ms, "
+          f"degraded median {figures['degraded_ms']:.1f} ms, "
+          f"{serving['requests_per_s']:.1f} requests/s, full request "
+          f"{serving['full_ms']:.1f} ms; counters {json.dumps(want)}")
+
+    out = dict(one_process=dict(counters=want, figures=figures,
+                                serving=serving, wall_s=t_one))
+    for backend, world in MESH_RUNS:
+        with tempfile.TemporaryDirectory() as tmp:
+            t0 = time.perf_counter()
+            with open(Path(tmp) / "cell.pkl", "wb") as f:
+                pickle.dump((plan, data, mixed_rows), f)
+            ctx = mp.start_processes(
+                mesh_heal_rank, args=(world, backend, tmp, cell["cap_out"],
+                                      refs),
+                nprocs=world, join=False, start_method="spawn")
+            deadline = time.monotonic() + MESH_HEAL["deadline_s"]
+            try:
+                while not ctx.join(timeout=5):
+                    check(time.monotonic() < deadline, f"6m {backend} W="
+                          f"{world}: ranks still running at the deadline")
+            finally:
+                for p in ctx.processes:
+                    if p.is_alive():
+                        p.kill()
+                        p.join()
+                torch.cuda.ipc_collect()
+            ranks = [json.loads((Path(tmp) / f"rank{r}.json").read_text())
+                     for r in range(world)]
+            wall = time.perf_counter() - t0
+        for r in ranks:
+            label = f"6m {backend} W={world} rank {r['rank']}"
+            check(r["counters"] == json.loads(json.dumps(want)),
+                  f"{label}: counters {r['counters']} differ from the "
+                  f"one-process session's {want}")
+            check(r["engines"] == json.loads(json.dumps(engines)),
+                  f"{label}: engine stats differ from the one-process "
+                  f"engines'")
+            missing = [k for k in MESH_KERNELS if not r["launches"][k]]
+            check(not missing, f"{label}: {missing} never launched")
+        r0 = ranks[0]
+        print(f"[mesh-heal] {card}: {backend} W={world}: every rank's rows "
+              f"torch.equal to the one-process session's at each "
+              f"checkpoint (healed, dead, degraded, replaced, replanned) and "
+              f"to its engines' at the rank's offset, every counter equal on "
+              f"every rank and to the one-process run's; rank 0: healed "
+              f"batch {r0['figures']['healed_ms']:.1f} ms, degraded median "
+              f"{r0['figures']['degraded_ms']:.1f} ms of "
+              f"{MESH_HEAL['degraded']} on {n_dev - 3} survivors, "
+              f"{r0['serving']['requests_per_s']:.1f} requests/s over "
+              f"{MESH_HEAL['requests']} mixed requests, full request "
+              f"{r0['serving']['full_ms']:.1f} ms; launches "
+              f"{ {k: r0['launches'][k] for k in MESH_KERNELS} }; peak "
+              f"allocated {max(r['peak_gb'] for r in ranks):.2f} GB a rank; "
+              f"{wall:.1f} s with the spawn")
+        out[f"{backend}_w{world}"] = dict(
+            wall_s=wall, ranks=[{k: r[k] for k in (
+                "rank", "device", "figures", "serving", "launches",
+                "peak_gb")} for r in ranks])
+    # The spawned processes' arguments hold this dict too: emptying it
+    # frees the shared tensors once CUDA IPC has collected them.
+    refs.clear()
+    gc.collect()
+    torch.cuda.ipc_collect()
+    torch.cuda.empty_cache()
+    left = torch.cuda.memory_allocated()
+    print(f"[mesh-heal] allocated {held / 1e9:.2f} GB before the phase, "
+          f"{left / 1e9:.2f} GB after it")
+    check(left <= held + (1 << 28), f"6m: {(left - held) / 1e9:.2f} GB "
+          f"still held after the phase")
+    return out
 
 
 def staged_kernel_checks(cell):
@@ -3782,6 +4122,9 @@ def main() -> int:
     t8 = time.perf_counter()
     serving = multi_tenant(dev, cell)
     print(f"[serve] phase 8 took {time.perf_counter() - t8:.1f} s")
+    t6m = time.perf_counter()
+    mesh_heal = mesh_healing(dev, cell, card)
+    print(f"[mesh-heal] phase 6m took {time.perf_counter() - t6m:.1f} s")
     del cell["sorted"]
     cell_arms = cell.pop("arms")
     torch.cuda.empty_cache()
@@ -3845,6 +4188,7 @@ def main() -> int:
     print(json.dumps({"join_arms": cell_arms}))
     print(json.dumps({"mesh": mesh}))
     print(json.dumps({"self_healing": healing}))
+    print(json.dumps({"mesh_healing": mesh_heal}))
     print(json.dumps({"adaptation": adapt}))
     print(json.dumps({"join_serving": serving}))
     print(json.dumps({"training": {"moe_train": {

@@ -339,6 +339,14 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
+def mesh_device(mesh) -> torch.device:
+    """A mesh rank's default device: the current card on a CUDA mesh, else
+    the mesh's device type."""
+    if mesh.device_type == "cuda":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device(mesh.device_type)
+
+
 # ---------------------------------------------------------------------------
 # Staged map (fuse_map=False)
 # ---------------------------------------------------------------------------
@@ -718,8 +726,7 @@ class ShardedJoinExecutor:
         if placement is not None:
             _check_placement_compat(placement, k, n_devices)
         if mesh is not None and device is None:
-            device = (torch.device("cuda", torch.cuda.current_device())
-                      if mesh.device_type == "cuda" else mesh.device_type)
+            device = mesh_device(mesh)
         self.device = resolve_device(device)
         if mesh is not None and self.device.type != mesh.device_type:
             raise ExecutorError(

@@ -27,7 +27,7 @@ from dataclasses import dataclass, field
 
 import numpy as np
 import torch
-from torch._subclasses.fake_tensor import is_fake
+from torch._guards import detect_fake_mode
 
 from ..kernels.ref import mulshift
 
@@ -51,14 +51,19 @@ class MoEDispatchPlan:
     def tables(self, device: torch.device
                ) -> tuple[torch.Tensor, torch.Tensor]:
         """(slots_of_expert, group_size) on `device`: uploaded the first time
-        they are asked for there, then kept."""
+        they are asked for there, then kept.
+
+        Under a fake-tensor trace (launch/dryrun.py) fresh fake tables are
+        built and none is kept: a kept real table would reach the trace as
+        a real tensor beside fake ones, and a fake one would outlive it."""
+        if detect_fake_mode() is not None:
+            return (torch.as_tensor(self.slots_of_expert, device=device),
+                    torch.as_tensor(self.group_size, device=device))
         kept = self._tables.get(device)
         if kept is None:
             kept = (torch.as_tensor(self.slots_of_expert, device=device),
                     torch.as_tensor(self.group_size, device=device))
-            # A dry run's fake tables (launch/dryrun.py) are not kept.
-            if not is_fake(kept[0]):
-                self._tables[device] = kept
+            self._tables[device] = kept
         return kept
 
     @property

@@ -54,6 +54,16 @@ def _dq8(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     return q.float() * scale
 
 
+def _sqrt(x: torch.Tensor) -> torch.Tensor:
+    """The correctly rounded float32 square root, as the reference's.  The
+    card's `torch.sqrt` is; the CPU's vectorized one is not on every host
+    (AVX-512: ~1 in 6 results an ulp off), so there it is taken in float64
+    and rounded once, which gives the correctly rounded float32 root."""
+    if x.device.type == "cpu":
+        return torch.sqrt(x.double()).float()
+    return torch.sqrt(x)
+
+
 def init(params, cfg: AdamWConfig):
     """Zeroed states beside each parameter (on its device); a meta tensor
     gives meta states, the shapes alone."""
@@ -122,12 +132,12 @@ def apply(params, state, grads, cfg: AdamWConfig, lr_scale=1.0):
             m, v = mu_s["m"], mu_s["v"]
         m = cfg.b1 * m + (1 - cfg.b1) * g
         v = cfg.b2 * v + (1 - cfg.b2) * g * g
-        upd32 = (m / b1c) / (torch.sqrt(v / b2c) + cfg.eps)
+        upd32 = (m / b1c) / (_sqrt(v / b2c) + cfg.eps)
         upd32 = upd32 + cfg.weight_decay * p_s.float()
         p_s.copy_((p_s.float() - lr * upd32).to(p_s.dtype))
         if cfg.state_bits == 8:
             m_q, m_s = _q8(m)
-            v_q, v_s = _q8(torch.sqrt(v))
+            v_q, v_s = _q8(_sqrt(v))
             return {"m_q": m_q, "m_s": m_s, "v_q": v_q, "v_s": v_s}
         return {"m": m, "v": v}
 

@@ -16,7 +16,8 @@ capacity grid; device loss (missed heartbeats) and persistent stragglers
 heal by evicting the device and re-folding the logical cells over the
 survivors; with `adapt=AdaptPolicy(...)` skew drift heals by re-placing
 the cells on the observed loads or re-planning from the sketched heavy
-hitters (core/adapt.py).
+hitters (core/adapt.py).  Over an executor on a mesh of ranks the same loop
+runs on every rank, each taking the same decision in the same batch.
 """
 from __future__ import annotations
 
@@ -27,6 +28,7 @@ from typing import Callable, Mapping
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..configs.base import ArchConfig
 from ..core.adapt import AdaptPolicy, DriftDetector
@@ -158,6 +160,29 @@ class ServingEngine:
                 # are overwritten by the next admit (pos resets to 0).
 
 
+def _agreed(ex: ShardedJoinExecutor, values: list[float]) -> list[float]:
+    """Rank 0's `values` on every rank of `ex`'s mesh: one broadcast."""
+    t = torch.tensor(values, dtype=torch.float64, device=ex.device)
+    dist.broadcast(t, src=dist.get_global_rank(ex.group, 0), group=ex.group)
+    return t.tolist()
+
+
+class _MeshClock:
+    """The HealthMonitor's clock over a mesh without a chaos injector:
+    rank 0's `time.monotonic()` as last agreed (`agree`, one broadcast
+    over the session's executor's mesh)."""
+
+    def __init__(self, session: "SelfHealingSession"):
+        self._session = session
+        self.agree()
+
+    def agree(self) -> None:
+        self._now, = _agreed(self._session.executor, [time.monotonic()])
+
+    def __call__(self) -> float:
+        return self._now
+
+
 class SelfHealingSession:
     """Fault-tolerant run loop around a join `ExecutorSession`, on the
     executor's device.  One response per fault class:
@@ -206,7 +231,24 @@ class SelfHealingSession:
     to the batch's wall time for every device, and a `ChaosInjector`
     supplies the faults deterministically (delays, dropped heartbeats,
     squeezed caps, corrupted rows) and the virtual clock the HealthMonitor
-    runs on, advanced `step_seconds` a batch."""
+    runs on, advanced `step_seconds` a batch.
+
+    Over a mesh of ranks (an executor made with `mesh=`) every rank builds
+    the session with the same arguments (the chaos schedule and its seed
+    too) and calls it in the same order, and every rank takes the same
+    decision in the same batch: the same retry, eviction, re-placement and
+    re-plan.  A decision reads only what is equal everywhere: the chaos
+    injector's virtual clock and delays, the counters and count matrices
+    the executor all-gathers, and the host's data (every rank holds the
+    same).  The two rank-local readings are agreed by one broadcast of rank
+    0's each time they are read: the batch's wall time (`timing_fn`'s
+    argument, which must then give the same times on every rank) and,
+    without a chaos injector, the HealthMonitor's clock (`time.monotonic`).
+    An evicted logical device keeps its place in the mesh and receives no
+    cell, and its rank still joins every collective; a rank's loss is the
+    eviction of its L devices in one re-fold (`evict_rank`).  Re-plans
+    build their executors over the same mesh, in the same order on every
+    rank, and so share its process group."""
 
     def __init__(self, executor: ShardedJoinExecutor,
                  retry: RetryPolicy | None = None,
@@ -218,11 +260,6 @@ class SelfHealingSession:
                  step_seconds: float = 1.0,
                  timing_fn: Callable[[float], np.ndarray] | None = None,
                  adapt: AdaptPolicy | None = None):
-        if executor.mesh is not None:
-            raise ValueError(
-                "SelfHealingSession runs its executor in one process; an "
-                "executor over a mesh of ranks is driven through its "
-                "ExecutorSession (run_with_retry, refold)")
         if adapt is not None and executor.plan is None:
             raise ValueError(
                 "SelfHealingSession(adapt=...): adaptation re-plans from the "
@@ -233,7 +270,11 @@ class SelfHealingSession:
         self.retry = retry or RetryPolicy()
         self.chaos = chaos
         n = executor.n_devices
-        clock = chaos.clock if chaos is not None else time.monotonic
+        # Over a mesh without chaos the monitor reads rank 0's clock.
+        self._mesh_clock = (_MeshClock(self) if chaos is None
+                            and executor.mesh is not None else None)
+        clock = (chaos.clock if chaos is not None
+                 else self._mesh_clock or time.monotonic)
         self.health = HealthMonitor(n, heartbeat_timeout_s,
                                     suspect_timeout_s, clock=clock)
         self.watchdog = StragglerWatchdog(n, threshold=straggler_threshold,
@@ -308,6 +349,8 @@ class SelfHealingSession:
         if self.chaos is not None:
             chunks = self.chaos.mangle(chunks)
         # Failures detected since the last batch (heartbeats aged out).
+        if self._mesh_clock is not None:
+            self._mesh_clock.agree()
         self._evict([d for d in self.health.failed_nodes()
                      if d in self.alive])
         if self.detector is not None:
@@ -323,6 +366,10 @@ class SelfHealingSession:
             if self.chaos is not None:
                 self.chaos.advance(self.step_seconds)
         wall = max(time.perf_counter() - t0, 1e-9)
+        if ex.mesh is not None:
+            wall, = _agreed(ex, [wall])
+            if self._mesh_clock is not None:
+                self._mesh_clock.agree()
         times = (self.timing_fn(wall) if self.timing_fn is not None
                  else np.full(ex.n_devices, wall))
         if self.chaos is not None:
@@ -344,11 +391,29 @@ class SelfHealingSession:
     def evict_device(self, device: int) -> None:
         """Evict one device by hand (an operator's drain, an outside
         detector)."""
-        if device not in self.alive:
-            raise DeviceLossError(
-                f"device {device} is not alive (alive={self.alive}, "
-                f"evicted={self.evicted})")
-        self._evict([device])
+        self.evict_devices([device])
+
+    def evict_devices(self, devices) -> None:
+        """Evict several devices by hand in one re-fold."""
+        for device in devices:
+            if device not in self.alive:
+                raise DeviceLossError(
+                    f"device {device} is not alive (alive={self.alive}, "
+                    f"evicted={self.evicted})")
+        self._evict(list(devices))
+
+    def evict_rank(self, rank: int) -> None:
+        """A rank's loss over a mesh: its L logical devices [rank·L,
+        (rank+1)·L) evicted in one re-fold, those already evicted left as
+        they are.  The rank keeps running and joins every collective; it
+        receives no cell."""
+        ex = self.executor
+        if ex.mesh is None:
+            raise ValueError("evict_rank needs an executor over a mesh")
+        if not 0 <= rank < ex.world:
+            raise ValueError(f"rank {rank} outside [0, {ex.world})")
+        lo = rank * ex.n_local
+        self._evict(list(range(lo, lo + ex.n_local)))
 
     def _evict(self, devices: list[int]) -> None:
         devices = [d for d in devices if d in self.alive]
@@ -509,7 +574,7 @@ class SelfHealingSession:
         ex2 = self._plan_cache.get(key)
         if ex2 is None:
             ex2 = ShardedJoinExecutor(new_plan, ex.n_devices, ex.config,
-                                      device=ex.device)
+                                      device=ex.device, mesh=ex.mesh)
             self._plan_cache[key] = ex2
         ses2 = ex2.session()
         # Prepare on the ORIGINAL prepared data, so the session shapes (the

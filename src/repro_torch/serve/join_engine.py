@@ -43,6 +43,18 @@ A request's valid rows are compacted on the executor's device before they
 are copied to the host, so only they cross PCIe, never the whole
 (n_dev·cap_out, w) output.
 
+Over a mesh of W ranks (`mesh=`, from `launch.mesh.make_join_mesh`, W
+dividing n_devices) every executor the engine builds runs over it, and
+every rank builds the engine with the same arguments and submits the same
+requests in the same order.  The pick, round robin, LRU evictions and
+per-tenant drift bank read only the requests' data and the counters the
+executors all-gather, so every rank takes the same decisions and every
+counter of `stats` is equal on every rank (`rows_out` sums the ranks'
+rows, one all_reduce a request).  A request's `rows` on a rank
+are its own L destinations' valid rows, compacted on its device; put
+together in rank order they are the one-process engine's `rows`, bit for
+bit (as `BatchResult`'s 'rows' and 'valid').
+
 Optional per-tenant adaptation: pass `adapt=AdaptPolicy(...)` and each
 tenant's executed batches feed its own `DriftDetector` in a
 `TenantDriftBank` (core/adapt.py); a drifted tenant gets an observed-load
@@ -58,11 +70,13 @@ from dataclasses import dataclass, field
 from typing import Mapping
 
 import numpy as np
+import torch
+import torch.distributed as dist
 
 from ..core.adapt import AdaptPolicy, TenantDriftBank
 from ..core.executor import (INVALID, BatchResult, ExecutorConfig,
                              ExecutorSession, RetryPolicy,
-                             ShardedJoinExecutor, _struct_key,
+                             ShardedJoinExecutor, _struct_key, mesh_device,
                              quantize_capacity, resolve_device)
 from ..core.placement import lpt_placement
 from ..core.plan import JoinQuery
@@ -92,6 +106,16 @@ def _valid_rows(res) -> np.ndarray:
         return res["rows"][res["valid"]]
     out, valid = res.tensors[:2]
     return out.reshape(-1, out.shape[-1])[valid.reshape(-1)].cpu().numpy()
+
+
+def _total_rows(ex: ShardedJoinExecutor, n: int) -> int:
+    """A request's valid rows over every rank of `ex`'s mesh (one
+    all_reduce), `n` in one process."""
+    if ex.mesh is None:
+        return n
+    t = torch.tensor([n], dtype=torch.int64, device=ex.device)
+    dist.all_reduce(t, group=ex.group)
+    return int(t.item())
 
 
 class ExecutableCache:
@@ -209,7 +233,10 @@ class JoinServingEngine:
     `step_round()` under external control).  One engine = n_devices
     logical servers on one device = one `ExecutorConfig`; `k` (the plans'
     logical cells) defaults to n_devices.  Runs on the card unless given
-    `device="cpu"`, and every executor it builds gets that device.  See the
+    `device="cpu"`, and every executor it builds gets that device.  With
+    `mesh=` the n_devices logical servers run over the mesh's W ranks (W
+    dividing n_devices; the device defaults to the rank's), and a request's
+    `rows` are the rank's own destinations' (module docstring).  See the
     module docstring for the architecture and `ExecutableCache` for what is
     shared between tenants."""
 
@@ -222,8 +249,17 @@ class JoinServingEngine:
                  max_sessions: int = 8,
                  max_executors: int = 4,
                  adapt: AdaptPolicy | None = None,
-                 *, device=None):
+                 *, device=None, mesh=None):
         self.n_devices, self.config = int(n_devices), config
+        self.mesh = mesh
+        if mesh is not None:
+            if self.n_devices % mesh.size():
+                raise ValueError(
+                    f"{mesh.size()} ranks do not divide n_devices="
+                    f"{self.n_devices}: each rank holds n_devices / W "
+                    f"logical devices")
+            if device is None:
+                device = mesh_device(mesh)
         self.device = resolve_device(device)
         self.retry = retry or RetryPolicy()
         self.k = int(k) if k is not None else self.n_devices
@@ -288,7 +324,7 @@ class JoinServingEngine:
         ex = self.cache.executor(
             t.struct_key,
             lambda: ShardedJoinExecutor(t.plan, self.n_devices, self.config,
-                                        device=self.device))
+                                        device=self.device, mesh=self.mesh))
 
         def prepare() -> ExecutorSession:
             # Pad each relation with INVALID rows up to the bucket: invalid
@@ -336,7 +372,7 @@ class JoinServingEngine:
         st["compiles"] += self.cache.compile_count() - c0
         st["rows_in"] += sum(len(req.data[r.name])
                              for r in req.query.relations)
-        st["rows_out"] += len(rows)
+        st["rows_out"] += _total_rows(ses.executor, len(rows))
         self.requests += 1
         if self.adapt is not None:
             self._observe(t, ses, req)

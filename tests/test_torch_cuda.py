@@ -2193,6 +2193,24 @@ def test_mesh_on_card_equals_one_process(dev, tmp_path, backend, world,
     mc.join_ranks(ctx, time.monotonic() + mc.DEADLINE_S)
 
 
+@pytest.mark.parametrize("backend,world", [("gloo", 2), ("nccl", 1)])
+def test_session_mesh_on_card_equals_one_process(dev, tmp_path, backend,
+                                                 world):
+    """The session cases of tests/test_torch_session_mesh.py (the chaos
+    schedule with a rank's devices evicted, the agreed clock, forced
+    adaptation, the pruned-combination re-plans, mixed_workload through a
+    JoinServingEngine) over W = 2 gloo ranks sharing cuda:0 and one NCCL
+    rank: the ranks' rows put together in rank order, and every counter,
+    equal to the one-process session's and engine's on the card."""
+    import time
+    import _torch_mesh_cases as mc
+    from repro_torch.kernels import _build
+    _build.lib()                  # built once, before the ranks load it
+    ctx = mc.spawn_ranks(mc.card_session_rank, world, backend,
+                         str(tmp_path / "store"))
+    mc.join_ranks(ctx, time.monotonic() + mc.DEADLINE_S)
+
+
 def test_make_join_mesh_refuses_two_nccl_ranks_on_one_card(dev, tmp_path):
     """Two NCCL ranks naming cuda:0 are refused on both (the rendezvous
     store sees one card twice), and rank 1's default card cuda:1 does not

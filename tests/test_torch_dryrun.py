@@ -14,6 +14,7 @@ from pathlib import Path
 
 import jax
 import jax.numpy as jnp
+import numpy as np
 import pytest
 import torch
 from torch._subclasses.fake_tensor import FakeTensorMode
@@ -24,7 +25,7 @@ from repro.models import api as japi
 from repro.models.common import map_layout as jmap_layout
 from repro_torch.configs import ARCHS, SHAPES, ShapeCell, input_specs
 from repro_torch.launch import dryrun, op_analysis
-from repro_torch.models import api
+from repro_torch.models import api, moe
 from repro_torch.optim import AdamWConfig, adamw
 from repro_torch.train import build_train_step
 from repro_torch.tree import flatten
@@ -169,3 +170,35 @@ def test_argument_bytes_equal_real_tensors(bits):
     want = sum(t.nbytes for t in [*model.parameters(), *flatten(opt).values(),
                                   *batch])
     assert got == want
+
+
+def test_run_cell_after_real_routing_equals_a_fresh_process():
+    """A process that routed a real reduced-mixtral batch on the CPU (the
+    uniform plan, shared by the whole process, then keeps real CPU tables)
+    and then traces mixtral's train_4k gets the record of a fresh process:
+    the kept real tables never reach the fake-tensor trace."""
+    cfg = ARCHS["mixtral-8x22b"].reduced()
+    model = api.init_model(cfg, torch.Generator().manual_seed(0),
+                           device="cpu", dtype=torch.float32)
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (2, 8)).astype(np.int32))
+    logits, _ = api.forward(model, cfg, {"tokens": tokens})
+    assert torch.isfinite(logits).all()
+    plan = moe.build_plan(ARCHS["mixtral-8x22b"])
+    assert plan is moe.build_plan(cfg)
+    assert torch.device("cpu") in plan._tables
+    got = dryrun.run_cell("mixtral-8x22b", "train_4k",
+                          cfg_overrides={"n_layers": 2})
+    assert got["status"] == "ok", got.get("traceback")
+    code = ("import json\n"
+            "from repro_torch.launch import dryrun\n"
+            "print(json.dumps(dryrun.run_cell('mixtral-8x22b', 'train_4k', "
+            "cfg_overrides={'n_layers': 2})))\n")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(ROOT / "src")] + [p for p in [os.environ.get("PYTHONPATH")]
+                               if p]))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, timeout=300, check=True)
+    fresh = json.loads(out.stdout.splitlines()[-1])
+    got.pop("trace_s"), fresh.pop("trace_s")
+    assert json.loads(json.dumps(got)) == fresh

@@ -137,11 +137,23 @@ def test_mesh_matches_jax(runs, world, name):
 
 @pytest.mark.parametrize("world", [w for w in mc.WORLDS if w > 1])
 def test_mesh_refuses_what_it_does_not_take(runs, world):
-    """W not dividing n_devices, and a SelfHealingSession over a mesh
-    executor, are refused on every rank."""
-    for r in runs[0][world]:
+    """W not dividing n_devices is refused on every rank, and a
+    SelfHealingSession over a mesh executor heals a batch whose caps were
+    squeezed to a quarter: its rows, put together in rank order, are the
+    exact join, with the same retries on every rank."""
+    ranks = runs[0][world]
+    for r in ranks:
         assert "do not divide n_devices" in r["refusals"]["indivisible"]
-        assert "mesh of ranks" in r["refusals"]["self_healing"]
+    healed = [r["refusals"]["self_healing"] for r in ranks]
+    assert healed[0]["retries"] >= 1
+    assert all(h["retries"] == healed[0]["retries"] for h in healed)
+    rows = np.concatenate([h["rows"] for h in healed])
+    valid = np.concatenate([h["valid"] for h in healed])
+    for h in healed:
+        assert h["shuffle_overflow"].sum() == h["join_overflow"].sum() == 0
+    q, data = mc.dataset("two_way")
+    np.testing.assert_array_equal(canonical(rows[valid]),
+                                  reference_join(q, data))
 
 
 def test_make_join_mesh_refuses_nccl_on_the_cpu(tmp_path):
