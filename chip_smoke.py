@@ -241,6 +241,18 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
          anew after each restore (3 captures, each one's time and pinned
          memory printed); prints the warm step median (the replays) and
          the final blocking save's wall time;
+     9m. the train step over a (data, model) mesh of ranks (`build_train_step
+         (mesh=)`), spawned after 9b, each rank against the one-process
+         eager step from the same seed-made parameters and batch
+         (`mesh_training`, MESH_TRAIN): "a" one NCCL rank on a (1, 1)
+         mesh, qwen2-0.5b at its full size, 3 steps of 8 x 512, losses,
+         grad_norm and every parameter bit for bit; "b" one gloo rank,
+         reduced mixtral-8x22b with 8-bit states, within rtol 1e-5,
+         expert_load equal, segment_histogram launched on the rank's rows
+         (counts zeroed just before the mesh steps, read just after) and
+         equal to its plain version there.  Prints each rank's resident,
+         peak and predicted memory (parameters, gradients and states over
+         the shards their placements give);
  10. the ssm, hybrid, encdec and vlm families at their published widths,
      after phase 9 (its memory freed), each through `api.prefill` /
      `api.decode_step`, a `ServingEngine` (eager on the plain versions
@@ -290,10 +302,11 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      11c. mamba2-370m x long_500k (B 1, ticks at positions 524,284-
          524,287), the same checks, its peak beside the prediction
          (printed, not gated);
- 12. one JSON line each of phases 3 / 3b / 3c, 3m, 6, 6e, 8, 9, 7, 10 and
-     11's numbers, one JSON line of per-kernel results (each with the path its
-     launches were counted on: segment_histogram's is phase 9a's, its
-     phase 7 count, host passes x layers, beside it as `serve_launches`),
+ 12. one JSON line each of phases 3 / 3b / 3c, 3m, 6, 6e, 8, 9, 9m, 7, 10
+     and 11's numbers, one JSON line of per-kernel results (each with the
+     path its launches were counted on: segment_histogram's is phase 9a's,
+     its phase 7 count, host passes x layers, beside it as
+     `serve_launches`, phase 9m's mesh ranks' as `mesh_train_launches`),
      then the last line {"ok": true, "device": {...}}.
 
 Exits non-zero without printing a result when no CUDA device is present or
@@ -449,6 +462,29 @@ BUCKET_KERNELS = ("bucket_count_kernel", "bucket_rank_kernel",
                   "scatter_fill_kernel")
 # Phase 7: mixtral-8x22b at its published widths, depth cut to 4 layers;
 # weights bf16 from a seeded generator on the card.
+# Phase 9m: the train step over a (data, model) mesh of ranks, spawned,
+# each run against the one-process eager step from the same seed-made
+# parameters and batch.  "a": one NCCL rank, a (1, 1) mesh: qwen2-0.5b at
+# its full size (9b's model, bf16), 8 x 512 tokens, 3 steps, bit for bit.
+# "b": reduced mixtral-8x22b in float32 with 8-bit states, 3 steps, at the
+# CPU tests' tolerance (rtol 1e-5 on loss, zloss, grad_norm; expert_load
+# equal), segment_histogram launched by each rank on its own rows.  "b"
+# runs on one gloo rank: over gloo, DTensor's collectives on CUDA tensors
+# (its functional all_gather, the first a step issues) end the rank with
+# SIGSEGV at two ranks on (1, 2), (2, 1) and (2, 2) (torch 2.11.0+cu128),
+# where gloo's own all_reduce, its max and all_gather_into_tensor on the
+# same tensors pass; NCCL takes one rank a card.  The (2, 2) mesh over
+# NCCL runs on four cards: scripts/mesh_train_cards.py.  A warmup of one
+# step, so steps 2 and 3 update.
+MESH_TRAIN = dict(
+    a=dict(arch="qwen2-0.5b", reduced=False, dtype="bfloat16", bits=32,
+           batch=8, seq=512, steps=3, lr=3e-3, shape=(1, 1),
+           backend="nccl", exact=True, one=True),
+    b=dict(arch="mixtral-8x22b", reduced=True, dtype="float32", bits=8,
+           batch=8, seq=64, steps=3, lr=1e-2, shape=(1, 1),
+           backend="gloo", exact=False, one=True))
+MESH_TRAIN_DEADLINE_S = 300
+MESH_TRAIN_RTOL = 1e-5
 MOE = dict(arch="mixtral-8x22b", n_layers=4, seed=0, prefill_batch=4,
            prefill_len=2048, prefill_reps=3, slots=8, max_seq=512,
            n_requests=24, prompt_len=(16, 128), new_tokens=(16, 64),
@@ -1567,12 +1603,13 @@ def arm_cell(dev, cell, arm: str, named: tuple[str, ...]):
 
 
 def mesh_rank(rank: int, world: int, backend: str, out_dir: str,
-              cap_out: int, rows, valid) -> None:
+              cap_out: int, shared: dict) -> None:
     """One rank of phase 3m (a spawned process): phase 3's plan and data
     (pickled in `out_dir`) over a mesh of `world` ranks on `backend` (gloo
-    ranks share card 0), fused + hash.  `rows` and `valid` are phase 3's
-    outputs, shared from the parent through CUDA IPC: this rank's
-    destinations' must equal its own, bit for bit.  Writes what it
+    ranks share card 0), fused + hash.  `shared` holds phase 3's outputs
+    `rows` and `valid`, shared from the parent through CUDA IPC: this
+    rank's destinations' must equal its own, bit for bit; the rank empties
+    it when it is done, which releases its hold on them.  Writes what it
     measured to rank<r>.json in `out_dir`."""
     import pickle
 
@@ -1618,8 +1655,8 @@ def mesh_rank(rank: int, world: int, backend: str, out_dir: str,
               f"{res['join_overflow'].tolist()}")
         per = n_dev // world
         mine = slice(rank * per, (rank + 1) * per)
-        check(torch.equal(res.tensors[0], rows[mine])
-              and torch.equal(res.tensors[1], valid[mine]),
+        check(torch.equal(res.tensors[0], shared["rows"][mine])
+              and torch.equal(res.tensors[1], shared["valid"][mine]),
               f"{label}: rows differ from phase 3's for destinations "
               f"{mine.start}..{mine.stop - 1}")
         n_valid = int(res.tensors[1].sum())
@@ -1682,6 +1719,7 @@ def mesh_rank(rank: int, world: int, backend: str, out_dir: str,
                    launches=launches)
         (Path(out_dir) / f"rank{rank}.json").write_text(json.dumps(got))
     finally:
+        shared.clear()
         dist.destroy_process_group()
 
 
@@ -1695,7 +1733,12 @@ def mesh_cell(cell) -> dict:
     import torch.multiprocessing as mp
 
     runs = {}
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
     for backend, world in MESH_RUNS:
+        # The ranks' hold on phase 3's rows and flags (CUDA IPC) ends when
+        # each rank empties its copy of this dict and this one is emptied.
+        shared = {"rows": cell["rows"], "valid": cell["valid"]}
         with tempfile.TemporaryDirectory() as tmp:
             t0 = time.perf_counter()
             # Through a file: a start's arguments travel on a pipe that
@@ -1705,7 +1748,7 @@ def mesh_cell(cell) -> dict:
                 pickle.dump((cell["plan"], cell["data"]), f)
             ctx = mp.start_processes(
                 mesh_rank, args=(world, backend, tmp, cell["cap_out"],
-                                 cell["rows"], cell["valid"]),
+                                 shared),
                 nprocs=world, join=False, start_method="spawn")
             deadline = time.monotonic() + MESH_DEADLINE_S
             try:
@@ -1717,6 +1760,9 @@ def mesh_cell(cell) -> dict:
                     if p.is_alive():
                         p.kill()
                         p.join()
+                del ctx
+                shared.clear()
+                gc.collect()
                 torch.cuda.ipc_collect()
             ranks = [json.loads((Path(tmp) / f"rank{r}.json").read_text())
                      for r in range(world)]
@@ -1743,6 +1789,12 @@ def mesh_cell(cell) -> dict:
               f"rows, no new step at the second batch; {wall:.1f} s with "
               f"the spawn")
         runs[f"{backend}_w{world}"] = dict(ranks=ranks, wall_s=wall)
+    torch.cuda.synchronize()
+    left = torch.cuda.memory_allocated()
+    print(f"[mesh] allocated {held / 1e9:.2f} GB before the phase (phase "
+          f"3's rows and flags among them), {left / 1e9:.2f} GB after it")
+    check(left <= held + (1 << 28), f"3m: {(left - held) / 1e9:.2f} GB "
+          f"still held after the phase")
     return runs
 
 
@@ -3614,6 +3666,234 @@ def train_driver(dev):
                 capture_step_ms=cap_ms, graph=watch.seen)
 
 
+def mesh_train_rank(rank: int, world: int, run: str, spec: dict,
+                    out_dir: str) -> None:
+    """One rank of phase 9m (a spawned process): `spec` (MESH_TRAIN's
+    form), the one-process eager step first where `spec["one"]`, then the
+    mesh step from the same seed-made parameters and batch; its metrics,
+    launches and parameters held to the one-process run's, its memory
+    beside the prediction.  Writes rank<r>.json."""
+    import torch.distributed as dist
+    from repro_torch.configs import get
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_lm_mesh
+    from repro_torch.models import api
+    from repro_torch.models.common import to_local
+    from repro_torch.optim import AdamWConfig, adamw
+    from repro_torch.train import build_train_step
+    from repro_torch.tree import flatten
+
+    label = f"9m{run} {spec['backend']} rank {rank} of {world}"
+    t0 = time.perf_counter()
+    mesh = make_lm_mesh(spec["shape"], backend=spec["backend"],
+                        device="cuda:0" if spec["backend"] == "gloo"
+                        else None, init_method=f"file://{out_dir}/store",
+                        rank=rank, world_size=world, timeout_s=300)
+    t_mesh = time.perf_counter() - t0
+    try:
+        dev = torch.device("cuda", torch.cuda.current_device())
+        cfg = get(spec["arch"])
+        cfg = cfg.reduced() if spec["reduced"] else cfg
+        dtype = getattr(torch, spec["dtype"])
+        ocfg = AdamWConfig(lr=spec["lr"], state_bits=spec["bits"])
+        kw = dict(total_steps=10, warmup_steps=1)
+        rng = np.random.default_rng(0)
+        batch = {k: rng.integers(0, cfg.vocab, (spec["batch"], spec["seq"])
+                                 ).astype(np.int32)
+                 for k in ("tokens", "labels")}
+
+        def steps(fns, model, opt):
+            out = []
+            for _ in range(spec["steps"]):
+                _, _, m = fns.step(model, opt, batch)
+                out.append({k: v.detach().cpu() for k, v in m.items()})
+            torch.cuda.synchronize()
+            return out
+
+        def held():
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            return torch.cuda.memory_allocated()
+
+        # The one-process eager step (the reference).
+        want, one_s, one_peak = [], 0.0, 0
+        if spec["one"]:
+            base = held()
+            one = build_train_step(cfg, ocfg, device=dev, **kw)
+            model1 = api.init_model(
+                cfg, torch.Generator(device=dev).manual_seed(0), device=dev,
+                dtype=dtype)
+            model1.use_kernels = False
+            opt1 = adamw.init(model1.tree(), ocfg)
+            t0 = time.perf_counter()
+            want = steps(one, model1, opt1)
+            one_s = time.perf_counter() - t0
+            one_peak = torch.cuda.max_memory_allocated() - base
+        # Params, grads and states of each leaf over the shards its
+        # placements give: the prediction of the mesh's persistent bytes.
+        fns = build_train_step(cfg, ocfg, mesh=mesh, **kw)
+        flat_pl = flatten(fns.param_placements)
+        flat_opt = flatten(adamw.init(fns.params_abstract, ocfg)["mu"])
+        predicted = 0
+        for key, p in flatten(fns.params_abstract).items():
+            shards = int(np.prod([n for pl, n in zip(flat_pl[key], mesh.shape)
+                                  if pl.is_shard()]))
+            states = sum(t.numel() * t.element_size()
+                         for k, t in flat_opt.items()
+                         if k.rsplit("/", 1)[0] == key)
+            predicted += (2 * p.numel() * dtype.itemsize + states) / shards
+
+        # The mesh step: counts zeroed just before it, read just after.
+        base = held()
+        model = api.init_model(cfg, torch.Generator(device=dev).manual_seed(0),
+                               device=dev, dtype=dtype,
+                               placements=fns.param_placements, mesh=mesh)
+        opt = adamw.init(model.tree(), ocfg)
+        resident = torch.cuda.memory_allocated() - base
+        seen = []
+        kernel = ops.segment_histogram
+
+        def watched(values, n_bins, use_kernels=True):
+            out = kernel(values, n_bins, use_kernels=use_kernels)
+            if use_kernels and not seen:
+                seen.append((values.clone(), out.clone()))
+            return out
+
+        ops.segment_histogram = watched
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        try:
+            got = steps(fns, model, opt)
+        finally:
+            ops.segment_histogram = kernel
+        mesh_s = time.perf_counter() - t0
+        launches = dict(ops.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated() - base
+
+        for i, (g, w) in enumerate(zip(got, want)):
+            check(set(g) == set(w), f"{label}: metrics {sorted(g)}")
+            for k in ("loss", "zloss", "grad_norm", "lr_scale"):
+                if spec["exact"]:
+                    check(torch.equal(g[k], w[k]), f"{label}: step {i} {k} "
+                          f"{float(g[k])!r} != one process {float(w[k])!r}")
+                else:
+                    check(abs(float(g[k]) - float(w[k]))
+                          <= MESH_TRAIN_RTOL * abs(float(w[k])) + 1e-7,
+                          f"{label}: step {i} {k} {float(g[k])!r} vs one "
+                          f"process {float(w[k])!r}")
+            if "expert_load" in w:
+                check(torch.equal(g["expert_load"], w["expert_load"])
+                      and int(g["expert_load"].sum()) == spec["batch"]
+                      * spec["seq"] * cfg.topk * cfg.n_layers,
+                      f"{label}: step {i} expert_load {g['expert_load']} vs "
+                      f"{w['expert_load']}")
+        check(all(np.isfinite(float(m["loss"])) for m in got),
+              f"{label}: a loss is not finite")
+        if spec["exact"] and spec["one"]:
+            for key, t in flatten(model.tree()).items():
+                check(torch.equal(to_local(t), flatten(model1.tree())[key]),
+                      f"{label}: parameter {key} differs from the "
+                      f"one-process step's")
+        if cfg.family == "moe":
+            want_n = spec["steps"] * cfg.n_layers * (
+                2 if cfg.remat == "full" else 1)
+            check(launches["segment_histogram"] == want_n and seen,
+                  f"{label}: segment_histogram launched "
+                  f"{launches['segment_histogram']} times, not {want_n}")
+            values, out = seen[0]
+            check(values.numel() == spec["batch"] // mesh.shape[0]
+                  * spec["seq"] * cfg.topk,
+                  f"{label}: the kernel saw {values.numel()} routed copies, "
+                  f"not this rank's rows'")
+            check(torch.equal(out, ops.segment_histogram(
+                values, cfg.n_experts, use_kernels=False)),
+                  f"{label}: segment_histogram differs from its plain "
+                  f"version on the rank's rows")
+        result = dict(
+            rank=rank, world=world, backend=dist.get_backend(),
+            device=str(dev), mesh_s=t_mesh,
+            coordinate=list(mesh.get_coordinate()),
+            losses=[float(m["loss"]) for m in got],
+            one_losses=[float(m["loss"]) for m in want],
+            grad_norms=[float(m["grad_norm"]) for m in got],
+            one_grad_norms=[float(m["grad_norm"]) for m in want],
+            launches=launches["segment_histogram"], mesh_step_s=mesh_s,
+            one_step_s=one_s, resident_gb=resident / 1e9,
+            predicted_gb=predicted / 1e9, peak_gb=peak / 1e9,
+            one_peak_gb=one_peak / 1e9)
+        (Path(out_dir) / f"rank{rank}.json").write_text(json.dumps(result))
+    finally:
+        dist.destroy_process_group()
+
+
+def mesh_training(card: str, runs: dict = MESH_TRAIN) -> dict:
+    """Phase 9m: the LM train step over a (data, model) mesh of ranks, each
+    run of `runs` (MESH_TRAIN: "a", one NCCL rank, and "b", one gloo rank
+    on the card) spawned and joined with a deadline, every rank checked
+    against the one-process step (`mesh_train_rank`).  An NCCL rank r runs
+    on card r."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    torch.cuda.synchronize()
+    print(f"[mesh-train] {torch.cuda.memory_allocated() / 1e9:.2f} GB "
+          f"allocated before the ranks start")
+    out = {"launches": []}
+    for run, spec in runs.items():
+        world = int(np.prod(spec["shape"]))
+        with tempfile.TemporaryDirectory() as tmp:
+            t0 = time.perf_counter()
+            ctx = mp.start_processes(mesh_train_rank,
+                                     args=(world, run, spec, tmp),
+                                     nprocs=world, join=False,
+                                     start_method="spawn")
+            deadline = time.monotonic() + MESH_TRAIN_DEADLINE_S
+            try:
+                while not ctx.join(timeout=5):
+                    check(time.monotonic() < deadline, f"9m{run}: ranks "
+                          f"still running at the deadline")
+            finally:
+                for p in ctx.processes:
+                    if p.is_alive():
+                        p.kill()
+                        p.join()
+            ranks = [json.loads((Path(tmp) / f"rank{r}.json").read_text())
+                     for r in range(world)]
+            wall = time.perf_counter() - t0
+        name = f"{spec['arch']}{' reduced' if spec['reduced'] else ''}"
+        for r in ranks:
+            print(f"[mesh-train] {card}: 9m{run} {name} {spec['backend']} "
+                  f"rank {r['rank']} of {world} at {tuple(r['coordinate'])} "
+                  f"of {spec['shape']}: losses {r['losses']} (one process "
+                  f"{r['one_losses']}), grad_norm {r['grad_norms']}; "
+                  f"{spec['steps']} mesh steps {r['mesh_step_s']:.2f} s "
+                  f"(eager; one process {r['one_step_s']:.2f} s); "
+                  f"segment_histogram launches {r['launches']}; memory: "
+                  f"params + states resident {r['resident_gb']:.4f} GB, "
+                  f"peak {r['peak_gb']:.4f} GB over the rank's start, "
+                  f"predicted params + grads + states "
+                  f"{r['predicted_gb']:.4f} GB (the one-process step's "
+                  f"peak {r['one_peak_gb']:.4f} GB)")
+        if not spec["one"]:
+            held = "no one-process reference (it does not fit one card)"
+        elif spec["exact"]:
+            held = ("every rank's losses, grad_norm, lr_scale and "
+                    "parameters bit for bit the one-process step's")
+        else:
+            held = (f"every rank's losses, grad_norm and lr_scale within "
+                    f"rtol {MESH_TRAIN_RTOL} of the one-process step's, "
+                    f"expert_load equal")
+        print(f"[mesh-train] 9m{run}: {held}; every loss finite; "
+              f"{wall:.1f} s with the spawn")
+        if spec["arch"] == "mixtral-8x22b":
+            out["launches"] += [r["launches"] for r in ranks]
+        out[run] = dict(wall_s=wall, arch=spec["arch"],
+                        shape=list(spec["shape"]), backend=spec["backend"],
+                        ranks=ranks)
+    return out
+
+
 def family_cell(dev, spec) -> dict:
     """Phase 10's cell `spec`: serve (prefill, decode, and a
     `ServingEngine` eager on the plain versions and on its CUDA graph) and
@@ -4130,6 +4410,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     moderate_checks(dev)
     del cell
+    gc.collect()
+    torch.cuda.ipc_collect()
     torch.cuda.empty_cache()
     print(f"[moe] join phases freed: {torch.cuda.memory_allocated() / 1e9:.2f}"
           f" GB still allocated")
@@ -4149,6 +4431,12 @@ def main() -> int:
     path_launches[MOE_TRAIN] = train["launches"]
     driver = train_driver(dev)
     print(f"[train] phase 9 took {time.perf_counter() - t9:.1f} s")
+    gc.collect()
+    torch.cuda.ipc_collect()
+    torch.cuda.empty_cache()
+    t9m = time.perf_counter()
+    mesh_train = mesh_training(card)
+    print(f"[mesh-train] phase 9m took {time.perf_counter() - t9m:.1f} s")
     gc.collect()
     torch.cuda.empty_cache()
     print(f"[family] training phases freed: "
@@ -4182,6 +4470,8 @@ def main() -> int:
                             **results[name]))
         if path == MOE_TRAIN:
             kernels[-1]["serve_launches"] = serve["launches"][name]
+            # Phase 9m's mesh step: each rank's launches on its rows.
+            kernels[-1]["mesh_train_launches"] = mesh_train["launches"]
     check(all(kn["launches"] > 0 for kn in kernels), "a kernel never launched")
     print(f"[done] all phases passed in {t_end - t_start:.1f} s (phases 7, "
           f"9, 10 and 11 {t_end - t7:.1f} s)")
@@ -4193,6 +4483,7 @@ def main() -> int:
     print(json.dumps({"join_serving": serving}))
     print(json.dumps({"training": {"moe_train": {
         k: v for k, v in train.items() if k != "launches"}, "driver": driver}}))
+    print(json.dumps({"mesh_training": mesh_train}))
     print(json.dumps({"moe_serve": serve["summary"]}))
     print(json.dumps({"lm_families": families}))
     print(json.dumps({"dryrun": shapes}))

@@ -29,8 +29,16 @@ shards in the map, destinations in the reduce) and the all-to-all exchange
 is a transpose.  Entry points run on the card unless the caller passes
 `device="cpu"`; there is no silent CPU fallback.
 """
-from . import (ckpt, configs, core, data, ft, kernels, models, optim, serve,
-               train)
+import importlib
 
 __all__ = ["ckpt", "configs", "core", "data", "ft", "kernels", "models",
            "optim", "serve", "train"]
+
+
+def __getattr__(name: str):
+    """Each subpackage is imported at its first use, so that a process
+    that runs the join (a spawned rank) does not pay for the LM's imports
+    (torch.distributed.tensor among them)."""
+    if name in __all__:
+        return importlib.import_module(f".{name}", __name__)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

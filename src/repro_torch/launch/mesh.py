@@ -1,4 +1,4 @@
-"""The join mesh: a 1-D `torch.distributed` DeviceMesh of ranks.
+"""The meshes of ranks: the join's 1-D mesh and the LM's (data, model) mesh.
 
 `ShardedJoinExecutor(plan, n_devices, ..., mesh=make_join_mesh(...))` runs
 the executor's n_devices logical devices over the mesh's W ranks, the
@@ -11,6 +11,13 @@ its backend NCCL; two NCCL ranks never share a card (refused before any
 collective).  gloo is taken only when the caller names it: on the CPU, or
 for ranks that share one card.  No backend or device is switched quietly.
 
+`make_lm_mesh(shape)` is the counterpart of the reference's
+`make_test_mesh` / `make_mesh_compat` for the LM scaffold: a 2-D mesh
+("data", "model") over the same process-group set-up (`init_ranks`), rank
+r at position (r // model, r % model), the reference's device order.  The
+train step lays the parameters, optimizer states and batch out over it
+through the sharding rules (`models.common`).
+
 Launch on several cards with torchrun, which sets RANK, WORLD_SIZE,
 LOCAL_RANK, MASTER_ADDR and MASTER_PORT:
 
@@ -22,6 +29,7 @@ and `world_size` yourself.
 from __future__ import annotations
 
 import datetime
+import math
 import os
 import socket
 
@@ -42,14 +50,14 @@ AXIS = "cells"
 BACKENDS = ("nccl", "gloo")
 
 
-def _setting(value, name: str, default=None):
+def _setting(value, name: str, who: str, default=None):
     if value is not None:
         return int(value)
     if name in os.environ:
         return int(os.environ[name])
     if default is None:
         raise ExecutorError(
-            f"make_join_mesh: no {name.lower()} given and ${name} unset "
+            f"{who}: no {name.lower()} given and ${name} unset "
             f"(launch with torchrun, or pass init_method, rank and "
             f"world_size)")
     return default
@@ -63,7 +71,7 @@ def _card_id(device: torch.device) -> str:
 
 
 def _refuse_shared_cards(store, rank: int, world_size: int,
-                         device: torch.device, timeout) -> None:
+                         device: torch.device, timeout, who: str) -> None:
     """Every NCCL rank posts its card to the rendezvous store before the
     process group exists; a card posted twice is refused on every rank."""
     keys = dist.PrefixStore("join_mesh/card", store)
@@ -74,17 +82,17 @@ def _refuse_shared_cards(store, rank: int, world_size: int,
     mine = [r for r, card in enumerate(cards) if card == cards[rank]]
     if len(mine) > 1:
         raise ExecutorError(
-            f"make_join_mesh: NCCL ranks {mine} would share the card "
+            f"{who}: NCCL ranks {mine} would share the card "
             f"{cards[rank]}; NCCL takes one rank a card (name "
             f"backend='gloo' for ranks that share one)")
 
 
-def make_join_mesh(backend: str | None = None, *, device=None,
-                   init_method: str | None = None, rank: int | None = None,
-                   world_size: int | None = None,
-                   timeout_s: float = 300.0):
-    """Initialise the default process group and return a 1-D DeviceMesh
-    over all its ranks, the dimension named "cells".
+def init_ranks(backend: str | None = None, *, device=None,
+               init_method: str | None = None, rank: int | None = None,
+               world_size: int | None = None, timeout_s: float = 300.0,
+               who: str = "init_ranks") -> tuple[torch.device, int]:
+    """Initialise the default process group; returns (this rank's device,
+    the world size).
 
     `rank` and `world_size` default to torchrun's RANK and WORLD_SIZE,
     `init_method` to `env://`.  `device` defaults to `cuda:LOCAL_RANK`
@@ -92,37 +100,38 @@ def make_join_mesh(backend: str | None = None, *, device=None,
     raises without a card; `backend` defaults to NCCL on the card, and
     must be named (`"gloo"`) on the CPU.  Refused: NCCL on the CPU, NCCL
     ranks sharing a card, a default group that exists already.  Every
-    collective of the group waits at most `timeout_s`."""
-    rank = _setting(rank, "RANK")
-    world_size = _setting(world_size, "WORLD_SIZE")
-    local_rank = _setting(None, "LOCAL_RANK", rank)
+    collective of the group waits at most `timeout_s`.  `who` names the
+    caller in the refusals."""
+    rank = _setting(rank, "RANK", who)
+    world_size = _setting(world_size, "WORLD_SIZE", who)
+    local_rank = _setting(None, "LOCAL_RANK", who, rank)
     dev = resolve_device("cuda" if device is None else device)
     if dev.type == "meta":
-        raise ExecutorError("make_join_mesh: a rank needs a real device")
+        raise ExecutorError(f"{who}: a rank needs a real device")
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", local_rank)
     if backend is None:
         if dev.type != "cuda":
             raise ExecutorError(
-                f"make_join_mesh: no backend named for a rank on {dev}; "
+                f"{who}: no backend named for a rank on {dev}; "
                 f"name backend='gloo' (NCCL needs a card)")
         backend = "nccl"
     if backend not in BACKENDS:
-        raise ExecutorError(f"make_join_mesh: backend {backend!r} is not "
+        raise ExecutorError(f"{who}: backend {backend!r} is not "
                             f"one of {BACKENDS}")
     if backend == "nccl":
         if dev.type != "cuda":
             raise ExecutorError(
-                f"make_join_mesh: NCCL runs on the card, not on {dev}; "
+                f"{who}: NCCL runs on the card, not on {dev}; "
                 f"name backend='gloo' for ranks on the CPU")
         if dev.index >= torch.cuda.device_count():
             raise ExecutorError(
-                f"make_join_mesh: rank {rank}'s card cuda:{dev.index} does "
+                f"{who}: rank {rank}'s card cuda:{dev.index} does "
                 f"not exist ({torch.cuda.device_count()} cards): NCCL ranks "
                 f"would share a card (one rank a card, or name "
                 f"backend='gloo')")
     if dist.is_initialized():
-        raise ExecutorError("make_join_mesh: the default process group "
+        raise ExecutorError(f"{who}: the default process group "
                             "exists already")
     if dev.type == "cuda":
         torch.cuda.set_device(dev)
@@ -131,8 +140,58 @@ def make_join_mesh(backend: str | None = None, *, device=None,
         init_method or "env://", rank, world_size, timeout=timeout))
     store.set_timeout(timeout)
     if backend == "nccl":
-        _refuse_shared_cards(store, rank, world_size, dev, timeout)
+        _refuse_shared_cards(store, rank, world_size, dev, timeout, who)
     dist.init_process_group(backend, store=store, rank=rank,
                             world_size=world_size, timeout=timeout)
+    return dev, world_size
+
+
+def make_join_mesh(backend: str | None = None, *, device=None,
+                   init_method: str | None = None, rank: int | None = None,
+                   world_size: int | None = None,
+                   timeout_s: float = 300.0):
+    """Initialise the default process group (`init_ranks`, its arguments
+    and refusals) and return a 1-D DeviceMesh over all its ranks, the
+    dimension named "cells"."""
+    dev, world_size = init_ranks(backend, device=device,
+                                 init_method=init_method, rank=rank,
+                                 world_size=world_size, timeout_s=timeout_s,
+                                 who="make_join_mesh")
     from torch.distributed.device_mesh import init_device_mesh
     return init_device_mesh(dev.type, (world_size,), mesh_dim_names=(AXIS,))
+
+
+LM_AXES = ("data", "model")
+
+
+def make_lm_mesh(shape: tuple[int, int], backend: str | None = None, *,
+                 device=None, init_method: str | None = None,
+                 rank: int | None = None, world_size: int | None = None,
+                 timeout_s: float = 300.0):
+    """Initialise the default process group (`init_ranks`, its arguments
+    and refusals) and return a DeviceMesh of `shape` over its ranks, named
+    LM_AXES, rank r at position (r // model, r % model).  The product of
+    `shape` must be the world size."""
+    dev, world_size = init_ranks(backend, device=device,
+                                 init_method=init_method, rank=rank,
+                                 world_size=world_size, timeout_s=timeout_s,
+                                 who="make_lm_mesh")
+    shape = tuple(shape)
+    if math.prod(shape) != world_size or len(shape) != len(LM_AXES):
+        dist.destroy_process_group()
+        raise ExecutorError(
+            f"make_lm_mesh: a mesh of shape {shape} over axes {LM_AXES} "
+            f"does not hold the {world_size} ranks")
+    return lm_mesh(dev.type, shape)
+
+
+def lm_mesh(device_type: str, shape: tuple[int, int], ranks=None):
+    """A DeviceMesh of `shape` over `ranks` (default: every rank of the
+    default group, in order), laid out row-major and named LM_AXES.
+    Every rank of the default group must call it (each builds the
+    sub-groups); a rank outside `ranks` gets no coordinate."""
+    from torch.distributed.device_mesh import DeviceMesh
+    ids = (torch.arange(math.prod(shape)) if ranks is None
+           else torch.as_tensor(ranks))
+    return DeviceMesh(device_type, ids.reshape(shape),
+                      mesh_dim_names=LM_AXES)

@@ -14,6 +14,18 @@ Example (CPU, reduced config):
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-0.5b \\
       --reduced --device cpu --steps 20 --batch 8 --seq 64
 Without --device it runs on the card and refuses to start without one.
+
+Over a mesh of ranks (`--mesh DATAxMODEL`, the reference's pjit training
+on its device mesh), launched with torchrun, one rank a card:
+  torchrun --nproc-per-node 4 -m repro_torch.launch.train --arch \\
+      qwen2-0.5b --reduced --mesh 2x2 --steps 20 --fail-at-step 6
+or on the CPU with gloo ranks (`--device cpu --backend gloo`).  Each rank
+builds the same global batch and the step keeps its rows; the
+parameters, states and batch are laid out by the sharding rules.  At
+--fail-at-step DP row 0 fails: every rank takes part in building the
+survivors' mesh, a rank outside it leaves, and the others restore the
+latest checkpoint in the new mesh's placements and go on (the reference's
+lines 111-131).  The logs are those of the rank at the mesh's origin.
 """
 from __future__ import annotations
 
@@ -82,7 +94,16 @@ def main(argv: list[str] | None = None) -> None:
     p.add_argument("--device", default="cuda",
                    help="cuda (default; refuses to start without a card) "
                         "or cpu")
+    p.add_argument("--mesh", default=None, metavar="DATAxMODEL",
+                   help="train over a (data, model) mesh of ranks "
+                        "(launch with torchrun)")
+    p.add_argument("--backend", default=None, choices=("nccl", "gloo"),
+                   help="the mesh's backend: NCCL on cards by default; "
+                        "gloo must be named (the CPU, ranks sharing a card)")
     args = p.parse_args(argv)
+    if args.mesh is not None:
+        main_over_mesh(args)
+        return
 
     dev = resolve_device(args.device)
     cfg = get(args.arch)
@@ -170,6 +191,104 @@ def main(argv: list[str] | None = None) -> None:
     ckptr.save(args.steps, {"params": model.tree(), "opt": opt}, blocking=True)
     print(f"[ckpt] final save (blocking) {time.time() - t0:.2f} s")
     print("done; final checkpoint at", args.steps)
+
+
+def main_over_mesh(args) -> None:
+    """`main` over a DeviceMesh of ranks (`--mesh`)."""
+    import torch.distributed as dist
+
+    from .mesh import make_lm_mesh
+    shape = tuple(int(n) for n in args.mesh.lower().split("x"))
+    mesh = make_lm_mesh(shape, backend=args.backend,
+                        device="cpu" if args.device == "cpu" else None)
+    try:
+        _train_over_mesh(args, mesh)
+    finally:
+        dist.destroy_process_group()
+
+
+def _train_over_mesh(args, mesh) -> None:
+    cfg = get(args.arch)
+    if args.reduced:
+        cfg = cfg.reduced()
+    cfg = dataclasses.replace(cfg, remat="none" if args.reduced else cfg.remat)
+    opt_cfg = AdamWConfig(lr=args.lr, state_bits=args.opt_bits)
+
+    def build(mesh):
+        return build_train_step(cfg, opt_cfg=opt_cfg, n_micro=args.n_micro,
+                                mesh=mesh)
+
+    def log(*a):
+        if all(c == 0 for c in mesh.get_coordinate()):
+            print(*a, flush=True)
+
+    fns = build(mesh)
+    dev = fns.device
+    world = mesh.mesh.numel()
+    log(f"arch={cfg.name} params={count_params(fns.layout)/1e6:.1f}M "
+        f"mesh={dict(zip(mesh.mesh_dim_names, mesh.shape))}")
+    ckptr = Checkpointer(args.ckpt_dir)
+    pipe = TokenPipeline(PipelineConfig(cfg.vocab, args.seq, args.batch))
+    rng = np.random.default_rng(0)
+    watchdog = StragglerWatchdog(n_nodes=world)
+    health = HealthMonitor(n_nodes=world)
+
+    def restore(step):
+        state = ckptr.restore(
+            step, {"params": fns.params_abstract, "opt": fns.opt_abstract},
+            placements={"params": fns.param_placements,
+                        "opt": fns.opt_placements}, mesh=mesh)
+        return api.build(cfg, state["params"]), state["opt"]
+
+    start = 0
+    if args.resume and ckptr.latest_step() is not None:
+        start = ckptr.latest_step()
+        model, opt = restore(start)
+        log(f"resumed from step {start}")
+    else:
+        gen = torch.Generator(device=dev).manual_seed(0)
+        model = api.init_model(cfg, gen, device=dev,
+                               placements=fns.param_placements, mesh=mesh)
+        opt = adamw.init(model.tree(), opt_cfg)
+
+    for step in range(start, args.steps):
+        if args.fail_at_step is not None and step == args.fail_at_step:
+            log(f"[FT] injecting node failure at step {step}")
+            health.inject_failure(0)
+            last = ckptr.latest_step()
+            if last is None:
+                ckptr.save(step, {"params": model.tree(), "opt": opt})
+                last = step
+            new_mesh = survivors_mesh(mesh, failed_dp_rows=[0])
+            log(f"[FT] re-meshing {dict(zip(mesh.mesh_dim_names, mesh.shape))}"
+                f" -> {dict(zip(new_mesh.mesh_dim_names, new_mesh.shape))}"
+                f", restoring step {last}")
+            del model, opt
+            mesh = new_mesh
+            if mesh.get_coordinate() is None:
+                print(f"[FT] rank {torch.distributed.get_rank()} is not in "
+                      f"the survivors' mesh: it leaves", flush=True)
+                return
+            fns = build(mesh)
+            model, opt = restore(last)
+            args.fail_at_step = None
+
+        t0 = time.time()
+        batch = make_batch(cfg, pipe, step, rng, dev)
+        model, opt, metrics = fns.step(model, opt, batch)
+        loss = float(metrics["loss"])
+        dt = time.time() - t0
+        watchdog.record_step(np.full(watchdog.n_nodes, dt))
+        for n in health.healthy_nodes():
+            health.heartbeat(n)
+        if step % args.log_every == 0 or step == args.steps - 1:
+            log(f"step {step:5d}  loss {loss:.4f}  "
+                f"gnorm {float(metrics['grad_norm']):.3f}  "
+                f"opt_step {int(opt['step'].to_local())}  {dt*1000:.0f}ms")
+        if step > start and step % args.ckpt_every == 0:
+            ckptr.save(step, {"params": model.tree(), "opt": opt})
+    ckptr.save(args.steps, {"params": model.tree(), "opt": opt})
+    log("done; final checkpoint at", args.steps)
 
 
 if __name__ == "__main__":

@@ -9,15 +9,21 @@ and serve code never branch on family:
   batch["vision_emb"]  (B, T_vis, d_vis) bf16 — vlm   (stub frontend)
 
 forward(...) -> (logits, aux) where aux = {} or MoE stats (aux_loss enters the
-training loss; expert_load feeds the SkewShares re-planner).
+training loss; expert_load feeds the SkewShares re-planner).  Over a mesh
+`forward` takes a `common.ShardCtx` (`shd`) and the dense, MoE and SSM
+families run on the model's DTensors, plain tensors among them (positions,
+masks) taken as replicated; the hybrid, enc-dec and VLM families are not
+trained over a mesh yet and refuse one.
 """
 from __future__ import annotations
 
+from contextlib import nullcontext
 from typing import Any
 
 import torch
+from torch.distributed.tensor.experimental import implicit_replication
 
-from .common import Layout, init_params
+from .common import NO_SHARD, Layout, ShardCtx, init_params
 from . import encdec, hybrid, moe, ssm, transformer, vlm
 
 _FAMILIES = {
@@ -44,11 +50,15 @@ def build(cfg, tensors: dict):
 
 
 def init_model(cfg, generator: torch.Generator, *, device=None,
-               dtype: torch.dtype = torch.bfloat16):
+               dtype: torch.dtype = torch.bfloat16, placements=None,
+               mesh=None):
     """A model with random parameters from `generator` (see
-    common.init_params), on the card unless the caller asks for the CPU."""
+    common.init_params), on the card unless the caller asks for the CPU;
+    over a `mesh`, DTensors of `placements` (a train step's
+    `param_placements`)."""
     return build(cfg, init_params(layout(cfg), generator, device=device,
-                                  dtype=dtype))
+                                  dtype=dtype, placements=placements,
+                                  mesh=mesh))
 
 
 def _frontend(cfg, batch: dict) -> tuple:
@@ -60,13 +70,31 @@ def _frontend(cfg, batch: dict) -> tuple:
     return ()
 
 
-def forward(params, cfg, batch: dict, last_only: bool = False
-            ) -> tuple[torch.Tensor, dict[str, Any]]:
+MESH_FAMILIES = ("dense", "moe", "ssm")
+
+
+def forward(params, cfg, batch: dict, last_only: bool = False,
+            shd: ShardCtx = NO_SHARD) -> tuple[torch.Tensor, dict[str, Any]]:
     m = family_module(cfg)
-    if cfg.family == "moe":
-        return m.forward(params, cfg, batch["tokens"], last_only=last_only)
-    return m.forward(params, cfg, batch["tokens"], *_frontend(cfg, batch),
-                     last_only=last_only), {}
+    if shd.mesh is not None and cfg.family not in MESH_FAMILIES:
+        raise NotImplementedError(
+            f"the {cfg.family} family does not run over a mesh yet "
+            f"(families over a mesh: {MESH_FAMILIES})")
+    with mesh_context(shd):
+        if cfg.family == "moe":
+            return m.forward(params, cfg, batch["tokens"], last_only=last_only,
+                             shd=shd)
+        if shd.mesh is not None:
+            return m.forward(params, cfg, batch["tokens"], last_only=last_only,
+                             shd=shd), {}
+        return m.forward(params, cfg, batch["tokens"], *_frontend(cfg, batch),
+                         last_only=last_only), {}
+
+
+def mesh_context(shd: ShardCtx):
+    """Over a mesh, plain tensors meeting DTensors count as replicated
+    (`implicit_replication`); without one, nothing."""
+    return implicit_replication() if shd.mesh is not None else nullcontext()
 
 
 def init_cache(cfg, batch: int, max_seq: int, dtype=torch.bfloat16, *,

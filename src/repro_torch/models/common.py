@@ -4,8 +4,8 @@ One source of truth per architecture: a *layout* — a nested dict mapping
 parameter names to `PDef(shape, logical_axes)` — from which the parameters
 are made (`init_params`), counted (`count_params`) and checked when carried
 over from the reference package (`models/convert.py`).  The logical axis
-names are kept as the reference package writes them; on one device they
-shard nothing.
+names are kept as the reference package writes them, and over a mesh they
+shard through a rules table, as the reference's do (below).
 
 A `Model` holds the layout-shaped tree itself: each stack that
 `stack_layers` made (`blocks`; `mamba_blocks` and `tail_blocks`;
@@ -19,16 +19,35 @@ training holds one gradient the size of the parameters.  Unstacked
 subtrees (zamba2's shared block, the encoder's final norm, the vision
 projection) are plain parameters: a block applied several times gathers
 its gradient from every application through autograd.
+
+Sharding over a mesh.  The reference resolves each logical axis through a
+rules table (`Rules`, `default_rules`: TP over "model", FSDP over "data",
+DP over ("pod", "data")) into a PartitionSpec, with a divisibility
+fallback and a mesh axis sharding one dimension at most; pjit lays the
+parameters, states and batch out so, and `ShardCtx.shard` pins
+activations with `with_sharding_constraint`.  Here the same table
+resolves into `torch.distributed.tensor` placements on a 2-D
+`DeviceMesh` (`resolve_placements`, one `Shard(d)` or `Replicate()` a
+mesh dimension; `resolve_pspec` is the same resolution in the
+reference's form, a mesh-axis name or tuple or None a dimension), the
+parameters are DTensors (`distribute_tree`: each rank takes its own shard
+of the same full tensors, no collective), the model code runs on them, and
+`ShardCtx.shard(x, *logical)` is `x.redistribute(mesh, placements)`.
+Changing the rules table, not the model code, changes the layout.
+`NO_SHARD` (the default of every `shd` argument) shards nothing: the
+one-device path is unchanged.
 """
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass, replace
 from functools import partial
-from typing import Any, Callable
+from typing import Any, Callable, Mapping
 
 import torch
 from torch import nn
+
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from ..core.executor import resolve_device
 from ..tree import tree_map
@@ -47,6 +66,216 @@ class PDef:
 
 
 Layout = dict[str, Any]   # nested dict of PDef
+
+
+# ---------------------------------------------------------------------------
+# Sharding rules
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class Rules:
+    """logical axis -> mesh axis (or tuple of axes, or None = replicate)."""
+    table: Mapping[str, Any]
+    dp_axes: tuple[str, ...]          # all data-parallel mesh axes ("pod","data")
+
+    def mesh_axes(self, logical: str | None) -> Any:
+        if logical is None:
+            return None
+        if logical == "batch":
+            return self.dp_axes
+        return self.table.get(logical, None)
+
+    def override(self, **kw) -> "Rules":
+        t = dict(self.table)
+        t.update(kw)
+        return Rules(t, self.dp_axes)
+
+
+def mesh_shape(mesh) -> dict[str, int]:
+    """{axis name: size} of a DeviceMesh, or of a mapping given as one (a
+    mesh's shape alone is enough to resolve a layout)."""
+    if isinstance(mesh, Mapping):
+        return dict(mesh)
+    return dict(zip(mesh.mesh_dim_names, mesh.shape))
+
+
+def default_rules(mesh) -> Rules:
+    """Baseline: TP over 'model', FSDP over 'data', DP over ('pod','data')."""
+    shape = mesh_shape(mesh)
+    dp = tuple(a for a in ("pod", "data") if a in shape)
+    return Rules({
+        # parameters
+        "vocab": "model",
+        "embed": "data",          # FSDP axis of 2-D weights
+        "ffn": "model",
+        "heads": "model",
+        "kv_heads": "model",
+        "head_dim": None,
+        "experts": "model",
+        "expert_ffn": None,
+        "ssm_inner": "model",
+        "ssm_heads": "model",
+        "ssm_state": None,
+        "conv_k": None,
+        "layers": None,
+        # activations
+        "act_embed": None,
+        "act_seq": None,          # flip to "model" for sequence parallelism
+        "act_heads": "model",
+        "act_experts": "model",
+        "act_vocab": "model",
+    }, dp)
+
+
+def rules_for(cfg, mesh) -> Rules:
+    """The train step's rules: `default_rules(mesh)` overridden by the
+    config's `sharding_hints`, as the reference's `build_train_step`
+    makes them."""
+    rules = default_rules(mesh)
+    if cfg.sharding_hints:
+        rules = rules.override(**dict(cfg.sharding_hints))
+    return rules
+
+
+def _flat_axes(axes: Any) -> tuple[str, ...]:
+    return (axes,) if isinstance(axes, str) else tuple(axes or ())
+
+
+def resolve_pspec(shape: tuple[int, ...], logical: tuple[str | None, ...],
+                  rules: Rules, mesh) -> tuple:
+    """The reference's PartitionSpec of a dimension list, as a tuple (one
+    mesh axis, tuple of axes or None a dimension, trailing Nones dropped):
+    the divisibility fallback (replicate what doesn't divide) and
+    first-wins duplicate-axis resolution (a mesh axis shards only one
+    dimension)."""
+    sizes = mesh_shape(mesh)
+    out = []
+    used: set[str] = set()
+    for dim, name in zip(shape, logical):
+        axes = rules.mesh_axes(name)
+        flat = _flat_axes(axes)
+        if (axes is not None and dim > 0
+                and dim % math.prod(sizes[a] for a in flat) == 0
+                and not (set(flat) & used)):
+            out.append(axes)
+            used |= set(flat)
+        else:
+            out.append(None)
+    while out and out[-1] is None:
+        out.pop()
+    return tuple(out)
+
+
+def placements_of(pspec: tuple, mesh) -> tuple:
+    """One placement a mesh dimension from a pspec: `Shard(d)` where the
+    spec names that mesh axis at dimension d, else `Replicate()`.  A
+    dimension over several axes is sharded by each, the first major, as
+    the reference's tuple entries are.  A mesh axis of one rank shards
+    nothing: `Replicate()` (the same layout, and DTensor keeps no shard
+    to track)."""
+    sizes = mesh_shape(mesh)
+    names = list(sizes)
+    out = [Replicate()] * len(names)
+    for d, axes in enumerate(pspec):
+        for a in _flat_axes(axes):
+            if sizes[a] > 1:
+                out[names.index(a)] = Shard(d)
+    return tuple(out)
+
+
+def resolve_placements(shape: tuple[int, ...],
+                       logical: tuple[str | None, ...], rules: Rules,
+                       mesh) -> tuple:
+    """`resolve_pspec` as DTensor placements over `mesh`."""
+    return placements_of(resolve_pspec(shape, logical, rules, mesh), mesh)
+
+
+def param_pspecs(layout: Layout, rules: Rules, mesh):
+    return map_layout(
+        layout, lambda p, _: resolve_pspec(p.shape, p.axes, rules, mesh))
+
+
+def param_placements(layout: Layout, rules: Rules, mesh):
+    return map_layout(
+        layout, lambda p, _: resolve_placements(p.shape, p.axes, rules, mesh))
+
+
+def block_at(shape, placements, mesh_shape, coord) -> tuple[tuple, tuple]:
+    """(shape, global offset) of the block at mesh coordinate `coord` of a
+    tensor of `shape` under `placements`: each mesh dimension that shards a
+    dimension splits it evenly (the rules shard only what divides), the
+    earlier mesh dimensions the outer splits, as DTensor and the reference
+    lay them out."""
+    size, offset = list(shape), [0] * len(shape)
+    for pl, n, c in zip(placements, mesh_shape, coord):
+        if pl.is_shard():
+            d = pl.dim
+            if size[d] % n:
+                raise ValueError(f"dimension {d} of {tuple(shape)} does not "
+                                 f"split into {n}")
+            size[d] //= n
+            offset[d] += c * size[d]
+    return tuple(size), tuple(offset)
+
+
+def local_block(shape, placements, mesh) -> tuple[tuple, tuple]:
+    """(local shape, global offset) of this rank's block."""
+    return block_at(shape, placements, mesh.shape, mesh.get_coordinate())
+
+
+def local_of(full: torch.Tensor, placements, mesh) -> torch.Tensor:
+    """This rank's block of `full` (a view)."""
+    local, offset = local_block(full.shape, placements, mesh)
+    return full[tuple(slice(o, o + n) for o, n in zip(offset, local))]
+
+
+def as_dtensor(local: torch.Tensor, shape, placements, mesh):
+    """A DTensor of global `shape` from this rank's block, no collective."""
+    t = torch.empty(shape, device="meta")
+    return DTensor.from_local(local, mesh, tuple(placements),
+                              run_check=False, shape=t.shape,
+                              stride=t.stride())
+
+
+def distribute_tree(tree, placements, mesh):
+    """Each full tensor of `tree` (the same values on every rank) as a
+    DTensor of its placements in `placements` (a tree of the same keys):
+    every rank keeps its own block, a contiguous copy, and nothing is
+    sent between ranks."""
+    return tree_map(lambda t, pl: as_dtensor(
+        local_of(t, pl, mesh).contiguous(), t.shape, pl, mesh),
+        tree, placements)
+
+
+def to_local(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor's local block (its storage); a tensor itself."""
+    return t._local_tensor if isinstance(t, DTensor) else t
+
+
+# ---------------------------------------------------------------------------
+# Activation sharding constraints (no-op without a mesh)
+# ---------------------------------------------------------------------------
+
+class ShardCtx:
+    """Carries (mesh, rules) through model code; `shard(x, *logical)` pins
+    an activation's placements (`x.redistribute`, the counterpart of
+    `with_sharding_constraint`).  Without a mesh (one device) it is a
+    no-op."""
+
+    def __init__(self, mesh, rules: Rules | None):
+        self.mesh, self.rules = mesh, rules
+
+    def shard(self, x: torch.Tensor, *logical: str | None) -> torch.Tensor:
+        if self.mesh is None or self.rules is None:
+            return x
+        return x.redistribute(self.mesh, self.placements(x.shape, *logical))
+
+    def placements(self, shape, *logical: str | None) -> tuple:
+        return resolve_placements(tuple(shape), tuple(logical), self.rules,
+                                  self.mesh)
+
+
+NO_SHARD = ShardCtx(None, None)
 
 
 def map_layout(layout: Layout, fn: Callable[[PDef, tuple[str, ...]], Any],
@@ -210,13 +439,17 @@ def check_tree(layout: Layout, tensors: dict) -> None:
 
 
 def init_params(layout: Layout, generator: torch.Generator, *, device=None,
-                dtype: torch.dtype = torch.bfloat16) -> dict:
+                dtype: torch.dtype = torch.bfloat16, placements=None,
+                mesh=None) -> dict:
     """Parameters of `layout` (a nested dict of tensors of its shapes):
     N(0, 1)·scale, zeros or ones as each PDef says, drawn from `generator`
     leaf by leaf in layout order, in `dtype` on `device` (the card unless
     the caller asks for the CPU).  The generator must live on that device.
     The reference draws from JAX keys, so the values differ; tests carry the
-    reference's parameters over with `convert.params_from_jax`."""
+    reference's parameters over with `convert.params_from_jax`.  Over a
+    `mesh`, each leaf is drawn whole (the same values as on one device)
+    and only this rank's block of it in `placements` is kept, a DTensor:
+    one whole leaf lives at a time."""
     dev = resolve_device(device)
     if generator.device.type != dev.type:
         raise ValueError(f"generator on {generator.device}, parameters on "
@@ -231,7 +464,16 @@ def init_params(layout: Layout, generator: torch.Generator, *, device=None,
         return torch.empty(p.shape, dtype=dtype, device=dev).normal_(
             0.0, p.scale, generator=generator)
 
-    return map_layout(layout, make)
+    if mesh is None:
+        return map_layout(layout, make)
+
+    def make_block(p: PDef, path):
+        pl = placements
+        for key in path:
+            pl = pl[key]
+        return distribute_tree(make(p, path), pl, mesh)
+
+    return map_layout(layout, make_block)
 
 
 def stack_layers(layout: Layout, n: int) -> Layout:

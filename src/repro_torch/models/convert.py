@@ -7,6 +7,12 @@ cfg)` does the same for an AdamW state tree (`optim/adamw.py`'s layout:
 {"mu": per-parameter {"m", "v"} or {"m_q", "m_s", "v_q", "v_s"}, "step"}).
 bf16 leaves arrive as `ml_dtypes.bfloat16` arrays, which `torch.from_numpy`
 refuses; their bytes are carried as 16-bit integers and viewed as bf16.
+
+Over a mesh (`mesh=`, with the train step's `rules`, by default
+`common.rules_for(cfg, mesh)` as the step's), every rank takes its own block of the same arrays
+(`common.distribute_tree`): the parameters in `param_placements`, the
+states in `adamw.state_placements`, so both packages start from the same
+values however the mesh is laid out.
 """
 from __future__ import annotations
 
@@ -14,8 +20,10 @@ import numpy as np
 import torch
 
 from ..core.executor import resolve_device
+from ..tree import flatten
 from . import api
-from .common import PDef, map_layout
+from .common import (PDef, distribute_tree, map_layout, param_placements,
+                     rules_for)
 
 _STATE_KEYS = ({"m", "v"}, {"m_q", "m_s", "v_q", "v_s"})
 
@@ -36,26 +44,38 @@ def tensor_from_numpy(a) -> torch.Tensor:
     return torch.from_numpy(np.array(a))
 
 
+def _placements(cfg, mesh, rules):
+    layout = api.layout(cfg)
+    return layout, param_placements(layout, rules or rules_for(cfg, mesh),
+                                    mesh)
+
+
 def params_from_jax(tree: dict, cfg, *, device=None,
-                    dtype: torch.dtype | None = None):
+                    dtype: torch.dtype | None = None, mesh=None, rules=None):
     """The port's model holding `tree`'s values, in `dtype` (default: each
-    leaf's own) on `device` (the card unless the caller asks for the CPU).
-    Raises on a missing leaf or (in `build`) a shape that is not the
-    layout's."""
+    leaf's own) on `device` (the card unless the caller asks for the CPU),
+    over `mesh` DTensors of the rules' placements.  Raises on a missing
+    leaf or (in `build`) a shape that is not the layout's."""
     dev = resolve_device(device)
 
     def carry(p: PDef, path):
         t = tensor_from_numpy(_leaf(tree, path))
         return t.to(device=dev, dtype=dtype or t.dtype)
 
-    return api.build(cfg, map_layout(api.layout(cfg), carry))
+    tensors = map_layout(api.layout(cfg), carry)
+    if mesh is not None:
+        tensors = distribute_tree(tensors, _placements(cfg, mesh, rules)[1],
+                                  mesh)
+    return api.build(cfg, tensors)
 
 
-def opt_state_from_jax(state: dict, cfg, *, device=None) -> dict:
+def opt_state_from_jax(state: dict, cfg, *, device=None, mesh=None,
+                       rules=None) -> dict:
     """The reference's AdamW state tree (numpy leaves) as the port's: the
     same keys, dtypes and values, on `device` (the card unless the caller
-    asks for the CPU).  Raises on a parameter of the layout without its
-    states, or states of a shape that is not the parameter's."""
+    asks for the CPU), over `mesh` DTensors of `adamw.state_placements`.
+    Raises on a parameter of the layout without its states, or states of
+    a shape that is not the parameter's."""
     dev = resolve_device(device)
 
     def carry(p: PDef, path):
@@ -72,5 +92,14 @@ def opt_state_from_jax(state: dict, cfg, *, device=None) -> dict:
                                  f"{tuple(t.shape)}, expected {shape}")
         return out
 
-    return {"mu": map_layout(api.layout(cfg), carry),
-            "step": tensor_from_numpy(state["step"]).to(dev)}
+    out = {"mu": map_layout(api.layout(cfg), carry),
+           "step": tensor_from_numpy(state["step"]).to(dev)}
+    if mesh is None:
+        return out
+    from ..optim import adamw
+    layout, p_pl = _placements(cfg, mesh, rules)
+    bits = 8 if any(k.endswith("/m_q") for k in flatten(out["mu"])) else 32
+    abstract = map_layout(layout, lambda p, _: torch.empty(p.shape,
+                                                           device="meta"))
+    return distribute_tree(out, adamw.state_placements(
+        abstract, p_pl, adamw.AdamWConfig(state_bits=bits)), mesh)

@@ -10,6 +10,11 @@ cache (with the ring buffer of the hybrid family's windowed cache);
 bidirectional attention (the encoder's) and cross-attention (enc-dec and
 VLM image layers); the SwiGLU MLP.
 
+Over a mesh the tensors are DTensors and `shd` (a `common.ShardCtx`) pins
+the activations at the reference's seven sites (the query heads, each
+block's output, the gated MLP hidden, the embedding, the logits); every
+`shd` defaults to `NO_SHARD`, which pins nothing.
+
 Computation runs in the parameters' dtype with float32 softmax and
 normalisation accumulators, as the reference does; where JAX promotes two
 dtypes on its own (an f32 query against a bf16 cache), the cast is written
@@ -21,11 +26,32 @@ from __future__ import annotations
 from typing import Any
 
 import torch
+from torch.distributed.tensor import DTensor, Partial, Replicate
+from torch.distributed.tensor.experimental import local_map
 from torch.nn import functional as F
 
-from .common import PDef
+from .common import NO_SHARD, PDef, ShardCtx, local_block
 
 NEG_INF = -2.0e38
+
+
+# ---------------------------------------------------------------------------
+# Products
+# ---------------------------------------------------------------------------
+
+def dense(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x (..., d) @ w (d, f).  Over a mesh, where x (a DTensor) is sharded
+    along a leading dimension past the batch (the sequence, under sequence
+    parallelism), that dimension is gathered first, as a sequence-parallel
+    layer gathers its sequence before a projection: the product flattens
+    the leading dimensions, which DTensor (torch 2.11) cannot do across a
+    sharded inner one."""
+    if isinstance(x, DTensor) and any(
+            pl.is_shard() and 0 < pl.dim < x.ndim - 1 for pl in x.placements):
+        x = x.redistribute(x.device_mesh, tuple(
+            Replicate() if pl.is_shard() and 0 < pl.dim < x.ndim - 1 else pl
+            for pl in x.placements))
+    return x @ w
 
 
 # ---------------------------------------------------------------------------
@@ -93,9 +119,9 @@ def attention_layout(cfg) -> dict[str, Any]:
 def _qkv(p, cfg, x, positions):
     B, S, _ = x.shape
     hd = cfg.hd()
-    q = x @ p["wq"]
-    k = x @ p["wk"]
-    v = x @ p["wv"]
+    q = dense(x, p["wq"])
+    k = dense(x, p["wk"])
+    v = dense(x, p["wv"])
     if cfg.qkv_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
     q = q.reshape(B, S, cfg.n_heads, hd)
@@ -190,18 +216,71 @@ def _sdpa_chunked(q, k, v, q_offset, window: int, chunk: int,
     return out.reshape(B, Sq, H, hd).to(q.dtype)
 
 
-def self_attention(p, cfg, x, positions) -> torch.Tensor:
+def _causal(q, k, v, cfg, q_offset: int = 0, kv_head: int = 0
+            ) -> torch.Tensor:
+    """Causal attention of queries q (B,Sq,H,hd) at positions q_offset +
+    [0, Sq) over every key (B,Skv,KV,hd); q's heads are the grouped heads
+    of k's heads from kv_head on.  Chunked past `attn_chunk` keys."""
+    Skv = k.shape[1]
+    rep = cfg.n_heads // cfg.n_kv_heads
+    lo = kv_head
+    hi = lo + max(q.shape[2] // rep, 1)
+    if (lo, hi) != (0, k.shape[2]):
+        k, v = k[:, :, lo:hi], v[:, :, lo:hi]
+    if cfg.attn_chunk and Skv > cfg.attn_chunk:
+        return _sdpa_chunked(q, k, v, q_offset, cfg.sliding_window,
+                             cfg.attn_chunk)
+    mask = _causal_mask(q.shape[1], Skv, q_offset, cfg.sliding_window,
+                        q.device)
+    return _sdpa_dense(q, k, v, mask)
+
+
+def _causal_over_mesh(q, k, v, cfg, shd: ShardCtx) -> torch.Tensor:
+    """`_causal` on each rank's own queries (`local_map`: the attention's
+    grouped einsums flatten dimensions that DTensor cannot flatten across
+    shards): q as pinned (its rows by "batch", its sequence or its heads
+    by "model"); k and v by the same rows and, where q's heads are split,
+    by their own heads when those divide, else whole; each rank's gradient
+    of a k or v it holds whole for queries it does not is a partial sum.
+    Under sequence parallelism a rank's queries start at its sequence
+    offset; under head parallelism its heads map to their key heads."""
+    mesh = shd.mesh
+    q_pl = q.placements
+    kv_pl, kv_grad = [], []
+    for i, pl in enumerate(q_pl):
+        whole = Replicate()
+        if pl.is_shard(0):
+            whole = pl
+        elif pl.is_shard(2) and k.shape[2] % mesh.size(i) == 0:
+            whole = pl
+        kv_pl.append(whole)
+        kv_grad.append(Partial() if pl.is_shard() and not whole.is_shard()
+                       else whole)
+    kv_pl, kv_grad = tuple(kv_pl), tuple(kv_grad)
+    q_off = local_block(q.shape, q_pl, mesh)[1]
+    kv_off = local_block(k.shape, kv_pl, mesh)[1]
+    rep = cfg.n_heads // cfg.n_kv_heads
+    kv_head = q_off[2] // rep - kv_off[2]
+    return local_map(
+        lambda q, k, v: _causal(q, k, v, cfg, q_off[1], kv_head),
+        out_placements=(q_pl,), in_placements=(q_pl, kv_pl, kv_pl),
+        in_grad_placements=(q_pl, kv_grad, kv_grad), device_mesh=mesh,
+        redistribute_inputs=True)(q, k, v)
+
+
+def self_attention(p, cfg, x, positions, shd: ShardCtx = NO_SHARD
+                   ) -> torch.Tensor:
     """Full-sequence causal self-attention (training / prefill)."""
     h = rmsnorm(x, p["norm"])
     q, k, v = _qkv(p, cfg, h, positions)
+    q = shd.shard(q, "batch", "act_seq", "act_heads", None)
     S = x.shape[1]
-    if cfg.attn_chunk and S > cfg.attn_chunk:
-        o = _sdpa_chunked(q, k, v, 0, cfg.sliding_window, cfg.attn_chunk)
+    if shd.mesh is None:
+        o = _causal(q, k, v, cfg)
     else:
-        mask = _causal_mask(S, S, 0, cfg.sliding_window, x.device)
-        o = _sdpa_dense(q, k, v, mask)
+        o = _causal_over_mesh(q, k, v, cfg, shd)
     o = o.reshape(x.shape[0], S, -1)
-    return x + o @ p["wo"]
+    return x + shd.shard(dense(o, p["wo"]), "batch", "act_seq", "act_embed")
 
 
 def decode_attention(p, cfg, x, cache_k, cache_v, pos, write_pos=None,
@@ -253,7 +332,8 @@ def cross_attention_layout(cfg) -> dict[str, Any]:
     return lay
 
 
-def cross_attention(p, cfg, x, kv_src) -> torch.Tensor:
+def cross_attention(p, cfg, x, kv_src, shd: ShardCtx = NO_SHARD
+                    ) -> torch.Tensor:
     """x: (B,Sq,d) queries; kv_src: (B,Skv,d) encoder/vision states (no
     RoPE).  The KV side is chunked (bidirectional online softmax) when
     Sq·Skv passes attn_chunk², in chunks of min(attn_chunk, Skv)."""
@@ -276,7 +356,8 @@ def cross_attention(p, cfg, x, kv_src) -> torch.Tensor:
     else:
         o = _sdpa_dense(q, k, v, torch.zeros((Sq, Skv), dtype=torch.float32,
                                              device=x.device))
-    return x + o.reshape(B, Sq, -1) @ p["wo"]
+    return x + shd.shard(o.reshape(B, Sq, -1) @ p["wo"], "batch", "act_seq",
+                         "act_embed")
 
 
 # ---------------------------------------------------------------------------
@@ -292,10 +373,11 @@ def swiglu_layout(d_model: int, d_ff: int) -> dict[str, Any]:
     }
 
 
-def swiglu(p, x: torch.Tensor) -> torch.Tensor:
+def swiglu(p, x: torch.Tensor, shd: ShardCtx = NO_SHARD) -> torch.Tensor:
     h = rmsnorm(x, p["norm"])
-    g = F.silu(h @ p["w1"]) * (h @ p["w3"])
-    return x + g @ p["w2"]
+    g = F.silu(dense(h, p["w1"])) * dense(h, p["w3"])
+    g = shd.shard(g, "batch", "act_seq", "act_heads")
+    return x + shd.shard(dense(g, p["w2"]), "batch", "act_seq", "act_embed")
 
 
 # ---------------------------------------------------------------------------
@@ -314,19 +396,53 @@ def embed_layout(cfg) -> dict[str, Any]:
     return lay
 
 
-def embed(p, cfg, tokens: torch.Tensor) -> torch.Tensor:
-    return p["tok"][tokens.long()]
+def embed(p, cfg, tokens: torch.Tensor, shd: ShardCtx = NO_SHARD
+          ) -> torch.Tensor:
+    if shd.mesh is None:
+        return p["tok"][tokens.long()]
+    return shd.shard(_embed_over_mesh(p["tok"], tokens, shd), "batch",
+                     "act_seq", "act_embed")
 
 
-def logits(p, cfg, x: torch.Tensor) -> torch.Tensor:
+def _embed_rows(table, ids, lo: int) -> torch.Tensor:
+    """Rows ids of a table holding rows [lo, lo + its length); an id
+    outside them gives zeros."""
+    idx = ids.long() - lo
+    mine = (idx >= 0) & (idx < table.shape[0])
+    return torch.where(mine[..., None], table[torch.where(mine, idx, 0)], 0)
+
+
+def _embed_over_mesh(tok, tokens, shd: ShardCtx) -> torch.Tensor:
+    """The embedding lookup on each rank's rows (`local_map`: DTensor's
+    backward of an index on a sharded table fails in torch 2.11), vocab
+    parallel: the table's embedding axis is gathered (FSDP), its
+    vocabulary stays split, each rank looks up the ids its shard holds and
+    the parts are summed over the vocabulary's mesh axis.  Each rank's
+    gradient of the table, from its own rows, is a partial sum over the
+    data ranks."""
+    mesh = shd.mesh
+    rows = shd.placements(tokens.shape, "batch", None)
+    tab = tuple(t if t.is_shard(0) and not r.is_shard() else Replicate()
+                for t, r in zip(tok.placements, rows))
+    out = tuple(Partial() if t.is_shard() else r for t, r in zip(tab, rows))
+    grad = tuple(Partial() if r.is_shard() else t for t, r in zip(tab, rows))
+    lo = local_block(tok.shape, tab, mesh)[1][0]
+    return local_map(
+        lambda t, ids: _embed_rows(t, ids, lo), out_placements=(out,),
+        in_placements=(tab, rows), in_grad_placements=(grad, rows),
+        device_mesh=mesh, redistribute_inputs=True)(tok, tokens)
+
+
+def logits(p, cfg, x: torch.Tensor, shd: ShardCtx = NO_SHARD
+           ) -> torch.Tensor:
     """(B,S,d) -> (B,S,padded_vocab); pad columns masked to NEG_INF."""
     h = rmsnorm(x, p["final_norm"])
     w = p["tok"].T if cfg.tie_embeddings else p["unembed"]
-    out = h @ w
+    out = dense(h, w)
     if cfg.logits_fp32:
         out = out.float()
     vp = cfg.padded_vocab()
     if vp != cfg.vocab:
         col = torch.arange(vp, device=out.device)
         out = torch.where(col < cfg.vocab, out, NEG_INF)
-    return out
+    return shd.shard(out, "batch", "act_seq", "act_vocab")

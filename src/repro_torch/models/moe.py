@@ -27,13 +27,16 @@ from functools import lru_cache, partial
 
 import numpy as np
 import torch
+from torch.distributed.tensor import Partial, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
 from torch.nn import functional as F
 
 from ..core.moe_shares import MoEDispatchPlan, plan_dispatch, route_tokens
 from ..kernels import ops
 from . import layers as L
 from . import transformer as TF
-from .common import Layout, Model, PDef, TensorView, stack_layers
+from .common import (NO_SHARD, Layout, Model, PDef, ShardCtx, TensorView,
+                     local_block, stack_layers)
 
 
 def moe_layout(cfg) -> Layout:
@@ -81,31 +84,91 @@ def top_experts(gates: torch.Tensor, k: int
 
 
 def moe_ffn(p, cfg, plan: MoEDispatchPlan, x: torch.Tensor, *,
-            use_kernels: bool = True) -> tuple[torch.Tensor, dict]:
+            use_kernels: bool = True, shd: ShardCtx = NO_SHARD
+            ) -> tuple[torch.Tensor, dict]:
     """x (B,S,d) -> (x + y (B,S,d), {'aux_loss': (), 'expert_load': (E,)
     int32, 'dropped_tokens': ()}).
 
     Dispatch is per sequence: each row's S·K assignments sort by slot
     (stably), the first `cap` of each slot pack into (n_slots, cap, d), and
     the rest drop (their expert output is zero).
+
+    Over a mesh (`shd`) the dispatch and the combine run on each rank's own
+    rows (`local_map`: the sort, scatter and gather have no DTensor
+    strategies), the packed slots are sharded over "model" as the
+    reference pins them, each rank runs the expert FFN of its slots and
+    combines their outputs alone, and the ranks' parts are summed over
+    "model".  Each rank counts its rows' expert loads (`segment_histogram`)
+    and the counts are summed over the data ranks.
     """
     B, S, d = x.shape
     K = cfg.topk
     n_slots = plan.n_slots
-    dev = x.device
     h = L.rmsnorm(x, p["norm"])                                   # (B,S,d)
 
     # Router (fp32 for stable softmax).
-    logits = h.float() @ p["router"].float()
+    logits = L.dense(h.float(), p["router"].float())
     gates = torch.softmax(logits, dim=-1)                         # (B,S,E)
+    cap = max(1, int(np.ceil(S * K / n_slots * cfg.moe_capacity_factor)))
+    dispatch = partial(_dispatch, cfg, plan, cap, use_kernels)
+    if shd.mesh is None:
+        xe, weights, keep, flat_idx, inv, load, top1, dropped = dispatch(
+            h, gates)
+        ye = _expert_ffn(xe, p["w1"], p["w3"], p["w2"])
+        y = _combine(ye.reshape(B, -1, d), weights, keep, flat_idx, inv, 0,
+                     x.dtype)
+    else:
+        mesh = shd.mesh
+        rows = shd.placements((B, S, d), "batch", None, None)
+        summed = (Replicate(),) * mesh.ndim
+        per_rank = tuple(Partial() if isinstance(pl, Shard) else pl
+                         for pl in rows)                  # (Partial, Replicate)
+        xe, weights, keep, flat_idx, inv, load, top1, dropped = local_map(
+            dispatch, out_placements=(rows,) * 5 + (per_rank,) * 3,
+            in_placements=(rows, rows), device_mesh=mesh,
+            redistribute_inputs=True)(h, gates)
+        load, top1, dropped = (t.redistribute(mesh, summed)
+                               for t in (load, top1, dropped))
+        xe = shd.shard(xe, "batch", "act_experts", None, None)
+        ye = shd.shard(_expert_ffn_over_slots(p, xe, shd), "batch",
+                       "act_experts", None, None)
+        # This rank's slots: [lo, lo + its count) of the packed rows.
+        lo = local_block(ye.shape, ye.placements, mesh)[1][1] * cap
+        partial_rows = tuple(Partial() if (isinstance(r, Replicate)
+                                           and isinstance(e, Shard)) else r
+                             for r, e in zip(rows, ye.placements))
+        y = local_map(
+            lambda ye, *a: _combine(ye.reshape(ye.shape[0], -1, d), *a, lo,
+                                    x.dtype),
+            out_placements=(partial_rows,),
+            in_placements=(ye.placements,) + (rows,) * 4,
+            in_grad_placements=(ye.placements, partial_rows) + (rows,) * 3,
+            device_mesh=mesh)(ye, weights, keep, flat_idx, inv)
+        y = shd.shard(y, "batch", "act_seq", "act_embed")
+
+    # Aux load-balancing loss (switch-style).
+    frac_prob = gates.mean(dim=(0, 1))                            # (E,)
+    frac_tok = top1 / (B * S)
+    aux = cfg.n_experts * (frac_prob * frac_tok).sum()
+    return x + y, {"aux_loss": aux, "expert_load": load,
+                   "dropped_tokens": dropped}
+
+
+def _dispatch(cfg, plan: MoEDispatchPlan, cap: int, use_kernels: bool,
+              h: torch.Tensor, gates: torch.Tensor) -> tuple:
+    """Top-k routing and the sort dispatch of rows h (B,S,d) by their
+    gates (B,S,E): (xe (B, n_slots, cap, d), the top-k weights (B,S,K),
+    keep, flat_idx, inv (B, S·K) — the combine's plumbing —, the rows'
+    expert loads (E,) int32 (`segment_histogram`), their top-1 counts (E,)
+    float32 and their dropped copies ())."""
+    B, S, d = h.shape
+    K = cfg.topk
+    n_slots = plan.n_slots
+    dev = h.device
     weights, eidx = top_experts(gates, K)                         # (B,S,K)
     weights = weights / torch.clamp(weights.sum(-1, keepdim=True), min=1e-9)
-
-    # Aux load-balancing loss (switch-style) + the on-card load histogram.
-    frac_prob = gates.mean(dim=(0, 1))                            # (E,)
-    onehot_top1 = F.one_hot(eidx[..., 0].long(), cfg.n_experts).float()
-    frac_tok = onehot_top1.mean(dim=(0, 1))
-    aux = cfg.n_experts * (frac_prob * frac_tok).sum()
+    top1 = F.one_hot(eidx[..., 0].long(), cfg.n_experts).float().sum(
+        dim=(0, 1))
     load = ops.segment_histogram(eidx.reshape(-1), cfg.n_experts,
                                  use_kernels=use_kernels)
 
@@ -116,7 +179,6 @@ def moe_ffn(p, cfg, plan: MoEDispatchPlan, x: torch.Tensor, *,
     slots = route_tokens(plan, eidx.reshape(-1),
                          pos_ids.reshape(-1)).reshape(B, S * K)
 
-    cap = max(1, int(np.ceil(S * K / n_slots * cfg.moe_capacity_factor)))
     n = S * K
     trash = n_slots * cap              # the one row that dropped copies hit
     s_sorted, order = torch.sort(slots, dim=1, stable=True)
@@ -129,29 +191,57 @@ def moe_ffn(p, cfg, plan: MoEDispatchPlan, x: torch.Tensor, *,
     buf.scatter_(1, flat_idx[..., None].expand(B, n, d), rows)
     xe = buf[:, :trash].reshape(B, n_slots, cap, d)
     dropped = (~keep).sum()
-
-    # Expert FFN, batched over (batch, slots).
-    g = F.silu(torch.einsum("becd,edf->becf", xe, p["w1"]))
-    g = g * torch.einsum("becd,edf->becf", xe, p["w3"])
-    ye = torch.einsum("becf,efd->becd", g, p["w2"]).reshape(B, trash, d)
-
-    # Combine: back to (token, k) order through the inverse of `order`.
-    safe = torch.where(keep, flat_idx, 0)
-    y_sorted = torch.gather(ye, 1, safe[..., None].expand(B, n, d))
-    y_sorted = torch.where(keep[..., None], y_sorted, 0)
     inv = torch.empty_like(order).scatter_(
         1, order, torch.arange(n, device=dev).expand(B, n))
-    y_tok_k = torch.gather(y_sorted, 1, inv[..., None].expand(B, n, d))
+    return xe, weights, keep, flat_idx, inv, load, top1, dropped
+
+
+def _expert_ffn(xe: torch.Tensor, w1, w3, w2) -> torch.Tensor:
+    """The slots' SwiGLU FFNs, batched over (batch, slots)."""
+    g = F.silu(torch.einsum("becd,edf->becf", xe, w1))
+    g = g * torch.einsum("becd,edf->becf", xe, w3)
+    return torch.einsum("becf,efd->becd", g, w2)
+
+
+def _expert_ffn_over_slots(p, xe, shd: ShardCtx):
+    """`_expert_ffn` on each rank's rows and slots: each slot's weights are
+    gathered over the FSDP axis only (the "experts" axis stays split), and
+    each rank's gradient of them, from its own rows, is a partial sum over
+    the data ranks, reduce-scattered back into the weights' placements."""
+    mesh = shd.mesh
+    ws = [p[k] for k in ("w1", "w3", "w2")]
+    full = [shd.placements(w.shape, "experts", None, None) for w in ws]
+    grad = [tuple(Partial() if isinstance(r, Shard) and not isinstance(f, Shard)
+                  else f for r, f in zip(xe.placements, pl)) for pl in full]
+    return local_map(
+        _expert_ffn, out_placements=(xe.placements,),
+        in_placements=(xe.placements, *full),
+        in_grad_placements=(xe.placements, *grad), device_mesh=mesh)(
+        xe, *(w.redistribute(mesh, pl) for w, pl in zip(ws, full)))
+
+
+def _combine(ye: torch.Tensor, weights, keep, flat_idx, inv, lo: int,
+             dtype: torch.dtype) -> torch.Tensor:
+    """Back to (token, k) order through the inverse of the sort, weighted
+    and summed over k: y (B,S,d).  `ye` (B, m, d) holds the packed rows
+    [lo, lo + m); a copy outside them (dropped, or another rank's slot)
+    adds zero."""
+    B, m, d = ye.shape
+    S, K = weights.shape[1:]
+    idx = flat_idx - lo
+    mine = keep & (idx >= 0) & (idx < m)
+    y_sorted = torch.gather(ye, 1, torch.where(mine, idx, 0)[..., None]
+                            .expand(B, S * K, d))
+    y_sorted = torch.where(mine[..., None], y_sorted, 0)
+    y_tok_k = torch.gather(y_sorted, 1, inv[..., None].expand(B, S * K, d))
     y_tok_k = y_tok_k.reshape(B, S, K, d)
-    y = (y_tok_k * weights[..., None].to(x.dtype)).sum(dim=2)
-    return x + y, {"aux_loss": aux, "expert_load": load,
-                   "dropped_tokens": dropped}
+    return (y_tok_k * weights[..., None].to(dtype)).sum(dim=2)
 
 
-def block_apply(p, cfg, plan, x, positions, *, use_kernels: bool = True
-                ) -> tuple[torch.Tensor, dict]:
-    x = L.self_attention(p["attn"], cfg, x, positions)
-    return moe_ffn(p["moe"], cfg, plan, x, use_kernels=use_kernels)
+def block_apply(p, cfg, plan, x, positions, *, use_kernels: bool = True,
+                shd: ShardCtx = NO_SHARD) -> tuple[torch.Tensor, dict]:
+    x = L.self_attention(p["attn"], cfg, x, positions, shd)
+    return moe_ffn(p["moe"], cfg, plan, x, use_kernels=use_kernels, shd=shd)
 
 
 # ---------------------------------------------------------------------------
@@ -192,7 +282,8 @@ def build(cfg, tensors: dict) -> Model:
 
 
 def forward(params, cfg, tokens: torch.Tensor, plan: MoEDispatchPlan | None = None,
-            last_only: bool = False) -> tuple[torch.Tensor, dict]:
+            last_only: bool = False, shd: ShardCtx = NO_SHARD
+            ) -> tuple[torch.Tensor, dict]:
     """tokens (B,S) -> (logits (B,S,padded_vocab), or (B,1,·) if last_only;
     {'aux_loss', 'expert_load' (E,) int32 summed over layers}).  Under
     `remat="full"` with autograd on, each layer runs again in the backward
@@ -201,18 +292,19 @@ def forward(params, cfg, tokens: torch.Tensor, plan: MoEDispatchPlan | None = No
     B, S = tokens.shape
     dev = tokens.device
     positions = torch.arange(S, device=dev)[None].expand(B, S)
-    x = L.embed(params["embed"], cfg, tokens)
+    x = L.embed(params["embed"], cfg, tokens, shd)
     aux = torch.zeros((), dtype=torch.float32, device=dev)
     loads = torch.zeros(cfg.n_experts, dtype=torch.int32, device=dev)
     body = TF._remat(lambda x, lp: block_apply(
-        lp, cfg, plan, x, positions, use_kernels=params.use_kernels), cfg.remat)
+        lp, cfg, plan, x, positions, use_kernels=params.use_kernels, shd=shd),
+        cfg.remat)
     for lp in params["blocks"]:
         x, stats = body(x, lp)
         aux = aux + stats["aux_loss"]
         loads = loads + stats["expert_load"]
     if last_only:
         x = x[:, -1:]
-    lg = L.logits(params["embed"], cfg, x)
+    lg = L.logits(params["embed"], cfg, x, shd)
     return lg, {"aux_loss": aux / cfg.n_layers, "expert_load": loads}
 
 

@@ -18,6 +18,13 @@ or 256 rows it overflows to inf: the reference's forward is still right
 (ROADMAP §3).  Here the forward is the reference's and the gradient is
 finite.
 
+Over a mesh (`shd`, a `common.ShardCtx`) the projections are DTensor
+products with `ssm_inner` over "model", each rank's rows keep the whole
+in-projection for the split and the conv (run on the rank's rows), the
+chunked SSD runs on each rank's own rows and heads (`local_map`: its
+grouped reshapes and the carried state have no DTensor strategies), and
+the block's output is pinned at the reference's one site.
+
 The model is a `common.Model`: `blocks` stacked on a leading layer axis,
 `model.blocks[i]` layer i.  `decode_step` writes each layer's `ssm` and
 `conv` state into the stacked cache in place.
@@ -25,12 +32,14 @@ The model is a `common.Model`: `blocks` stacked on a leading layer axis,
 from __future__ import annotations
 
 import torch
+from torch.distributed.tensor import Partial, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
 from torch.nn import functional as F
 
 from ..core.executor import resolve_device
 from . import layers as L
 from . import transformer as TF
-from .common import Layout, Model, PDef, stack_layers
+from .common import NO_SHARD, Layout, Model, PDef, ShardCtx, stack_layers
 
 
 def dims(cfg) -> tuple[int, int, int, int]:
@@ -62,9 +71,11 @@ def layout(cfg) -> Layout:
             "blocks": stack_layers(mamba_layout(cfg), cfg.n_layers)}
 
 
-def _split_proj(p, cfg, h):
+def _split_proj(p, cfg, h, shd: ShardCtx = NO_SHARD):
     d_inner, H, N, conv_dim = dims(cfg)
-    zxbcdt = h @ p["in_proj"]
+    # Over a mesh each rank's rows keep the whole projection, which the
+    # split and the depthwise conv cut across the "ssm_inner" shards.
+    zxbcdt = shd.shard(L.dense(h, p["in_proj"]), "batch", None, None)
     z = zxbcdt[..., :d_inner]
     xBC = zxbcdt[..., d_inner:d_inner + conv_dim]
     dt = zxbcdt[..., d_inner + conv_dim:]
@@ -159,22 +170,63 @@ def _ssd_chunked(xh, dt, A, Bm, Cm, chunk: int) -> torch.Tensor:
     return torch.cat(ys, dim=1).to(xh.dtype)
 
 
-def mamba_block(p, cfg, x: torch.Tensor) -> torch.Tensor:
+def _conv_over_rows(shd: ShardCtx, xBC, w, b) -> torch.Tensor:
+    """`_causal_conv` on each rank's rows (`local_map`: DTensor's backward
+    of the shifts' pad fails in torch 2.11); each rank's gradient of the
+    replicated kernel and bias, from its own rows, is a partial sum over
+    the data ranks."""
+    if shd.mesh is None:
+        return _causal_conv(xBC, w, b)
+    rows = shd.placements(xBC.shape, "batch", None, None)
+    whole = (Replicate(),) * shd.mesh.ndim
+    grad = tuple(Partial() if r.is_shard() else Replicate() for r in rows)
+    return local_map(
+        _causal_conv, out_placements=(rows,),
+        in_placements=(rows, whole, whole),
+        in_grad_placements=(rows, grad, grad), device_mesh=shd.mesh,
+        redistribute_inputs=True)(xBC, w, b)
+
+
+def _ssd_over_heads(shd: ShardCtx, xs, dt, A, Bm, Cm, chunk: int):
+    """`_ssd_chunked` on each rank's rows and heads: xs (B,S,H,P) and dt
+    (B,S,H) by ("batch", "ssm_heads"), A (H,) by "ssm_heads", Bm and Cm
+    (B,S,N) by rows alone (each rank's gradient of them covers its heads:
+    a partial sum over the heads' mesh axis)."""
+    if shd.mesh is None:
+        return _ssd_chunked(xs, dt, A, Bm, Cm, chunk)
+    heads = shd.placements(xs.shape, "batch", None, "ssm_heads", None)
+    per_head = shd.placements(dt.shape, "batch", None, "ssm_heads")
+    a_heads = shd.placements(A.shape, "ssm_heads")
+    rows = shd.placements(Bm.shape, "batch", None, None)
+    a_grad = tuple(Partial() if isinstance(r, Shard) else a
+                   for r, a in zip(rows, a_heads))
+    bc_grad = tuple(Partial() if isinstance(h, Shard) and isinstance(r, Replicate)
+                    else r for r, h in zip(rows, heads))
+    return local_map(
+        lambda *t: _ssd_chunked(*t, chunk), out_placements=(heads,),
+        in_placements=(heads, per_head, a_heads, rows, rows),
+        in_grad_placements=(heads, per_head, a_grad, bc_grad, bc_grad),
+        device_mesh=shd.mesh, redistribute_inputs=True)(xs, dt, A, Bm, Cm)
+
+
+def mamba_block(p, cfg, x: torch.Tensor, shd: ShardCtx = NO_SHARD
+                ) -> torch.Tensor:
     """Full-sequence Mamba2 block (training / prefill)."""
     d_inner, H, N, conv_dim = dims(cfg)
     h = L.rmsnorm(x, p["norm"])
-    z, xBC, dt = _split_proj(p, cfg, h)
-    xBC = _causal_conv(xBC, p["conv_w"], p["conv_b"])
+    z, xBC, dt = _split_proj(p, cfg, h, shd)
+    xBC = _conv_over_rows(shd, xBC, p["conv_w"], p["conv_b"])
     xs = xBC[..., :d_inner].reshape(*x.shape[:2], H, cfg.ssm_head_dim)
     Bm = xBC[..., d_inner:d_inner + N]
     Cm = xBC[..., d_inner + N:]
     dt = F.softplus(dt.float() + p["dt_bias"])
     A = -torch.exp(p["A_log"].float())
-    y = _ssd_chunked(xs, dt, A, Bm, Cm, cfg.ssm_chunk)
+    y = _ssd_over_heads(shd, xs, dt, A, Bm, Cm, cfg.ssm_chunk)
     y = y + xs * p["D"][None, None, :, None].to(xs.dtype)
     y = y.reshape(*x.shape[:2], d_inner)
     y = L.rmsnorm(y * F.silu(z), p["out_norm"])
-    return x + y @ p["out_proj"]
+    return x + shd.shard(L.dense(y, p["out_proj"]), "batch", "act_seq",
+                         "act_embed")
 
 
 # ---------------------------------------------------------------------------
@@ -251,16 +303,16 @@ def build(cfg, tensors: dict) -> Model:
     return Model(cfg, layout(cfg), tensors, forward)
 
 
-def forward(params, cfg, tokens: torch.Tensor, last_only: bool = False
-            ) -> torch.Tensor:
+def forward(params, cfg, tokens: torch.Tensor, last_only: bool = False,
+            shd: ShardCtx = NO_SHARD) -> torch.Tensor:
     """tokens (B,S) -> logits (B,S,padded_vocab), (B,1,·) if last_only."""
-    x = L.embed(params["embed"], cfg, tokens)
-    body = TF._remat(lambda x, lp: mamba_block(lp, cfg, x), cfg.remat)
+    x = L.embed(params["embed"], cfg, tokens, shd)
+    body = TF._remat(lambda x, lp: mamba_block(lp, cfg, x, shd), cfg.remat)
     for lp in params["blocks"]:
         x = body(x, lp)
     if last_only:
         x = x[:, -1:]
-    return L.logits(params["embed"], cfg, x)
+    return L.logits(params["embed"], cfg, x, shd)
 
 
 def decode_step(params, cfg, cache: dict, tokens, pos):

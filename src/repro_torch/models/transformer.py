@@ -6,6 +6,8 @@ Layers run one after another over views of the stacked parameters
 `remat="full"` each layer is recomputed in the backward pass
 (`torch.utils.checkpoint`, non-reentrant), which keeps activation memory
 at one layer's footprint, as the reference's `jax.checkpoint` does.
+Over a mesh `forward` takes the model's DTensors and a `ShardCtx` (`shd`),
+threaded through every block and its recompute, as the reference's is.
 """
 from __future__ import annotations
 
@@ -17,7 +19,8 @@ from torch.utils.checkpoint import checkpoint
 
 from ..core.executor import resolve_device
 from . import layers as L
-from .common import Layout, Model, TensorView, stack_layers
+from .common import (NO_SHARD, Layout, Model, ShardCtx, TensorView,
+                     stack_layers)
 
 
 def block_layout(cfg) -> Layout:
@@ -75,9 +78,10 @@ class Block(TensorView):
         return block_apply(self, self.cfg, x, positions)
 
 
-def block_apply(p, cfg, x, positions) -> torch.Tensor:
-    x = L.self_attention(p["attn"], cfg, x, positions)
-    return L.swiglu(p["mlp"], x)
+def block_apply(p, cfg, x, positions, shd: ShardCtx = NO_SHARD
+                ) -> torch.Tensor:
+    x = L.self_attention(p["attn"], cfg, x, positions, shd)
+    return L.swiglu(p["mlp"], x, shd)
 
 
 def build(cfg, tensors: dict) -> Model:
@@ -88,19 +92,20 @@ def build(cfg, tensors: dict) -> Model:
                  {"blocks": partial(Block, cfg)})
 
 
-def forward(params, cfg, tokens: torch.Tensor, last_only: bool = False
-            ) -> torch.Tensor:
+def forward(params, cfg, tokens: torch.Tensor, last_only: bool = False,
+            shd: ShardCtx = NO_SHARD) -> torch.Tensor:
     """tokens (B,S) int32 -> logits (B,S,padded_vocab), (B,1,·) if last_only
     — prefill never materializes full-sequence logits."""
     B, S = tokens.shape
     positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
-    x = L.embed(params["embed"], cfg, tokens)
-    body = _remat(lambda x, lp: block_apply(lp, cfg, x, positions), cfg.remat)
+    x = L.embed(params["embed"], cfg, tokens, shd)
+    body = _remat(lambda x, lp: block_apply(lp, cfg, x, positions, shd),
+                  cfg.remat)
     for lp in params["blocks"]:
         x = body(x, lp)
     if last_only:
         x = x[:, -1:]
-    return L.logits(params["embed"], cfg, x)
+    return L.logits(params["embed"], cfg, x, shd)
 
 
 # ---------------------------------------------------------------------------
