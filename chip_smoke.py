@@ -253,6 +253,21 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
          equal to its plain version there.  Prints each rank's resident,
          peak and predicted memory (parameters, gradients and states over
          the shards their placements give);
+     7m. serving over a (data, model) mesh of ranks (`ServingEngine(mesh=)`,
+         `build_prefill(mesh=)`), spawned after 9m, each rank against the
+         one-process engines on its card (eager on the plain versions and
+         on the graph) from the same seed-made weights and 16 seeded
+         requests on 8 slots, max_seq 512 (`mesh_serving`, MESH_SERVE):
+         "a" full-size qwen2-0.5b on one NCCL rank, (1, 1): every
+         request's tokens and the first tick's logits bit for bit the
+         one-process engine's, and a 4 x 2,048 prefill's logits the
+         one-process prefill's; "b" mixtral-8x22b at its published widths,
+         depth 2, on one NCCL rank: the same, segment_histogram launched
+         (ticks x layers, counts zeroed just before the mesh engine's run,
+         read just after) on the rank's rows and equal to its plain
+         version there.  Prints the mesh tick's median (eager) beside the
+         one-process eager and graph ticks, each rank's resident and
+         predicted params + cache, its peak, the launches and the wall;
  10. the ssm, hybrid, encdec and vlm families at their published widths,
      after phase 9 (its memory freed), each through `api.prefill` /
      `api.decode_step`, a `ServingEngine` (eager on the plain versions
@@ -302,11 +317,12 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      11c. mamba2-370m x long_500k (B 1, ticks at positions 524,284-
          524,287), the same checks, its peak beside the prediction
          (printed, not gated);
- 12. one JSON line each of phases 3 / 3b / 3c, 3m, 6, 6e, 8, 9, 9m, 7, 10
+ 12. one JSON line each of phases 3 / 3b / 3c, 3m, 6, 6e, 8, 9, 9m, 7m, 7, 10
      and 11's numbers, one JSON line of per-kernel results (each with the
      path its launches were counted on: segment_histogram's is phase 9a's,
      its phase 7 count, host passes x layers, beside it as
-     `serve_launches`, phase 9m's mesh ranks' as `mesh_train_launches`),
+     `serve_launches`, phase 9m's mesh ranks' as `mesh_train_launches`,
+     phase 7m's as `mesh_serve_launches`),
      then the last line {"ok": true, "device": {...}}.
 
 Exits non-zero without printing a result when no CUDA device is present or
@@ -485,6 +501,27 @@ MESH_TRAIN = dict(
            backend="gloo", exact=False, one=True))
 MESH_TRAIN_DEADLINE_S = 300
 MESH_TRAIN_RTOL = 1e-5
+# Phase 7m: serving over a (data, model) mesh of ranks, spawned as 9m is,
+# each run against the one-process engines (eager on the plain versions
+# and on the graph) in the same rank, from the same seed-made weights and
+# requests.  "a": full-size qwen2-0.5b on one NCCL rank, (1, 1), 16
+# requests on 8 slots, max_seq 512, and a 4 x 2,048 `build_prefill(mesh=)`;
+# "b": mixtral-8x22b at its published widths, depth 2, on one NCCL rank,
+# segment_histogram launched on the rank's rows.  On one rank every
+# placement replicates, so tokens and logits are held bit for bit; the
+# sharded branches run on four cards (scripts/mesh_serve_cards.py), held
+# to `MESH_SERVE_LOGIT_RTOL`: the first tick's logits within 2^-4 of the
+# row's largest logit of the one-process engine's (bf16 through every
+# layer, summed in other orders over the ranks).
+MESH_SERVE = dict(
+    a=dict(arch="qwen2-0.5b", layers=None, shape=(1, 1), slots=8,
+           max_seq=512, n_requests=16, prompt_len=(8, 32),
+           new_tokens=(8, 24), prefill=(4, 2048), exact=True),
+    b=dict(arch="mixtral-8x22b", layers=2, shape=(1, 1), slots=8,
+           max_seq=512, n_requests=16, prompt_len=(8, 32),
+           new_tokens=(8, 24), prefill=None, exact=True))
+MESH_SERVE_DEADLINE_S = 300
+MESH_SERVE_LOGIT_RTOL = 2.0 ** -4
 MOE = dict(arch="mixtral-8x22b", n_layers=4, seed=0, prefill_batch=4,
            prefill_len=2048, prefill_reps=3, slots=8, max_seq=512,
            n_requests=24, prompt_len=(16, 128), new_tokens=(16, 64),
@@ -3894,6 +3931,337 @@ def mesh_training(card: str, runs: dict = MESH_TRAIN) -> dict:
     return out
 
 
+def first_tick_logits(eng, shd) -> torch.Tensor:
+    """The last-position logits of an engine's next tick (its host inputs
+    as they stand) on a copy of its cache: (B, V), whole on every rank."""
+    from repro_torch.models import api
+    from repro_torch.models.common import distribute_tree
+    toks = eng._tok_in.to(eng.device)
+    pos = eng._pos_in.to(eng.device)
+    if shd.mesh is not None:
+        toks = distribute_tree(toks, shd.placements(toks.shape, "batch",
+                                                    None), shd.mesh)
+        pos = distribute_tree(pos, shd.placements(pos.shape, "batch"),
+                              shd.mesh)
+    copy = {k: v.clone() for k, v in eng.cache.items()}
+    with torch.no_grad():
+        lg, _ = api.decode_step(eng.params, eng.cfg, copy, {"tokens": toks},
+                                pos, shd)
+    lg = lg[:, -1]
+    return lg.full_tensor() if shd.mesh is not None else lg
+
+
+def mesh_serve_rank(rank: int, world: int, run: str, spec: dict,
+                    out_dir: str) -> None:
+    """One rank of phase 7m (a spawned process; MESH_SERVE's form): the
+    one-process engines on the rank's card (eager on the plain versions,
+    then on the graph, `serve_both`), then a `ServingEngine(mesh=)` over
+    the same weights and requests, its ticks timed one by one, counts
+    zeroed just before its run and read just after; its tokens and first
+    tick's logits held to the graph engine's, its memory beside what the
+    placements predict, and where `spec["prefill"]`, a
+    `build_prefill(mesh=)` held to the one-process prefill.  Writes
+    rank<r>.json."""
+    import torch.distributed as dist
+    from repro_torch.configs import get
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_lm_mesh
+    from repro_torch.models import api
+    from repro_torch.models.common import NO_SHARD, ShardCtx, to_local
+    from repro_torch.serve import ServingEngine, build_prefill
+    from repro_torch.serve.serve_step import mesh_params
+    from repro_torch.tree import flatten
+
+    label = f"7m{run} rank {rank} of {world}"
+    t0 = time.perf_counter()
+    mesh = make_lm_mesh(spec["shape"], backend="nccl",
+                        init_method=f"file://{out_dir}/store", rank=rank,
+                        world_size=world, timeout_s=300)
+    t_mesh = time.perf_counter() - t0
+    try:
+        dev = torch.device("cuda", torch.cuda.current_device())
+        cfg = get(spec["arch"])
+        if spec["layers"]:
+            cfg = dataclasses.replace(cfg, n_layers=spec["layers"])
+        model = api.init_model(cfg, torch.Generator(device=dev).manual_seed(0),
+                               device=dev)
+        rng = np.random.default_rng(0)
+        lens = rng.integers(spec["prompt_len"][0], spec["prompt_len"][1] + 1,
+                            spec["n_requests"])
+        news = rng.integers(spec["new_tokens"][0], spec["new_tokens"][1] + 1,
+                            spec["n_requests"])
+        requests = [(rng.integers(0, cfg.vocab, n).tolist(), int(m))
+                    for n, m in zip(lens, news)]
+        slots, max_seq = spec["slots"], spec["max_seq"]
+        one, engines = serve_both(dev, cfg, model, slots, max_seq, requests,
+                                  "mesh-serve", f"7m{run} rank {rank} ")
+        want = [r.out for r in engines["graph"].queue]
+        del engines
+        fresh = ServingEngine(cfg, slots, max_seq, model, device=dev)
+        for p, m in requests:
+            fresh.submit(p, m)
+        fresh._admit()
+        lg_one = first_tick_logits(fresh, NO_SHARD)
+        del fresh
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+
+        # The mesh engine: counts zeroed just before its run, read after.
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        eng = ServingEngine(cfg, slots, max_seq, model, mesh=mesh)
+        torch.cuda.synchronize()
+        grown = torch.cuda.memory_allocated() - base
+        blocks = (list(flatten(eng.params.tree()).values())
+                  + list(eng.cache.values()))
+        resident = sum(to_local(t).numel() * t.element_size() for t in blocks)
+        predicted = 0
+        for t in blocks:
+            shards = int(np.prod([n for pl, n in zip(t.placements, mesh.shape)
+                                  if pl.is_shard()]))
+            predicted += t.numel() * t.element_size() / shards
+        reqs = [eng.submit(p, m) for p, m in requests]
+        eng._admit()
+        shd = ShardCtx(mesh, eng.fns.rules)
+        lg_mesh = first_tick_logits(eng, shd)
+        seen, ticks = [], []
+        kernel = ops.segment_histogram
+
+        def watched(values, n_bins, use_kernels=True):
+            out = kernel(values, n_bins, use_kernels=use_kernels)
+            if use_kernels and not seen:
+                seen.append((values.clone(), out.clone()))
+            return out
+
+        ops.segment_histogram = watched
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        tick_s, made_at = [], [[] for _ in reqs]   # the tick of each output
+        t0 = time.perf_counter()
+        try:
+            while any(not r.done for r in reqs):     # ServingEngine.run, timed
+                eng._admit()
+                t = time.perf_counter()
+                eng._tick()
+                tick_s.append(time.perf_counter() - t)
+                for r, at in zip(reqs, made_at):
+                    at += [eng.ticks] * (len(r.out) - len(at))
+        finally:
+            ops.segment_histogram = kernel
+        t_run = time.perf_counter() - t0
+        launches = dict(ops.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated() - base
+        got = [r.out for r in reqs]
+        # The first tick at which a request's token differs, if one does.
+        diverged = min((at[next(i for i, (a, b) in enumerate(zip(g, w))
+                                if a != b)]
+                        for g, w, at in zip(got, want, made_at) if g != w),
+                       default=None)
+        scale = float(lg_one.float().abs().max())
+        logit_err = float((lg_mesh.float() - lg_one.float()).abs().max())
+        check(all(len(r.out) == m for r, (_, m) in zip(reqs, requests)),
+              f"{label}: a request did not complete with its max_new_tokens")
+        check(eng.fns.eager_calls == eng.ticks and eng.fns.captures == 0
+              and eng.fns.replays == 0,
+              f"{label}: eager / captures / replays {eng.fns.eager_calls} / "
+              f"{eng.fns.captures} / {eng.fns.replays} over {eng.ticks} ticks")
+        if spec["exact"]:
+            check(got == want, f"{label}: tokens differ from the one-process "
+                  f"engine's from tick {diverged} on")
+            check(torch.equal(lg_mesh, lg_one), f"{label}: the first tick's "
+                  f"logits differ from the one-process engine's by "
+                  f"{logit_err!r}")
+        else:
+            check(logit_err <= MESH_SERVE_LOGIT_RTOL * scale,
+                  f"{label}: the first tick's logits differ by {logit_err!r} "
+                  f"from the one-process engine's (scale {scale!r})")
+        if cfg.family == "moe":
+            want_n = eng.ticks * cfg.n_layers
+            check(launches["segment_histogram"] == want_n and seen,
+                  f"{label}: segment_histogram launched "
+                  f"{launches['segment_histogram']} times, not {want_n}")
+            values, out = seen[0]
+            rows = (slots // mesh.shape[0] if slots % mesh.shape[0] == 0
+                    else slots)
+            check(values.numel() == rows * cfg.topk,
+                  f"{label}: the kernel saw {values.numel()} routed copies, "
+                  f"not this rank's rows' {rows * cfg.topk}")
+            check(torch.equal(out, kernel(values, cfg.n_experts,
+                                          use_kernels=False)),
+                  f"{label}: segment_histogram differs from its plain "
+                  f"version on the rank's rows")
+        prefill = None
+        if spec["prefill"]:
+            B, S = spec["prefill"]
+            prompts = torch.from_numpy(rng.integers(0, cfg.vocab, (B, S))
+                                       .astype(np.int32)).to(dev)
+            fp = build_prefill(cfg, mesh=mesh)
+            mp = mesh_params(cfg, model, fp)
+            one_fp = build_prefill(cfg, device=dev)
+            times = {}
+            outs = {}
+            for name, fn, params in (("one", one_fp, model), ("mesh", fp, mp)):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                outs[name] = fn.prefill(params, {"tokens": prompts})
+                torch.cuda.synchronize()
+                times[name] = time.perf_counter() - t0
+            err = float((outs["mesh"].float() - outs["one"].float()).abs()
+                        .max())
+            if spec["exact"]:
+                check(torch.equal(outs["mesh"], outs["one"]),
+                      f"{label}: prefill logits differ from the one-process "
+                      f"prefill's by {err!r}")
+            else:
+                pscale = float(outs["one"].float().abs().max())
+                check(err <= MESH_SERVE_LOGIT_RTOL * pscale,
+                      f"{label}: prefill logits differ by {err!r} (scale "
+                      f"{pscale!r})")
+            check(bool(torch.isfinite(outs["mesh"]).all()),
+                  f"{label}: prefill logits not finite")
+            prefill = dict(shape=[B, S], mesh_ms=times["mesh"] * 1e3,
+                           one_ms=times["one"] * 1e3, max_abs_err=err)
+            del outs, mp
+        # Where a mesh tick's time goes (not counted), after the prefill
+        # (a profile's summary holds a rank back from the next
+        # collective): the collectives one decode step issues
+        # (CommDebugMode) and a profile of two more, on every rank in
+        # step; rank 0's printed.
+        from torch.distributed.tensor.debug import CommDebugMode
+        from torch.profiler import ProfilerActivity, profile
+        toks = torch.from_numpy(eng.next_tok[:, None].copy())
+        pos = torch.from_numpy(np.minimum(eng.pos, max_seq - 1))
+
+        def step():
+            return eng.fns.decode(eng.params, eng.cache, toks, pos)[0]
+
+        with CommDebugMode() as comm:
+            step()
+        comms = {str(k).rsplit(".", 1)[-1]: v
+                 for k, v in comm.get_comm_counts().items()}
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(2):
+                step()
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        # Device kernels only: NCCL's "nccl:<op>" ranges repeat its
+        # kernels' time.  An NCCL kernel's time includes its wait for the
+        # other ranks to launch theirs.
+        events = [e for e in prof.key_averages()
+                  if "CUDA" in str(getattr(e, "device_type", ""))
+                  and not e.key.startswith("nccl:")]
+        busy_us = sum(e.self_device_time_total for e in events)
+        nccl_us = sum(e.self_device_time_total for e in events
+                      if "nccl" in e.key.lower())
+        top = [[e.key[:60], e.self_device_time_total / 1e3] for e in sorted(
+            events, key=lambda e: -e.self_device_time_total)[:5]]
+        tick_profile = dict(wall_ms=wall_us / 1e3, busy_ms=busy_us / 1e3,
+                            nccl_ms=nccl_us / 1e3,
+                            busy_share=busy_us / wall_us if events else None,
+                            top=top, comms=comms)
+        result = dict(
+            rank=rank, world=world, device=str(dev), mesh_s=t_mesh,
+            coordinate=list(mesh.get_coordinate()), ticks=eng.ticks,
+            tick_median_ms=float(np.median(tick_s)) * 1e3,
+            run_s=t_run, decode_tokens_per_s=eng.tokens_out / t_run,
+            one_eager_tick_ms=one["eager"]["tick_median_ms"],
+            one_graph_tick_ms=one["graph"]["tick_median_ms"],
+            launches=launches["segment_histogram"],
+            resident_gb=resident / 1e9, predicted_gb=predicted / 1e9,
+            allocated_growth_gb=grown / 1e9, peak_gb=peak / 1e9,
+            first_tick_logit_err=logit_err, logit_scale=scale,
+            diverged_at_tick=diverged,
+            prefill=prefill, tick_profile=tick_profile)
+        (Path(out_dir) / f"rank{rank}.json").write_text(json.dumps(result))
+    finally:
+        dist.destroy_process_group()
+
+
+def mesh_serving(card: str, runs: dict = MESH_SERVE) -> dict:
+    """Phase 7m: `ServingEngine(mesh=)` and `build_prefill(mesh=)` over a
+    (data, model) mesh of NCCL ranks, rank r on card r, each run of `runs`
+    spawned and joined with a deadline (`mesh_serve_rank`)."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    torch.cuda.synchronize()
+    print(f"[mesh-serve] {torch.cuda.memory_allocated() / 1e9:.2f} GB "
+          f"allocated before the ranks start")
+    out = {"launches": []}
+    for run, spec in runs.items():
+        world = int(np.prod(spec["shape"]))
+        with tempfile.TemporaryDirectory() as tmp:
+            t0 = time.perf_counter()
+            ctx = mp.start_processes(mesh_serve_rank,
+                                     args=(world, run, spec, tmp),
+                                     nprocs=world, join=False,
+                                     start_method="spawn")
+            deadline = time.monotonic() + MESH_SERVE_DEADLINE_S
+            try:
+                while not ctx.join(timeout=5):
+                    check(time.monotonic() < deadline, f"7m{run}: ranks "
+                          f"still running at the deadline")
+            finally:
+                for p in ctx.processes:
+                    if p.is_alive():
+                        p.kill()
+                        p.join()
+            ranks = [json.loads((Path(tmp) / f"rank{r}.json").read_text())
+                     for r in range(world)]
+            wall = time.perf_counter() - t0
+        name = spec["arch"] + (f" (depth {spec['layers']})"
+                               if spec["layers"] else "")
+        for r in ranks:
+            pre = r["prefill"]
+            print(f"[mesh-serve] {card}: 7m{run} {name} nccl rank "
+                  f"{r['rank']} of {world} at {tuple(r['coordinate'])} of "
+                  f"{spec['shape']}: {spec['n_requests']} requests on "
+                  f"{spec['slots']} slots, max_seq {spec['max_seq']}, "
+                  f"{r['ticks']} ticks; median tick {r['tick_median_ms']:.2f} "
+                  f"ms over the mesh (eager) beside one process "
+                  f"{r['one_eager_tick_ms']:.2f} (eager, plain) and "
+                  f"{r['one_graph_tick_ms']:.2f} (graph); "
+                  f"{r['decode_tokens_per_s']:.1f} decode tokens/s; "
+                  f"segment_histogram launches {r['launches']}; params + "
+                  f"cache resident {r['resident_gb']:.4f} GB (predicted "
+                  f"{r['predicted_gb']:.4f}, allocated by the engine "
+                  f"{r['allocated_growth_gb']:.4f}), peak "
+                  f"{r['peak_gb']:.4f} GB over the engine's start; first "
+                  f"tick's logits max |diff| {r['first_tick_logit_err']!r} "
+                  f"(largest logit {r['logit_scale']:.3f}); tokens first "
+                  f"differ at tick {r['diverged_at_tick']}"
+                  + ("" if pre is None else
+                     f"; prefill {pre['shape'][0]} x {pre['shape'][1]} "
+                     f"{pre['mesh_ms']:.1f} ms over the mesh, "
+                     f"{pre['one_ms']:.1f} ms in one process, max |diff| "
+                     f"{pre['max_abs_err']!r}"))
+        tp = ranks[0]["tick_profile"]
+        print(f"[mesh-serve] 7m{run} rank 0: a decode step issues "
+              f"{tp['comms']}; 2 steps profiled: wall {tp['wall_ms']:.1f} "
+              f"ms, device kernels {tp['busy_ms']:.1f} ms ("
+              + ("not measured" if tp["busy_share"] is None else
+                 f"{100 * tp['busy_share']:.1f} %")
+              + f"), of it NCCL's {tp['nccl_ms']:.1f} ms (waits for the "
+              f"other ranks included); top device operations {tp['top']}")
+        prefilled = " and the prefill's" if spec["prefill"] else ""
+        held = (f"every request's tokens, the first tick's logits{prefilled}"
+                f" bit for bit the one-process engine's" if spec["exact"] else
+                f"the first tick's logits{prefilled} within "
+                f"{MESH_SERVE_LOGIT_RTOL} of the largest logit of the "
+                f"one-process engine's")
+        print(f"[mesh-serve] 7m{run}: {held}; {wall:.1f} s with the spawn")
+        if spec["arch"] == "mixtral-8x22b":
+            out["launches"] += [r["launches"] for r in ranks]
+        out[run] = dict(wall_s=wall, arch=spec["arch"],
+                        shape=list(spec["shape"]), ranks=ranks)
+    return out
+
+
 def family_cell(dev, spec) -> dict:
     """Phase 10's cell `spec`: serve (prefill, decode, and a
     `ServingEngine` eager on the plain versions and on its CUDA graph) and
@@ -4439,6 +4807,11 @@ def main() -> int:
     print(f"[mesh-train] phase 9m took {time.perf_counter() - t9m:.1f} s")
     gc.collect()
     torch.cuda.empty_cache()
+    t7m = time.perf_counter()
+    mesh_serve = mesh_serving(card)
+    print(f"[mesh-serve] phase 7m took {time.perf_counter() - t7m:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
     print(f"[family] training phases freed: "
           f"{torch.cuda.memory_allocated() / 1e9:.2f} GB still allocated")
     t10 = time.perf_counter()
@@ -4472,6 +4845,12 @@ def main() -> int:
             kernels[-1]["serve_launches"] = serve["launches"][name]
             # Phase 9m's mesh step: each rank's launches on its rows.
             kernels[-1]["mesh_train_launches"] = mesh_train["launches"]
+            # Phase 7m's mesh engine: each rank's launches on its rows.
+            kernels[-1]["mesh_serve_launches"] = mesh_serve["launches"]
+            check(mesh_serve["launches"] and all(
+                n > 0 for n in mesh_serve["launches"]),
+                f"segment_histogram launched {mesh_serve['launches']} times "
+                f"by phase 7m's ranks")
     check(all(kn["launches"] > 0 for kn in kernels), "a kernel never launched")
     print(f"[done] all phases passed in {t_end - t_start:.1f} s (phases 7, "
           f"9, 10 and 11 {t_end - t7:.1f} s)")
@@ -4484,6 +4863,7 @@ def main() -> int:
     print(json.dumps({"training": {"moe_train": {
         k: v for k, v in train.items() if k != "launches"}, "driver": driver}}))
     print(json.dumps({"mesh_training": mesh_train}))
+    print(json.dumps({"mesh_serving": mesh_serve}))
     print(json.dumps({"moe_serve": serve["summary"]}))
     print(json.dumps({"lm_families": families}))
     print(json.dumps({"dryrun": shapes}))

@@ -1,0 +1,70 @@
+#!/usr/bin/env python3
+"""The LM's serving over (data, model) meshes of NCCL ranks, one rank a
+card, on four NVIDIA GPUs of one host: chip_smoke.py phase 7m's rank body
+(`mesh_serve_rank`) on the meshes that one card cannot hold (a mesh axis
+of one rank replicates, and gloo ranks cannot share a card: see
+chip_smoke.py's MESH_TRAIN).
+
+    python3 scripts/mesh_serve_cards.py [--runs c,d]
+
+Runs (bf16 weights from a seeded generator, every rank against the
+one-process engines on its own card from the same weights and requests):
+  c  qwen3-14b at its published size (40 layers, 8 KV heads: the cache's
+     KV heads split over "model") at (2, 2): a 4 x 2,048
+     `build_prefill(mesh=)`, then 16 requests on 8 slots, max_seq 4,096;
+  d  qwen2-0.5b at its published size (2 KV heads on a model axis of 4:
+     the cache's sequence split over "model", each rank attending its
+     part of the positions) at (1, 4): 16 requests on 8 slots, max_seq
+     512.
+Each rank's first tick's logits and prefill logits are held within
+`MESH_SERVE_LOGIT_RTOL` of the largest logit of the one-process
+engine's; the script prints, for each rank, its resident parameters and
+cache beside what the placements predict, its peak, the median ticks
+(over the mesh, eager; in one process, eager on the plain versions and
+on the graph) and the tick at which its tokens first differ from the
+one-process engine's, if they do; then one JSON line.  Exits 1 if a
+check fails.  Needs four cards.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+RUNS = dict(
+    c=dict(arch="qwen3-14b", layers=None, shape=(2, 2), slots=8,
+           max_seq=4096, n_requests=16, prompt_len=(8, 32),
+           new_tokens=(8, 24), prefill=(4, 2048), exact=False),
+    d=dict(arch="qwen2-0.5b", layers=None, shape=(1, 4), slots=8,
+           max_seq=512, n_requests=16, prompt_len=(8, 32),
+           new_tokens=(8, 24), prefill=None, exact=False))
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--runs", default="c,d")
+    args = ap.parse_args()
+    if torch.cuda.device_count() < 4:
+        print("mesh_serve_cards: needs four cards", file=sys.stderr)
+        return 1
+    sys.path[:0] = [str(ROOT), str(ROOT / "src")]
+    import chip_smoke as cs
+    from repro_torch.kernels import _build
+    _build.lib()
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    print(card)
+    out = cs.mesh_serving(card, {r: RUNS[r] for r in args.runs.split(",")})
+    print(json.dumps({"mesh_serve_cards": out}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -18,10 +18,12 @@ changes no number.
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import TYPE_CHECKING
 
 import numpy as np
 
-from ..ckpt.checkpoint import Checkpointer
+if TYPE_CHECKING:      # the checkpointer imports DTensor and the LM's layouts
+    from ..ckpt.checkpoint import Checkpointer
 
 
 @dataclass(frozen=True)

@@ -10,10 +10,10 @@ and serve code never branch on family:
 
 forward(...) -> (logits, aux) where aux = {} or MoE stats (aux_loss enters the
 training loss; expert_load feeds the SkewShares re-planner).  Over a mesh
-`forward` takes a `common.ShardCtx` (`shd`) and the dense, MoE and SSM
-families run on the model's DTensors, plain tensors among them (positions,
-masks) taken as replicated; the hybrid, enc-dec and VLM families are not
-trained over a mesh yet and refuse one.
+`forward`, `decode_step` and `prefill` take a `common.ShardCtx` (`shd`) and
+the dense, MoE and SSM families run on the model's DTensors, plain tensors
+among them (positions, masks) taken as replicated; the hybrid, enc-dec and
+VLM families do not run over a mesh yet and refuse one.
 """
 from __future__ import annotations
 
@@ -73,13 +73,19 @@ def _frontend(cfg, batch: dict) -> tuple:
 MESH_FAMILIES = ("dense", "moe", "ssm")
 
 
-def forward(params, cfg, batch: dict, last_only: bool = False,
-            shd: ShardCtx = NO_SHARD) -> tuple[torch.Tensor, dict[str, Any]]:
-    m = family_module(cfg)
-    if shd.mesh is not None and cfg.family not in MESH_FAMILIES:
+def check_mesh_family(cfg) -> None:
+    """Raise unless the config's family runs over a mesh."""
+    if cfg.family not in MESH_FAMILIES:
         raise NotImplementedError(
             f"the {cfg.family} family does not run over a mesh yet "
             f"(families over a mesh: {MESH_FAMILIES})")
+
+
+def forward(params, cfg, batch: dict, last_only: bool = False,
+            shd: ShardCtx = NO_SHARD) -> tuple[torch.Tensor, dict[str, Any]]:
+    m = family_module(cfg)
+    if shd.mesh is not None:
+        check_mesh_family(cfg)
     with mesh_context(shd):
         if cfg.family == "moe":
             return m.forward(params, cfg, batch["tokens"], last_only=last_only,
@@ -103,11 +109,25 @@ def init_cache(cfg, batch: int, max_seq: int, dtype=torch.bfloat16, *,
                                          device=device)
 
 
-def decode_step(params, cfg, cache, batch: dict, pos):
-    return family_module(cfg).decode_step(params, cfg, cache, batch["tokens"],
-                                          pos)
+def decode_step(params, cfg, cache, batch: dict, pos,
+                shd: ShardCtx = NO_SHARD):
+    """One decode step: (logits (B,1,V), cache).  Over a mesh
+    the cache is DTensors of `serve_step.cache_placements` and the tokens
+    and positions DTensors split as the cache's rows."""
+    m = family_module(cfg)
+    if shd.mesh is None:
+        return m.decode_step(params, cfg, cache, batch["tokens"], pos)
+    check_mesh_family(cfg)
+    with mesh_context(shd):
+        return m.decode_step(params, cfg, cache, batch["tokens"], pos,
+                             shd=shd)
 
 
-def prefill(params, cfg, batch: dict, cache):
-    return family_module(cfg).prefill(params, cfg, batch["tokens"],
-                                      *_frontend(cfg, batch), cache)
+def prefill(params, cfg, batch: dict, cache, shd: ShardCtx = NO_SHARD):
+    m = family_module(cfg)
+    if shd.mesh is None:
+        return m.prefill(params, cfg, batch["tokens"], *_frontend(cfg, batch),
+                         cache)
+    check_mesh_family(cfg)
+    with mesh_context(shd):
+        return m.prefill(params, cfg, batch["tokens"], cache, shd=shd)

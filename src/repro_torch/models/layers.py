@@ -26,11 +26,11 @@ from __future__ import annotations
 from typing import Any
 
 import torch
-from torch.distributed.tensor import DTensor, Partial, Replicate
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.distributed.tensor.experimental import local_map
 from torch.nn import functional as F
 
-from .common import NO_SHARD, PDef, ShardCtx, local_block
+from .common import NO_SHARD, PDef, ShardCtx, local_block, to_local
 
 NEG_INF = -2.0e38
 
@@ -124,15 +124,29 @@ def _qkv(p, cfg, x, positions):
     v = dense(x, p["wv"])
     if cfg.qkv_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    q = q.reshape(B, S, cfg.n_heads, hd)
-    k = k.reshape(B, S, cfg.n_kv_heads, hd)
-    v = v.reshape(B, S, cfg.n_kv_heads, hd)
+    q = _split_heads(q, cfg.n_heads, hd)
+    k = _split_heads(k, cfg.n_kv_heads, hd)
+    v = _split_heads(v, cfg.n_kv_heads, hd)
     if cfg.qk_norm:
         q = rmsnorm(q, p["q_norm"])
         k = rmsnorm(k, p["k_norm"])
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
+
+
+def _split_heads(t: torch.Tensor, n: int, hd: int) -> torch.Tensor:
+    """(B, S, n·hd) -> (B, S, n, hd).  Over a mesh, where a mesh dimension
+    splits the last dimension but not into whole heads (2 KV heads over 4
+    ranks), that dimension is gathered first: DTensor cannot unflatten a
+    dimension split unevenly."""
+    if isinstance(t, DTensor) and any(
+            pl.is_shard(t.ndim - 1) and n % t.device_mesh.size(i)
+            for i, pl in enumerate(t.placements)):
+        t = t.redistribute(t.device_mesh, tuple(
+            Replicate() if pl.is_shard(t.ndim - 1) and n % t.device_mesh.size(i)
+            else pl for i, pl in enumerate(t.placements)))
+    return t.reshape(*t.shape[:-1], n, hd)
 
 
 def _group_q(q: torch.Tensor, n_kv: int) -> torch.Tensor:
@@ -294,31 +308,169 @@ def decode_attention(p, cfg, x, cache_k, cache_v, pos, write_pos=None,
     returns (y, cache_k, cache_v).
     """
     B = x.shape[0]
-    hd = cfg.hd()
     if write_pos is None:
         write_pos = pos
     h = rmsnorm(x, p["norm"])
     q, k, v = _qkv(p, cfg, h, pos[:, None])
-    bidx = torch.arange(B, device=x.device)
-    cache_k[bidx, write_pos.long()] = k[:, 0].to(cache_k.dtype)
-    cache_v[bidx, write_pos.long()] = v[:, 0].to(cache_v.dtype)
-    if kv_valid is None:
-        kpos = torch.arange(cache_k.shape[1], device=x.device)[None, :]
-        ok = kpos <= pos[:, None]
-        if cfg.sliding_window:
-            ok &= kpos > (pos[:, None] - cfg.sliding_window)
-    else:
-        ok = kv_valid
-    # JAX promotes an f32 query against a bf16 cache to f32; so does this.
+    _write_rows(cache_k, write_pos.long(), k)
+    _write_rows(cache_v, write_pos.long(), v)
+    ok = (_decode_mask(cfg, pos, cache_k.shape[1]) if kv_valid is None
+          else kv_valid)
+    o = _attend_cache(q, cache_k, cache_v, ok, x.dtype)
+    return x + o.reshape(B, 1, -1) @ p["wo"], cache_k, cache_v
+
+
+def _write_rows(cache, at, new, held=None) -> None:
+    """cache[b, at[b]] = new[b, 0] (cast to the cache's dtype) for every
+    row b, in place; where `held` is given, only the rows it marks (the
+    others keep their value)."""
+    bidx = torch.arange(cache.shape[0], device=cache.device)
+    new = new[:, 0].to(cache.dtype)
+    if held is not None:
+        new = torch.where(held[:, None, None], new, cache[bidx, at])
+    cache[bidx, at] = new
+
+
+def _decode_mask(cfg, pos, n: int, lo: int = 0) -> torch.Tensor:
+    """(B, n): which of the cache positions [lo, lo + n) each row's query
+    at `pos` sees (causal, and the sliding window)."""
+    kpos = (lo + torch.arange(n, device=pos.device))[None, :]
+    ok = kpos <= pos[:, None]
+    if cfg.sliding_window:
+        ok &= kpos > (pos[:, None] - cfg.sliding_window)
+    return ok
+
+
+def _cache_logits(q, cache_k, ok) -> torch.Tensor:
+    """(B, kv, rep, 1, Smax) float32 scaled logits of the queries q
+    (B,1,H,hd) against the cache's keys, NEG_INF where `ok` is False.  JAX
+    promotes an f32 query against a bf16 cache to f32; so does this."""
+    hd = q.shape[-1]
     ct = torch.promote_types(q.dtype, cache_k.dtype)
-    qg = _group_q(q, cfg.n_kv_heads)                   # (B,1,kv,rep,hd)
+    qg = _group_q(q, cache_k.shape[2])                 # (B,1,kv,rep,hd)
     logits = torch.einsum("bqgrd,bkgd->bgrqk", qg.to(ct), cache_k.to(ct)
                           ).float() / (hd ** 0.5)
-    logits = torch.where(ok[:, None, None, None, :], logits, NEG_INF)
-    probs = torch.softmax(logits, dim=-1).to(x.dtype)
+    return torch.where(ok[:, None, None, None, :], logits, NEG_INF)
+
+
+def _attend_cache(q, cache_k, cache_v, ok, dtype) -> torch.Tensor:
+    """Softmax attention of q (B,1,H,hd) over the cache: (B,1,kv,rep,hd),
+    the probabilities in `dtype`."""
+    probs = torch.softmax(_cache_logits(q, cache_k, ok), dim=-1).to(dtype)
     pt = torch.promote_types(probs.dtype, cache_v.dtype)
-    o = torch.einsum("bgrqk,bkgd->bqgrd", probs.to(pt), cache_v.to(pt))
-    return x + o.reshape(B, 1, -1) @ p["wo"], cache_k, cache_v
+    return torch.einsum("bgrqk,bkgd->bqgrd", probs.to(pt), cache_v.to(pt))
+
+
+def _cache_parts(placements) -> tuple[tuple, tuple, tuple[bool, ...]]:
+    """From a stacked cache's placements (L, B, Smax, kv, hd), one a mesh
+    dimension: a layer's rows placements (B, ...), its query placements
+    (B, 1, H, hd; the heads split where the KV heads are) and which mesh
+    dimensions split the sequence."""
+    rows = tuple(Shard(0) if c.is_shard(1) else Replicate()
+                 for c in placements)
+    heads = tuple(Shard(2) if c.is_shard(3) else r
+                  for c, r in zip(placements, rows))
+    return rows, heads, tuple(c.is_shard(2) for c in placements)
+
+
+def decode_attention_over_mesh(p, cfg, x, cache_k, cache_v, layer: int, pos,
+                               shd: ShardCtx) -> torch.Tensor:
+    """`decode_attention` over a mesh: x (B,1,d) and pos (B,) DTensors;
+    cache_k and cache_v the stacked caches (L,B,Smax,kv,hd), DTensors of
+    the placements `serve_step.cache_placements` gives them (rows over DP,
+    the KV heads over "model" or, where those cannot take it, the
+    sequence).  Each rank writes the new key and value of its rows and
+    heads into its block of layer `layer` in place, where its block holds
+    the position, and attends its queries against its block (`local_map`s
+    on the blocks: DTensor's indexing of sharded tensors is not relied
+    on).  Over a sequence split each rank's logits go through a
+    log-sum-exp combination: their maximum over the split (a partial max),
+    then each rank's sum of exp(logit - max) and of the values so
+    weighted, partial sums over the split, summed and divided.  Returns
+    x + the attention's output projected."""
+    mesh = shd.mesh
+    B = x.shape[0]
+    h = rmsnorm(x, p["norm"])
+    q, k, v = _qkv(p, cfg, h, pos[:, None])
+    lo = local_block(cache_k.shape, cache_k.placements, mesh)[1][2]
+    ck, cv = to_local(cache_k)[layer], to_local(cache_v)[layer]
+    rows, heads, split = _cache_parts(cache_k.placements)
+    if not any(split):
+        def attend(q, k, v, pos):
+            _write_rows(ck, pos.long(), k)
+            _write_rows(cv, pos.long(), v)
+            o = _attend_cache(q, ck, cv, _decode_mask(cfg, pos, ck.shape[1]),
+                              x.dtype)
+            return o.reshape(*q.shape)
+
+        o = local_map(attend, out_placements=(heads,),
+                      in_placements=(heads, heads, heads, rows),
+                      device_mesh=mesh, redistribute_inputs=True)(q, k, v, pos)
+    else:
+        o = _split_attention(cfg, q, k, v, pos, ck, cv, lo, rows, heads,
+                             split, x.dtype, mesh)
+    o = o.reshape(B, 1, -1)
+    return x + shd.shard(dense(o, p["wo"]), "batch", "act_seq", "act_embed")
+
+
+def _split_attention(cfg, q, k, v, pos, ck, cv, lo: int, rows, heads, split,
+                     dtype, mesh):
+    """Attention over a cache whose sequence is split (positions [lo, lo +
+    ck.shape[1]) on this rank): see `decode_attention_over_mesh`."""
+    def over(kv_dim: int, split_as) -> tuple:
+        """Placements of a tensor with its rows at dimension 0 and its KV
+        heads at `kv_dim`, `split_as` on the dimensions that split the
+        sequence."""
+        return tuple(split_as if s else Shard(kv_dim) if hp.is_shard(2)
+                     else r for s, hp, r in zip(split, heads, rows))
+
+    whole = over(1, Replicate())
+
+    def scores(q, k, v, pos):
+        at = pos.long() - lo
+        held = (at >= 0) & (at < ck.shape[1])
+        at = at.clamp(0, ck.shape[1] - 1)
+        _write_rows(ck, at, k, held)
+        _write_rows(cv, at, v, held)
+        lg = _cache_logits(q, ck, _decode_mask(cfg, pos, ck.shape[1], lo))
+        return lg, lg.amax(dim=-1, keepdim=True)
+
+    logits, m = local_map(
+        scores, out_placements=(over(1, Shard(4)),
+                                over(1, Partial("max"))),
+        in_placements=(heads, heads, heads, rows), device_mesh=mesh,
+        redistribute_inputs=True)(q, k, v, pos)
+    m = m.redistribute(mesh, whole)
+
+    def weigh(lg, m):
+        w = torch.exp(lg - m)                   # 0 where masked
+        return w.sum(dim=-1), torch.einsum("bgrqk,bkgd->bqgrd", w, cv.float())
+
+    l, o = local_map(weigh, out_placements=(over(1, Partial()),
+                                            over(2, Partial())),
+                     in_placements=(logits.placements, whole),
+                     device_mesh=mesh)(logits, m)
+    l = l.redistribute(mesh, over(1, Replicate()))
+    o = o.redistribute(mesh, over(2, Replicate()))
+    return local_map(
+        lambda o, l: (o / l.permute(0, 3, 1, 2)[..., None]).to(dtype).reshape(
+            o.shape[0], 1, -1, o.shape[-1]),
+        out_placements=(heads,), in_placements=(o.placements, l.placements),
+        device_mesh=mesh)(o, l)
+
+
+def fill_cache_over_mesh(cache, layer: int, new) -> None:
+    """cache[layer, :, :S] = new (B,S,kv,hd), a DTensor, over a mesh: each
+    rank writes the rows, heads and positions its block of the stacked
+    cache (a DTensor of `serve_step.cache_placements`) holds, in place."""
+    mesh = cache.device_mesh
+    heads = _cache_parts(cache.placements)[1]
+    lo = local_block(cache.shape, cache.placements, mesh)[1][2]
+    block = to_local(cache)[layer]
+    mine = new.redistribute(mesh, heads).to_local()
+    hi = min(lo + block.shape[1], new.shape[1])
+    if hi > lo:
+        block[:, :hi - lo] = mine[:, lo:hi].to(block.dtype)
 
 
 # ---------------------------------------------------------------------------

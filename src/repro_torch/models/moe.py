@@ -207,16 +207,26 @@ def _expert_ffn_over_slots(p, xe, shd: ShardCtx):
     """`_expert_ffn` on each rank's rows and slots: each slot's weights are
     gathered over the FSDP axis only (the "experts" axis stays split), and
     each rank's gradient of them, from its own rows, is a partial sum over
-    the data ranks, reduce-scattered back into the weights' placements."""
+    the data ranks, reduce-scattered back into the weights' placements.
+    Where the rules split the slots' hidden dimension ("expert_ffn", over
+    "data" under the serve rules) each rank keeps its slice of it: the
+    rows are gathered over that axis and each rank's output is a partial
+    sum over it."""
     mesh = shd.mesh
     ws = [p[k] for k in ("w1", "w3", "w2")]
-    full = [shd.placements(w.shape, "experts", None, None) for w in ws]
+    full = [shd.placements(w.shape, "experts", *axes) for w, axes in
+            zip(ws, ((None, "expert_ffn"),) * 2 + (("expert_ffn", None),))]
+    hidden = [pl.is_shard() and pl.dim != 0 for pl in full[0]]
+    rows = tuple(Replicate() if h else pl
+                 for h, pl in zip(hidden, xe.placements))
+    out = tuple(Partial() if h else pl for h, pl in zip(hidden, xe.placements))
     grad = [tuple(Partial() if isinstance(r, Shard) and not isinstance(f, Shard)
-                  else f for r, f in zip(xe.placements, pl)) for pl in full]
+                  else f for r, f in zip(rows, pl)) for pl in full]
     return local_map(
-        _expert_ffn, out_placements=(xe.placements,),
-        in_placements=(xe.placements, *full),
-        in_grad_placements=(xe.placements, *grad), device_mesh=mesh)(
+        _expert_ffn, out_placements=(out,),
+        in_placements=(rows, *full),
+        in_grad_placements=(out, *grad), device_mesh=mesh,
+        redistribute_inputs=True)(
         xe, *(w.redistribute(mesh, pl) for w, pl in zip(ws, full)))
 
 
@@ -317,18 +327,25 @@ def init_cache(cfg, batch: int, max_seq: int, dtype=torch.bfloat16, *,
     return TF.init_cache(cfg, batch, max_seq, dtype, device=device)
 
 
+def cache_axes(cfg) -> dict:
+    return TF.cache_axes(cfg)
+
+
 def decode_step(params, cfg, cache, tokens, pos,
-                plan: MoEDispatchPlan | None = None):
+                plan: MoEDispatchPlan | None = None, shd: ShardCtx = NO_SHARD):
     """tokens (B,1), pos (B,) -> (logits (B,1,V), cache).  Each layer's new
     key and value go into `cache` in place."""
     plan = plan or build_plan(cfg)
     return TF.decode_layers(params, cfg, cache, tokens, pos, lambda lp, x: moe_ffn(
-        lp["moe"], cfg, plan, x, use_kernels=params.use_kernels)[0])
+        lp["moe"], cfg, plan, x, use_kernels=params.use_kernels, shd=shd)[0],
+        shd)
 
 
-def prefill(params, cfg, tokens, cache, plan: MoEDispatchPlan | None = None):
+def prefill(params, cfg, tokens, cache, plan: MoEDispatchPlan | None = None,
+            shd: ShardCtx = NO_SHARD):
     """Fill `cache[:, :, :S]` in place from a whole prompt (B,S); returns
     (last-position logits (B,1,V), cache)."""
     plan = plan or build_plan(cfg)
     return TF.prefill_layers(params, cfg, tokens, cache, lambda lp, x: moe_ffn(
-        lp["moe"], cfg, plan, x, use_kernels=params.use_kernels)[0])
+        lp["moe"], cfg, plan, x, use_kernels=params.use_kernels, shd=shd)[0],
+        shd)

@@ -27,7 +27,8 @@ the block's output is pinned at the reference's one site.
 
 The model is a `common.Model`: `blocks` stacked on a leading layer axis,
 `model.blocks[i]` layer i.  `decode_step` writes each layer's `ssm` and
-`conv` state into the stacked cache in place.
+`conv` state into the stacked cache in place; over a mesh each rank its
+block of them (`decode_over_mesh`).
 """
 from __future__ import annotations
 
@@ -39,7 +40,8 @@ from torch.nn import functional as F
 from ..core.executor import resolve_device
 from . import layers as L
 from . import transformer as TF
-from .common import NO_SHARD, Layout, Model, PDef, ShardCtx, stack_layers
+from .common import (NO_SHARD, Layout, Model, PDef, ShardCtx, local_block,
+                     stack_layers, to_local)
 
 
 def dims(cfg) -> tuple[int, int, int, int]:
@@ -257,6 +259,12 @@ def init_cache(cfg, batch: int, max_seq: int, dtype=torch.bfloat16, *,
                             n=cfg.n_layers)
 
 
+def cache_axes(cfg) -> dict:
+    """The logical axes of `init_cache`'s leaves."""
+    return {"ssm": ("layers", "batch", "ssm_heads", None, None),
+            "conv": ("layers", "batch", None, "ssm_inner")}
+
+
 def mamba_decode(p, cfg, x, state: dict) -> tuple[torch.Tensor, dict]:
     """x (B,1,d); state {'ssm': (B,H,N,P) f32, 'conv': (B,K-1,conv_dim)}.
     Returns (y, new state); `state` is not written."""
@@ -293,6 +301,72 @@ def decode_into(p, cfg, x, states: dict, i: int) -> torch.Tensor:
     return x
 
 
+def decode_over_mesh(p, cfg, x, states: dict, i: int, shd: ShardCtx
+                     ) -> torch.Tensor:
+    """`decode_into` over a mesh: `states` DTensors of the cache's
+    placements (`ssm` (L,B,H,N,P) over "ssm_heads", `conv` (L,B,K-1,
+    conv_dim) over "ssm_inner", rows over DP).  Each rank updates its own
+    block of layer i's states in place (`local_map`s on the blocks): the
+    conv window on its columns, whose outputs are gathered over the mesh,
+    and the SSM state on its heads, whose outputs are gathered likewise.
+    The arithmetic is `mamba_decode`'s."""
+    d_inner, H, N, conv_dim = dims(cfg)
+    mesh = shd.mesh
+    B = x.shape[0]
+    h = L.rmsnorm(x, p["norm"])
+    z, xBC, dt = _split_proj(p, cfg, h, shd)
+    rows3 = shd.placements(xBC.shape, "batch", None, None)
+    rows2 = shd.placements((B, conv_dim), "batch", None)
+    conv, ssm = states["conv"], states["ssm"]
+    c0 = local_block(conv.shape, conv.placements, mesh)[1][3]
+    h0 = local_block(ssm.shape, ssm.placements, mesh)[1][2]
+    conv_l, ssm_l = to_local(conv)[i], to_local(ssm)[i]
+    whole = (Replicate(),) * mesh.ndim
+
+    def conv_step(xBC, w, b):
+        cols = slice(c0, c0 + conv_l.shape[-1])
+        window = torch.cat([conv_l, xBC[:, :, cols].to(conv_l.dtype)],
+                           dim=1)                         # (B, K, cols)
+        out = torch.einsum("bkc,kc->bc", window.float(), w[:, cols].float())
+        conv_l.copy_(window[:, 1:])
+        return F.silu(out + b[cols].float()).to(x.dtype)
+
+    col_pl = tuple(Shard(1) if c.is_shard(3) else r
+                   for c, r in zip(conv.placements, rows2))
+    xBC1 = local_map(conv_step, out_placements=(col_pl,),
+                     in_placements=(rows3, whole, whole), device_mesh=mesh,
+                     redistribute_inputs=True)(
+        xBC, p["conv_w"], p["conv_b"]).redistribute(mesh, rows2)
+    xs = xBC1[:, :d_inner].reshape(B, H, cfg.ssm_head_dim)
+    Bt = xBC1[:, d_inner:d_inner + N].float()
+    Ct = xBC1[:, d_inner + N:].float()
+    dt1 = F.softplus(dt[:, 0].float() + p["dt_bias"])     # (B,H)
+    A = -torch.exp(p["A_log"].float())
+
+    def ssm_step(xs, dt1, A, Bt, Ct):
+        hs = slice(h0, h0 + ssm_l.shape[1])
+        dA = torch.exp(dt1[:, hs] * A[None, hs])
+        xdt = xs[:, hs].float() * dt1[:, hs, None]
+        new = ssm_l * dA[:, :, None, None] + torch.einsum("bn,bhp->bhnp",
+                                                          Bt, xdt)
+        ssm_l.copy_(new)
+        return torch.einsum("bn,bhnp->bhp", Ct, new).to(x.dtype)
+
+    rows_h = shd.placements(xs.shape, "batch", None, None)
+    head_pl = tuple(Shard(1) if c.is_shard(2) else r
+                    for c, r in zip(ssm.placements, rows_h))
+    rows_bh = shd.placements(dt1.shape, "batch", None)
+    y = local_map(ssm_step, out_placements=(head_pl,),
+                  in_placements=(rows_h, rows_bh, whole, rows_bh, rows_bh),
+                  device_mesh=mesh, redistribute_inputs=True)(
+        xs, dt1, A, Bt, Ct).redistribute(mesh, rows_h)
+    y = y + xs * p["D"][None, :, None].to(xs.dtype)
+    y = y.reshape(B, 1, d_inner)
+    y = L.rmsnorm(y * F.silu(z), p["out_norm"])
+    return x + shd.shard(L.dense(y, p["out_proj"]), "batch", "act_seq",
+                         "act_embed")
+
+
 # ---------------------------------------------------------------------------
 # Whole-model entry points (mamba2-370m).
 # ---------------------------------------------------------------------------
@@ -315,17 +389,22 @@ def forward(params, cfg, tokens: torch.Tensor, last_only: bool = False,
     return L.logits(params["embed"], cfg, x, shd)
 
 
-def decode_step(params, cfg, cache: dict, tokens, pos):
+def decode_step(params, cfg, cache: dict, tokens, pos,
+                shd: ShardCtx = NO_SHARD):
     """tokens (B,1), pos (B,) (unused: the state carries the position) ->
-    (logits (B,1,V), cache), each layer's state written in place."""
-    x = L.embed(params["embed"], cfg, tokens)
+    (logits (B,1,V), cache), each layer's state written in place (over a
+    mesh, each rank's block of it)."""
+    x = L.embed(params["embed"], cfg, tokens, shd)
     for i, lp in enumerate(params["blocks"]):
-        x = decode_into(lp, cfg, x, cache, i)
-    return L.logits(params["embed"], cfg, x), cache
+        if shd.mesh is None:
+            x = decode_into(lp, cfg, x, cache, i)
+        else:
+            x = decode_over_mesh(lp, cfg, x, cache, i, shd)
+    return L.logits(params["embed"], cfg, x, shd), cache
 
 
-def prefill(params, cfg, tokens, cache):
+def prefill(params, cfg, tokens, cache, shd: ShardCtx = NO_SHARD):
     """Last-position logits of the parallel form; the cache comes back as
     it was given (the reference's documented trade-off: its decode state
     is not rebuilt from the prompt)."""
-    return forward(params, cfg, tokens, last_only=True), cache
+    return forward(params, cfg, tokens, last_only=True, shd=shd), cache

@@ -6,8 +6,10 @@ Layers run one after another over views of the stacked parameters
 `remat="full"` each layer is recomputed in the backward pass
 (`torch.utils.checkpoint`, non-reentrant), which keeps activation memory
 at one layer's footprint, as the reference's `jax.checkpoint` does.
-Over a mesh `forward` takes the model's DTensors and a `ShardCtx` (`shd`),
-threaded through every block and its recompute, as the reference's is.
+Over a mesh `forward`, `decode_step` and `prefill` take the model's
+DTensors and a `ShardCtx` (`shd`), threaded through every block (and its
+recompute), as the reference's is; the KV cache is then DTensors of the
+placements `cache_axes` resolves to, each rank writing its own block.
 """
 from __future__ import annotations
 
@@ -123,52 +125,73 @@ def init_cache(cfg, batch: int, max_seq: int, dtype=torch.bfloat16, *,
             "v": torch.zeros(shape, dtype=dtype, device=dev)}
 
 
-def decode_layers(params, cfg, cache: dict, tokens, pos, ffn: Callable
-                  ) -> tuple[torch.Tensor, dict]:
+def cache_axes(cfg) -> dict:
+    """The logical axes of `init_cache`'s leaves (resolved through the
+    rules, as the parameters' are)."""
+    ax = ("layers", "batch", None, "kv_heads", None)
+    return {"k": ax, "v": ax}
+
+
+def decode_layers(params, cfg, cache: dict, tokens, pos, ffn: Callable,
+                  shd: ShardCtx = NO_SHARD) -> tuple[torch.Tensor, dict]:
     """One decode step through every layer (attention against the cache,
     then `ffn(layer, x)`); each layer's new key and value go into `cache`
-    in place.  Returns (logits (B,1,V), cache)."""
-    x = L.embed(params["embed"], cfg, tokens)
+    in place (over a mesh, into each rank's block of it).  Returns (logits
+    (B,1,V), cache)."""
+    x = L.embed(params["embed"], cfg, tokens, shd)
     for i, lp in enumerate(params["blocks"]):
-        x, _, _ = L.decode_attention(lp["attn"], cfg, x, cache["k"][i],
-                                     cache["v"][i], pos)
+        if shd.mesh is None:
+            x, _, _ = L.decode_attention(lp["attn"], cfg, x, cache["k"][i],
+                                         cache["v"][i], pos)
+        else:
+            x = L.decode_attention_over_mesh(lp["attn"], cfg, x, cache["k"],
+                                             cache["v"], i, pos, shd)
         x = ffn(lp, x)
-    return L.logits(params["embed"], cfg, x), cache
+    return L.logits(params["embed"], cfg, x, shd), cache
 
 
-def prefill_layers(params, cfg, tokens, cache: dict, ffn: Callable
-                   ) -> tuple[torch.Tensor, dict]:
+def prefill_layers(params, cfg, tokens, cache: dict, ffn: Callable,
+                   shd: ShardCtx = NO_SHARD) -> tuple[torch.Tensor, dict]:
     """Fill `cache[:, :, :S]` in place from whole prompts (B,S) through
     every layer (attention, then `ffn(layer, x)`); returns (last-position
-    logits (B,1,V), cache)."""
+    logits (B,1,V), cache).  Over a mesh each rank fills its block of the
+    cache and attends its own queries (`layers._causal_over_mesh`)."""
     B, S = tokens.shape
     positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
-    x = L.embed(params["embed"], cfg, tokens)
+    x = L.embed(params["embed"], cfg, tokens, shd)
     for i, lp in enumerate(params["blocks"]):
         ap = lp["attn"]
         h = L.rmsnorm(x, ap["norm"])
         q, k, v = L._qkv(ap, cfg, h, positions)
-        cache["k"][i, :, :S] = k.to(cache["k"].dtype)
-        cache["v"][i, :, :S] = v.to(cache["v"].dtype)
-        if cfg.attn_chunk and S > cfg.attn_chunk:
-            o = L._sdpa_chunked(q, k, v, 0, cfg.sliding_window, cfg.attn_chunk)
+        if shd.mesh is None:
+            cache["k"][i, :, :S] = k.to(cache["k"].dtype)
+            cache["v"][i, :, :S] = v.to(cache["v"].dtype)
+            if cfg.attn_chunk and S > cfg.attn_chunk:
+                o = L._sdpa_chunked(q, k, v, 0, cfg.sliding_window,
+                                    cfg.attn_chunk)
+            else:
+                o = L._sdpa_dense(q, k, v, L._causal_mask(
+                    S, S, 0, cfg.sliding_window, tokens.device))
+            x = x + o.reshape(B, S, -1) @ ap["wo"]
         else:
-            o = L._sdpa_dense(q, k, v, L._causal_mask(S, S, 0,
-                                                      cfg.sliding_window,
-                                                      tokens.device))
-        x = x + o.reshape(B, S, -1) @ ap["wo"]
+            L.fill_cache_over_mesh(cache["k"], i, k)
+            L.fill_cache_over_mesh(cache["v"], i, v)
+            q = shd.shard(q, "batch", "act_seq", "act_heads", None)
+            o = L._causal_over_mesh(q, k, v, cfg, shd).reshape(B, S, -1)
+            x = x + shd.shard(L.dense(o, ap["wo"]), "batch", "act_seq",
+                              "act_embed")
         x = ffn(lp, x)
-    return L.logits(params["embed"], cfg, x[:, -1:]), cache
+    return L.logits(params["embed"], cfg, x[:, -1:], shd), cache
 
 
-def decode_step(params, cfg, cache, tokens, pos):
+def decode_step(params, cfg, cache, tokens, pos, shd: ShardCtx = NO_SHARD):
     """tokens (B,1), pos (B,) -> (logits (B,1,V), cache)."""
     return decode_layers(params, cfg, cache, tokens, pos,
-                         lambda lp, x: L.swiglu(lp["mlp"], x))
+                         lambda lp, x: L.swiglu(lp["mlp"], x, shd), shd)
 
 
-def prefill(params, cfg, tokens, cache):
+def prefill(params, cfg, tokens, cache, shd: ShardCtx = NO_SHARD):
     """Fill `cache[:, :, :S]` in place from a whole prompt (B,S); returns
     (last-position logits (B,1,V), cache)."""
     return prefill_layers(params, cfg, tokens, cache,
-                          lambda lp, x: L.swiglu(lp["mlp"], x))
+                          lambda lp, x: L.swiglu(lp["mlp"], x, shd), shd)

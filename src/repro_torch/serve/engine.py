@@ -24,7 +24,7 @@ from __future__ import annotations
 import time
 from collections import deque
 from dataclasses import dataclass, field
-from typing import Callable, Mapping
+from typing import TYPE_CHECKING, Callable, Mapping
 
 import numpy as np
 import torch
@@ -33,12 +33,13 @@ import torch.distributed as dist
 from ..configs.base import ArchConfig
 from ..core.adapt import AdaptPolicy, DriftDetector
 from ..core.executor import (DeviceLossError, ExecutorSession, RetryPolicy,
-                             ShardedJoinExecutor, _struct_key, resolve_device)
+                             ShardedJoinExecutor, _struct_key)
 from ..core.placement import lpt_placement
 from ..core.skewjoin import fills_pruned, plan_from_hhs, pruned_combos
 from ..ft import ChaosInjector, HealthMonitor, StragglerWatchdog
-from ..models import api
-from .serve_step import ServeFns, build_decode_step
+
+if TYPE_CHECKING:
+    from .serve_step import ServeFns
 
 
 @dataclass
@@ -52,18 +53,40 @@ class Request:
 
 class ServingEngine:
     """B slots over one KV cache (bf16, as the reference's), on the card
-    unless the caller asks for the CPU."""
+    unless the caller asks for the CPU.
+
+    Over a mesh (`mesh=`, a DeviceMesh of `launch.mesh.make_lm_mesh`; the
+    reference's `ServingEngine(cfg, mesh, ...)`) the decode step is
+    `build_decode_step(mesh=)`'s, the parameters become DTensors of its
+    placements (from a one-process model or the reference's numpy tree)
+    and the cache DTensors of its `cache_placements`, on the rank's device
+    unless `device` is given.
+    Every rank runs this same host loop with the same requests, in the
+    same order: its decisions read only the host's state and the next
+    tokens, which the step gives every rank alike, so every rank issues
+    the same collectives in the same order."""
 
     def __init__(self, cfg: ArchConfig, batch_slots: int, max_seq: int,
-                 params, fns: ServeFns | None = None, *, device=None):
+                 params, fns: ServeFns | None = None, *, mesh=None,
+                 device=None):
+        from ..models import api
+        from .serve_step import (_device, build_decode_step, mesh_cache,
+                                 mesh_params)
         self.cfg = cfg
         self.B, self.max_seq = batch_slots, max_seq
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = _device(mesh, device)
         self.fns = fns or build_decode_step(cfg, batch_slots, max_seq,
-                                            device=self.device)
-        self.params = params.to(self.device)
-        self.cache = api.init_cache(cfg, batch_slots, max_seq,
-                                    device=self.device)
+                                            mesh=mesh, device=self.device)
+        if self.fns.mesh is not mesh:
+            raise ValueError("the decode step was built over another mesh")
+        if mesh is None:
+            self.params = params.to(self.device)
+            self.cache = api.init_cache(cfg, batch_slots, max_seq,
+                                        device=self.device)
+        else:
+            self.params = mesh_params(cfg, params, self.fns)
+            self.cache = mesh_cache(cfg, self.fns)
         self.queue: list[Request] = []
         self.waiting: deque[Request] = deque()   # FIFO of unadmitted requests
         self.slots: list[Request | None] = [None] * batch_slots
@@ -122,18 +145,23 @@ class ServingEngine:
         stacked), 0 below.  It zeroes column i of the rank-3 `enc_out` and
         `vis` ((B, rows, d)), not slot i; the engine never prefills, so
         those leaves stay zeros (ROADMAP §3), and an index past their rows
-        is dropped, as JAX drops an update out of bounds."""
+        is dropped, as JAX drops an update out of bounds.  Over a mesh the
+        rank whose block holds that index zeroes it there."""
+        from ..models.common import local_block, to_local
+
         def zero(a):
             if isinstance(a, dict):
                 for v in a.values():
                     zero(v)
-            elif a is None or a.dim() == 0:
                 return
-            elif a.dim() >= 3:
-                if i < a.shape[1]:
-                    a[:, i] = 0
-            else:
-                a[i] = 0
+            if a is None or a.dim() == 0:
+                return
+            axis = 1 if a.dim() >= 3 else 0
+            local, at = to_local(a), i
+            if self.mesh is not None:
+                at -= local_block(a.shape, a.placements, self.mesh)[1][axis]
+            if 0 <= at < local.shape[axis]:
+                local.select(axis, at).zero_()
 
         zero(self.cache)
 

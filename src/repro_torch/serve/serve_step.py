@@ -1,10 +1,9 @@
-"""Serve-step builders: prefill and batched greedy decode on one device.
+"""Serve-step builders: prefill and batched greedy decode, on one device or
+over a (data, model) mesh of ranks.
 
 `build_decode_step` / `build_prefill` return the functions the serving
 engine calls, with the device they run on; they run without autograd, so
-a model a trainer has made trainable serves as a frozen one does.  The
-reference also builds mesh shardings for parameters and caches; on one
-card there are none.
+a model a trainer has made trainable serves as a frozen one does.
 
 The compiled decode step.  The reference jits its decode step; here, on
 the card with `params.use_kernels`, the step is a CUDA graph under the
@@ -25,18 +24,33 @@ run every call eagerly.
 `build_prefill` stays eager (the reference jits it): a prefill's time is
 mostly device work, which a graph does not shorten, and a graph for each
 prompt shape would pin that shape's activations.
+
+Over a mesh (`mesh=`, a DeviceMesh of `launch.mesh.make_lm_mesh`) the
+builders are the reference's pjit builders.  The rules (`rules_for(cfg,
+mesh)`, and for MoE decode the reference's override `embed=None,
+expert_ffn="data"`) give the parameters' placements
+(`ServeFns.param_placements`) and the cache's (`cache_placements`: each
+family's `cache_axes`, the rows over DP, the KV or SSM heads over
+"model", and where the KV heads cannot take "model", the sequence when
+`max_seq` divides).  Tokens, positions and prompts are split over DP when
+the batch divides, else replicated.  The step runs eagerly (no graph over
+the ranks' collectives): `ServeFns` counts eager calls, no capture and no
+replay.  The next token of each row is the lowest index of its maximum
+over the vocabulary split over "model" (as `torch.argmax` over the whole
+row), the same tensor on every rank; prefill's logits come back whole on
+every rank.  The model code imports torch.distributed.tensor: it is
+imported at a builder's first call, not with this module.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable
+from typing import Any, Callable
 
 import torch
 
 from ..configs.base import ArchConfig
-from ..core.executor import resolve_device
+from ..core.executor import mesh_device, resolve_device
 from ..graph import CapturedStep
-from ..models import api
 
 
 @dataclass
@@ -47,6 +61,10 @@ class ServeFns:
     batch: int | None = None       # decode: the slots the cache holds
     max_seq: int | None = None     # decode: the cache's length
     compiled: CapturedStep | None = None   # decode: its graph, its counters
+    mesh: Any = None               # over a mesh: the DeviceMesh,
+    rules: Any = None              # its rules,
+    param_placements: Any = None   # the parameters' placements
+    cache_placements: Any = None   # and the cache's (decode)
 
     @property
     def eager_calls(self) -> int:
@@ -64,22 +82,68 @@ class ServeFns:
         return self.compiled.replays
 
 
+def serve_rules(cfg: ArchConfig, mesh, decode: bool):
+    """The builders' rules: `rules_for(cfg, mesh)`; MoE decode keeps the
+    experts' contraction dimension whole and splits their hidden dimension
+    over "data" instead (decode moves weights more than activations: the
+    reference's override)."""
+    from ..models.common import rules_for
+    rules = rules_for(cfg, mesh)
+    if decode and cfg.family == "moe":
+        rules = rules.override(embed=None, expert_ffn="data")
+    return rules
+
+
+def _over_mesh(cfg: ArchConfig, mesh, rules, decode: bool) -> dict:
+    """ServeFns' mesh fields (none without a mesh); raises where this rank
+    is not in the mesh or the family does not run over one."""
+    if mesh is None:
+        return {}
+    from ..models import api
+    from ..models.common import param_placements
+    if mesh.get_coordinate() is None:
+        raise ValueError("this rank is not in the mesh")
+    api.check_mesh_family(cfg)
+    rules = rules or serve_rules(cfg, mesh, decode)
+    return dict(mesh=mesh, rules=rules, param_placements=param_placements(
+        api.layout(cfg), rules, mesh))
+
+
+def _device(mesh, device) -> torch.device:
+    """The builders' device: `device`, else over a mesh the rank's, else
+    the card (`resolve_device`)."""
+    return resolve_device(mesh_device(mesh) if device is None and mesh
+                          is not None else device)
+
+
 def build_decode_step(cfg: ArchConfig, batch: int, max_seq: int, *,
-                      device=None) -> ServeFns:
+                      mesh=None, rules=None, device=None) -> ServeFns:
     """decode(params, cache, tokens (B,1), pos (B,)) -> (next token (B,)
     int32, cache): one step of every slot, greedy on the last position.
     The cache (the family's `init_cache` tree for `batch` slots and
-    `max_seq` positions) is updated in place; one of other shapes is
-    refused.  On the card with kernels the step is a CUDA graph (tokens
-    and positions copied into the graph's buffers)."""
-    dev = resolve_device(device)
+    `max_seq` positions; over a mesh, DTensors of `cache_placements`) is
+    updated in place; one of other shapes or placements is refused.  On
+    the card with kernels and no mesh the step is a CUDA graph (tokens and
+    positions copied into the graph's buffers)."""
+    dev = _device(mesh, device)
     want = cache_shapes(cfg, batch, max_seq)
+    placed = _over_mesh(cfg, mesh, rules, decode=True)
+    from ..models import api
+    from ..models.common import NO_SHARD, ShardCtx
+    shd = NO_SHARD
+    if mesh is not None:
+        shd = ShardCtx(mesh, placed["rules"])
+        placed["cache_placements"] = cache_placements(
+            cfg, batch, max_seq, placed["rules"], mesh)
 
     def step(params, cache, tokens, pos):
-        lg, _ = api.decode_step(params, cfg, cache,
-                                {"tokens": tokens.to(dev)}, pos.to(dev))
+        tokens, pos = tokens.to(dev), pos.to(dev)
+        if mesh is not None:
+            tokens, pos = _rows(tokens, shd), _rows(pos, shd)
+        lg, _ = api.decode_step(params, cfg, cache, {"tokens": tokens}, pos,
+                                shd)
         # Greedy sampling on the card: serving returns token ids, not logits.
-        return torch.argmax(lg[:, -1], dim=-1).to(torch.int32)
+        return greedy(lg[:, -1], shd)
 
     # The graph's next tokens are cloned: no later replay overwrites them.
     compiled = CapturedStep(step, dev, own=torch.Tensor.clone)
@@ -90,16 +154,142 @@ def build_decode_step(cfg: ArchConfig, batch: int, max_seq: int, *,
         if not _fits(got, want):
             raise ValueError(f"cache of shapes {got}; the step was built for "
                              f"{batch} slots and {max_seq} positions: {want}")
+        if mesh is not None:
+            _check_placements(cache, placed["cache_placements"])
         return compiled((params, cache), (tokens, pos),
-                        params.use_kernels), cache
+                        params.use_kernels and mesh is None), cache
 
     return ServeFns(decode=decode, prefill=None, device=dev, batch=batch,
-                    max_seq=max_seq, compiled=compiled)
+                    max_seq=max_seq, compiled=compiled, **placed)
+
+
+def greedy(lg: torch.Tensor, shd) -> torch.Tensor:
+    """(B,) int32: the lowest index of each row's maximum of lg (B, V), as
+    `torch.argmax`.  Over a mesh (lg a DTensor, its vocabulary split over
+    "model" where it divides) each rank takes its block's first maximum;
+    the largest of them (a partial max), then the lowest index among the
+    ranks that hold it (a partial min), replicated on every rank."""
+    if shd.mesh is None:
+        return torch.argmax(lg, dim=-1).to(torch.int32)
+    from torch.distributed.tensor import Partial, Replicate
+    from torch.distributed.tensor.experimental import local_map
+    from ..models.common import local_block
+    mesh, pl = shd.mesh, lg.placements
+    V = lg.shape[-1]
+    lo = local_block(lg.shape, pl, mesh)[1][-1]
+    rows = tuple(p if p.is_shard(0) else Replicate() for p in pl)
+
+    def over(op: str) -> tuple:
+        return tuple(Partial(op) if p.is_shard(1) else r
+                     for p, r in zip(pl, rows))
+
+    def first_of_top(x, top):
+        at = torch.argmax(x, dim=-1) + lo        # the block's first maximum
+        return torch.where(x.amax(dim=-1) == top, at, V)
+
+    top = local_map(lambda x: x.amax(dim=-1), out_placements=(over("max"),),
+                    in_placements=(pl,), device_mesh=mesh)(lg)
+    first = local_map(first_of_top, out_placements=(over("min"),),
+                      in_placements=(pl, rows), device_mesh=mesh)(
+        lg, top.redistribute(mesh, rows))
+    every = (Replicate(),) * mesh.ndim
+    return first.redistribute(mesh, every).to_local().to(torch.int32)
+
+
+def _rows(t: torch.Tensor, shd):
+    """A global tensor (the same on every rank) as a DTensor split over DP
+    on its leading (batch) dimension where that divides, else replicated:
+    this rank's rows, no collective."""
+    from ..models.common import as_dtensor, local_of
+    pl = shd.placements(t.shape, "batch", *(None,) * (t.dim() - 1))
+    return as_dtensor(local_of(t, pl, shd.mesh), t.shape, pl, shd.mesh)
+
+
+def cache_placements(cfg: ArchConfig, batch: int, max_seq: int, rules,
+                     mesh) -> dict:
+    """The placements of each leaf of the family's `init_cache(cfg, batch,
+    max_seq)` over `mesh` (the reference's `cache_shardings`): its
+    `cache_axes` through the rules.  Where the KV heads cannot take the
+    "model" axis (fewer heads than ranks, or heads that do not divide), the
+    cache's sequence dimension takes it, provided `max_seq` divides:
+    attention contracts over it, and each rank attends its part of the
+    positions (`layers.decode_attention_over_mesh`); without the fallback a
+    long cache would be held whole on every model rank."""
+    from ..models import api
+    from ..models.common import _flat_axes, mesh_shape, placements_of, resolve_pspec
+    axes = api.family_module(cfg).cache_axes(cfg)
+    shapes = cache_shapes(cfg, batch, max_seq)
+    model = mesh_shape(mesh)["model"]
+
+    def resolve(shape, ax):
+        spec = list(resolve_pspec(shape, ax, rules, mesh))
+        if (len(ax) == 5 and "kv_heads" in ax
+                and not any("model" in _flat_axes(a) for a in spec)
+                and shape[2] % model == 0):
+            spec += [None] * (5 - len(spec))
+            spec[2] = "model"
+        return placements_of(tuple(spec), mesh)
+
+    return {k: resolve(shapes[k], ax) for k, ax in axes.items()}
+
+
+def _check_placements(cache, want) -> None:
+    from torch.distributed.tensor import DTensor
+    for k, pl in want.items():
+        t = cache[k]
+        if not isinstance(t, DTensor) or tuple(t.placements) != tuple(pl):
+            got = t.placements if isinstance(t, DTensor) else "a tensor"
+            raise ValueError(f"cache leaf {k}: {got}; the step was built "
+                             f"for {tuple(pl)}")
+
+
+def mesh_cache(cfg: ArchConfig, fns: ServeFns,
+               dtype: torch.dtype = torch.bfloat16) -> dict:
+    """The family's zeroed `init_cache` (in `dtype`, as its own) as
+    DTensors of `fns.cache_placements` on `fns.device`: each rank
+    allocates its own block alone."""
+    from ..models import api
+    from ..models.common import as_dtensor, local_block
+    meta = api.init_cache(cfg, fns.batch, fns.max_seq, dtype, device="meta")
+    out = {}
+    for k, t in meta.items():
+        pl = fns.cache_placements[k]
+        local = local_block(t.shape, pl, fns.mesh)[0]
+        out[k] = as_dtensor(torch.zeros(local, dtype=t.dtype,
+                                        device=fns.device), t.shape, pl,
+                            fns.mesh)
+    return out
+
+
+def mesh_params(cfg: ArchConfig, params, fns: ServeFns):
+    """`params` as a model of DTensors in `fns.param_placements` on
+    `fns.device`: the reference's numpy tree (`convert.params_from_jax`)
+    or a one-process model, each rank keeping its block of each tensor (on
+    one rank the same storage)."""
+    from ..models import api
+    from ..models.common import as_dtensor, local_of
+    from ..tree import tree_map
+    mesh = fns.mesh
+    if isinstance(params, dict):
+        from ..models.convert import params_from_jax
+        return params_from_jax(params, cfg, device=fns.device, mesh=mesh,
+                               rules=fns.rules)
+
+    def place(t, pl):
+        t = t.detach().to(fns.device)
+        return as_dtensor(local_of(t, pl, mesh).contiguous(), t.shape, pl,
+                          mesh)
+
+    model = api.build(cfg, tree_map(place, params.tree(),
+                                    fns.param_placements))
+    model.use_kernels = params.use_kernels
+    return model
 
 
 def cache_shapes(cfg: ArchConfig, batch: int, max_seq: int) -> dict:
     """The shapes of the family's `init_cache(cfg, batch, max_seq)` tree
     (None where it holds None), from meta tensors."""
+    from ..models import api
     return cache_shapes_of(api.init_cache(cfg, batch, max_seq,
                                           device="meta"))
 
@@ -121,16 +311,36 @@ def _fits(got, want, key: str = "") -> bool:
     return got == want
 
 
-def build_prefill(cfg: ArchConfig, *, device=None) -> ServeFns:
+def build_prefill(cfg: ArchConfig, *, mesh=None, batch_shapes=None,
+                  rules=None, device=None) -> ServeFns:
     """prefill(params, batch) -> last-position logits (B, padded_vocab): a
-    full forward over the prompts that never makes full-sequence logits."""
-    dev = resolve_device(device)
+    full forward over the prompts that never makes full-sequence logits.
+    `batch_shapes` ({key: shape}), where given, is the only batch taken.
+    Over a mesh the prompts are split as `build_decode_step`'s tokens and
+    the logits come back whole, a tensor on every rank."""
+    dev = _device(mesh, device)
+    from ..models import api
+    from ..models.common import NO_SHARD, ShardCtx
     api.family_module(cfg)
+    placed = _over_mesh(cfg, mesh, rules, decode=False)
+    shd = NO_SHARD if mesh is None else ShardCtx(mesh, placed["rules"])
+    want = (None if batch_shapes is None else
+            {k: tuple(s) for k, s in batch_shapes.items()})
 
     @torch.no_grad()
     def prefill_fn(params, batch):
-        batch = {k: v.to(dev) for k, v in batch.items()}
-        logits, _ = api.forward(params, cfg, batch, last_only=True)
-        return logits[:, -1]
+        if want is not None and {k: tuple(v.shape) for k, v in
+                                 batch.items()} != want:
+            raise ValueError(f"batch of shapes "
+                             f"{ {k: tuple(v.shape) for k, v in batch.items()} }"
+                             f"; the prefill was built for {want}")
+        if mesh is None:
+            batch = {k: v.to(dev) for k, v in batch.items()}
+            logits, _ = api.forward(params, cfg, batch, last_only=True)
+            return logits[:, -1]
+        batch = {k: _rows(torch.as_tensor(v).to(dev), shd)
+                 for k, v in batch.items()}
+        logits, _ = api.forward(params, cfg, batch, last_only=True, shd=shd)
+        return logits[:, -1].full_tensor()
 
-    return ServeFns(decode=None, prefill=prefill_fn, device=dev)
+    return ServeFns(decode=None, prefill=prefill_fn, device=dev, **placed)
