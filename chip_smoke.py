@@ -522,6 +522,38 @@ MESH_SERVE = dict(
            new_tokens=(8, 24), prefill=None, exact=True))
 MESH_SERVE_DEADLINE_S = 300
 MESH_SERVE_LOGIT_RTOL = 2.0 ** -4
+# Phase 10m: the hybrid, enc-dec and VLM families trained and served over
+# a (data, model) mesh, every run of one NCCL rank spawned once at (1, 1)
+# (`mesh_family_rank` / `mesh_families`), each family at its published
+# widths in bf16 from seed 0, the depth cut as phase 10 cuts it (zamba2 to
+# 16 layers: 2 groups of 6 Mamba2 blocks and the shared block, then 2 tail
+# blocks; the VLM to 5: 4 self-attention blocks and one gated
+# cross-attention block, its gate at 0.5).  Training: 3 steps of 4 x 512
+# tokens with the frontend's input from the seed (frames (4, 128, 1,024),
+# vision embeddings (4, 1,601, 1,280)), against the one-process eager step
+# (and beside its graph's times).  Serving: `ServingEngine(mesh=)` on 16
+# requests and 8 slots, max_seq 512, against the one-process engines.
+# "b" and "c": a 4 x 2,048 `api.prefill` over the mesh filling `enc_out`
+# or `vis`, then 8 ticks from that cache; "a": 8 ticks at positions
+# 4,092-4,099 of a max_seq 8,192 cache seeded non-zero, across the
+# 4,096-slot ring's wrap.  On one rank every placement replicates, so
+# everything is held bit for bit (`exact`); scripts/mesh_train_cards.py
+# and scripts/mesh_serve_cards.py run the (2, 2) mesh on four cards,
+# within MESH_TRAIN_RTOL / MESH_SERVE_LOGIT_RTOL.
+MESH_FAMILY = dict(
+    a=dict(arch="zamba2-7b", layers=16, reduced=False, dtype="bfloat16",
+           bits=8, shape=(1, 1), exact=True, train=True, serve=True,
+           prefill=None, ring=(4092, 8192)),
+    b=dict(arch="seamless-m4t-medium", layers=None, reduced=False,
+           dtype="bfloat16", bits=32, shape=(1, 1), exact=True, train=True,
+           serve=True, prefill=(4, 2048), ring=None),
+    c=dict(arch="llama-3.2-vision-90b", layers=5, gate=0.5, reduced=False,
+           dtype="bfloat16", bits=8, shape=(1, 1), exact=True, train=True,
+           serve=True, prefill=(4, 2048), ring=None))
+MESH_FAMILY_RUN = dict(seed=0, batch=4, seq=512, steps=3, lr=1e-4, slots=8,
+                       max_seq=512, n_requests=16, prompt_len=(8, 32),
+                       new_tokens=(8, 24), ticks=8, ring_batch=4)
+MESH_FAMILY_DEADLINE_S = 420
 MOE = dict(arch="mixtral-8x22b", n_layers=4, seed=0, prefill_batch=4,
            prefill_len=2048, prefill_reps=3, slots=8, max_seq=512,
            n_requests=24, prompt_len=(16, 128), new_tokens=(16, 64),
@@ -740,22 +772,27 @@ def call_profile(fn, calls: int = 10) -> tuple[set[str], dict[str, int]]:
     (kernel or memset) by name) in a torch.profiler trace of `calls` warm
     calls of `fn`: several, since the profiler can drop a call's device
     events.  A trace that holds no device event is taken again, up to three
-    times in all, and then fails."""
+    times in all, and then fails; each such trace is reported (its events,
+    and those on the device whatever their time)."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    for _ in range(3):
+    for attempt in range(3):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
         events = prof.key_averages()
-        device = {e.key: e.count for e in events
-                  if "CUDA" in str(getattr(e, "device_type", ""))
-                  and e.self_device_time_total > 0}
+        on_device = [e for e in events
+                     if "CUDA" in str(getattr(e, "device_type", ""))]
+        device = {e.key: e.count for e in on_device
+                  if e.self_device_time_total > 0}
         if device:
             return {e.key for e in events}, device
+        print(f"[profile] trace {attempt + 1} of {calls} calls held no "
+              f"device event with a time: {len(events)} events, "
+              f"{[(e.key[:40], e.count) for e in on_device]} on the device")
     fail("call_profile: three traces held no device event")
 
 
@@ -3452,13 +3489,16 @@ def histogram_checks(dev, serve):
         print(f"[histogram] {label}: {n} values, {bins} bins, "
               f"{arms[plan[0]]} arm {plan}")
         if label == "decode":
+            # 100 calls a trace: the profiler has dropped every device
+            # event of a trace of 10 calls of this 1.5 us kernel.
+            calls = 100
             _, device = call_profile(
-                lambda: sh.segment_histogram_cuda(vals, bins))
-            check(len(device) == 1 and max(device.values()) <= 10,
+                lambda: sh.segment_histogram_cuda(vals, bins), calls)
+            check(len(device) == 1 and max(device.values()) <= calls,
                   f"segment_histogram decode call: device operations "
-                  f"{device} in 10 calls, not one a call")
+                  f"{device} in {calls} calls, not one a call")
             print(f"[histogram] decode: one device operation a call "
-                  f"({device} in 10 calls)")
+                  f"({device} in {calls} calls)")
 
         def library(vals=vals, bins=bins):   # two calls: a mask, a bincount
             return torch.bincount(vals[(vals >= 0) & (vals < bins)],
@@ -3931,6 +3971,24 @@ def mesh_training(card: str, runs: dict = MESH_TRAIN) -> dict:
     return out
 
 
+def cache_map(fn, cache, *rest):
+    """fn over the leaves of a cache tree (and the matching leaves of
+    `rest`), None kept: the hybrid's nested states, its tail or the VLM's
+    tail cache may be None."""
+    if cache is None:
+        return None
+    if isinstance(cache, dict):
+        return {k: cache_map(fn, v, *(r[k] for r in rest))
+                for k, v in cache.items()}
+    return fn(cache, *rest)
+
+
+def cache_leaves(cache) -> list:
+    out = []
+    cache_map(out.append, cache)
+    return out
+
+
 def first_tick_logits(eng, shd) -> torch.Tensor:
     """The last-position logits of an engine's next tick (its host inputs
     as they stand) on a copy of its cache: (B, V), whole on every rank."""
@@ -3943,10 +4001,9 @@ def first_tick_logits(eng, shd) -> torch.Tensor:
                                                     None), shd.mesh)
         pos = distribute_tree(pos, shd.placements(pos.shape, "batch"),
                               shd.mesh)
-    copy = {k: v.clone() for k, v in eng.cache.items()}
     with torch.no_grad():
-        lg, _ = api.decode_step(eng.params, eng.cfg, copy, {"tokens": toks},
-                                pos, shd)
+        lg, _ = api.decode_step(eng.params, eng.cfg, cache_map(
+            torch.Tensor.clone, eng.cache), {"tokens": toks}, pos, shd)
     lg = lg[:, -1]
     return lg.full_tensor() if shd.mesh is not None else lg
 
@@ -3967,7 +4024,7 @@ def mesh_serve_rank(rank: int, world: int, run: str, spec: dict,
     from repro_torch.kernels import ops
     from repro_torch.launch.mesh import make_lm_mesh
     from repro_torch.models import api
-    from repro_torch.models.common import NO_SHARD, ShardCtx, to_local
+    from repro_torch.models.common import NO_SHARD, ShardCtx
     from repro_torch.serve import ServingEngine, build_prefill
     from repro_torch.serve.serve_step import mesh_params
     from repro_torch.tree import flatten
@@ -4013,14 +4070,9 @@ def mesh_serve_rank(rank: int, world: int, run: str, spec: dict,
         eng = ServingEngine(cfg, slots, max_seq, model, mesh=mesh)
         torch.cuda.synchronize()
         grown = torch.cuda.memory_allocated() - base
-        blocks = (list(flatten(eng.params.tree()).values())
-                  + list(eng.cache.values()))
-        resident = sum(to_local(t).numel() * t.element_size() for t in blocks)
-        predicted = 0
-        for t in blocks:
-            shards = int(np.prod([n for pl, n in zip(t.placements, mesh.shape)
-                                  if pl.is_shard()]))
-            predicted += t.numel() * t.element_size() / shards
+        resident, predicted = placed_bytes(
+            list(flatten(eng.params.tree()).values())
+            + cache_leaves(eng.cache), mesh)
         reqs = [eng.submit(p, m) for p, m in requests]
         eng._admit()
         shd = ShardCtx(mesh, eng.fns.rules)
@@ -4260,6 +4312,483 @@ def mesh_serving(card: str, runs: dict = MESH_SERVE) -> dict:
         out[run] = dict(wall_s=wall, arch=spec["arch"],
                         shape=list(spec["shape"]), ranks=ranks)
     return out
+
+
+def family_config(spec):
+    """A 10m run's config: the published one, reduced where
+    `spec["reduced"]`, its depth `spec["layers"]` where given."""
+    from repro_torch.configs import get
+    cfg = get(spec["arch"])
+    cfg = cfg.reduced() if spec["reduced"] else cfg
+    return (cfg if spec.get("layers") is None
+            else dataclasses.replace(cfg, n_layers=spec["layers"]))
+
+
+def placed_bytes(tensors, mesh) -> tuple[int, int]:
+    """(bytes this rank holds of `tensors`, the bytes their placements
+    predict: each tensor's over the shards its placements give)."""
+    from repro_torch.models.common import to_local
+    held = predicted = 0
+    for t in tensors:
+        held += to_local(t).numel() * t.element_size()
+        shards = int(np.prod([n for pl, n in zip(t.placements, mesh.shape)
+                              if pl.is_shard()]))
+        predicted += t.numel() * t.element_size() // shards
+    return held, predicted
+
+
+def family_train(dev, mesh, spec, label: str) -> dict:
+    """10m's training: the one-process eager step (the reference: its
+    metrics, and its parameters copied to the host where `exact`), the
+    one-process graph step beside it (eager, capture, replay), then the
+    mesh step from the same seed-made model and batch, its counts zeroed
+    just before and read just after."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import frontend_shapes
+    from repro_torch.models import api
+    from repro_torch.models.common import local_of, to_local
+    from repro_torch.optim import AdamWConfig, adamw
+    from repro_torch.train import build_train_step
+    from repro_torch.tree import flatten
+    R = MESH_FAMILY_RUN
+    cfg = family_config(spec)
+    dtype = getattr(torch, spec["dtype"])
+    ocfg = AdamWConfig(lr=R["lr"], state_bits=spec["bits"])
+    kw = dict(total_steps=10, warmup_steps=1)
+    B, S = R["batch"], R["seq"]
+    rng = np.random.default_rng(R["seed"])
+    batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab, (B, S)).astype(
+        np.int32)) for k in ("tokens", "labels")}
+    for k, shape in frontend_shapes(cfg, B, S).items():
+        batch[k] = torch.from_numpy(rng.standard_normal(
+            shape, dtype=np.float32)).to(dtype)
+
+    def model_of(**placed):
+        model = api.init_model(cfg, torch.Generator(device=dev).manual_seed(
+            R["seed"]), device=dev, dtype=dtype, **placed)
+        if "gate" in spec:       # a zero gate hides the cross-attention
+            to_local(model.ca_blocks.gate).fill_(spec["gate"])
+        return model
+
+    def steps(fns, model):
+        opt = adamw.init(model.tree(), ocfg)
+        out, ms = [], []
+        for _ in range(R["steps"]):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, _, m = fns.step(model, opt, batch)
+            out.append({k: v.detach().cpu() for k, v in m.items()})
+            ms.append((time.perf_counter() - t0) * 1e3)
+        return out, ms
+
+    def freed():
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        return torch.cuda.memory_allocated()
+
+    base = freed()
+    one = build_train_step(cfg, ocfg, device=dev, **kw)
+    model1 = model_of()
+    model1.use_kernels = False
+    want, one_ms = steps(one, model1)
+    one_peak = torch.cuda.max_memory_allocated() - base
+    ref = ({k: t.detach().cpu() for k, t in flatten(model1.tree()).items()}
+           if spec["exact"] else None)
+    del one, model1
+    freed()
+    graph = build_train_step(cfg, ocfg, device=dev, **kw)
+    _, graph_ms = steps(graph, model_of())
+    c = graph.compiled
+    check((c.eager_calls, c.captures, c.replays) == (1, 1, R["steps"] - 1),
+          f"{label}: one-process graph eager / captures / replays "
+          f"{c.eager_calls} / {c.captures} / {c.replays}")
+    del graph, c
+    base = freed()
+
+    fns = build_train_step(cfg, ocfg, mesh=mesh, **kw)
+    flat_pl = flatten(fns.param_placements)
+    flat_opt = flatten(adamw.init(fns.params_abstract, ocfg)["mu"])
+    predicted = 0
+    for key, p in flatten(fns.params_abstract).items():
+        shards = int(np.prod([n for pl, n in zip(flat_pl[key], mesh.shape)
+                              if pl.is_shard()]))
+        states = sum(t.numel() * t.element_size() for k, t in flat_opt.items()
+                     if k.rsplit("/", 1)[0] == key)
+        predicted += (2 * p.numel() * dtype.itemsize + states) / shards
+    model = model_of(placements=fns.param_placements, mesh=mesh)
+    resident = torch.cuda.memory_allocated() - base
+    ops.reset_launches()
+    got, mesh_ms = steps(fns, model)
+    launches = {k: v for k, v in ops.LAUNCHES.items() if v}
+    peak = torch.cuda.max_memory_allocated() - base
+    check(not launches, f"{label}: custom kernels launched: {launches}")
+    for i, (g, w) in enumerate(zip(got, want)):
+        check(set(g) == set(w), f"{label}: metrics {sorted(g)}")
+        for k in ("loss", "zloss", "grad_norm", "lr_scale"):
+            same = (torch.equal(g[k], w[k]) if spec["exact"] else
+                    abs(float(g[k]) - float(w[k]))
+                    <= MESH_TRAIN_RTOL * abs(float(w[k])) + 1e-7)
+            check(same, f"{label}: step {i} {k} {float(g[k])!r} vs one "
+                  f"process {float(w[k])!r}")
+    check(all(np.isfinite(float(m["loss"])) for m in got),
+          f"{label}: a loss is not finite")
+    if ref is not None:
+        for key, t in flatten(model.tree()).items():
+            check(torch.equal(to_local(t).cpu(), local_of(
+                ref[key], t.placements, mesh)), f"{label}: parameter {key} "
+                f"differs from the one-process step's")
+    del model, fns
+    freed()
+    return dict(losses=[float(m["loss"]) for m in got],
+                one_losses=[float(m["loss"]) for m in want],
+                grad_norms=[float(m["grad_norm"]) for m in got],
+                mesh_step_ms=mesh_ms, one_step_ms=one_ms,
+                graph_step_ms=graph_ms, resident_gb=resident / 1e9,
+                predicted_gb=predicted / 1e9, peak_gb=peak / 1e9,
+                one_peak_gb=one_peak / 1e9)
+
+
+def decode_both(mesh, dec, one, mp, model, cache, cache1, tok, pos0: int,
+                ticks: int, label: str, exact: bool) -> dict:
+    """`ticks` greedy ticks of the mesh step `dec` on `cache` and of the
+    one-process eager step `one` on `cache1`, from the same tokens at
+    positions pos0, pos0 + 1, ...; each tick's tokens equal (`exact`) and,
+    after the last, every rank's blocks of the cache equal to the
+    one-process cache's (else their largest difference reported)."""
+    from repro_torch.models.common import local_of, to_local
+    tok1, ms, ms1 = tok, [], []
+    model.use_kernels = False
+    for t in range(ticks):
+        pos = torch.full((tok.shape[0],), pos0 + t, dtype=torch.int32)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        nxt1, _ = one.decode(model, cache1, tok1, pos)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        nxt, _ = dec.decode(mp, cache, tok, pos)
+        torch.cuda.synchronize()
+        ms1.append((t1 - t0) * 1e3)
+        ms.append((time.perf_counter() - t1) * 1e3)
+        if exact:
+            check(torch.equal(nxt.cpu(), nxt1.cpu()), f"{label}: tick {t} "
+                  f"tokens {nxt.tolist()} != one process {nxt1.tolist()}")
+        tok, tok1 = nxt[:, None], nxt1[:, None]
+    model.use_kernels = True
+    worst = 0.0
+    for mine, whole in zip(cache_leaves(cache), cache_leaves(cache1)):
+        block = local_of(whole, mine.placements, mesh)
+        worst = max(worst, float((to_local(mine).float() - block.float())
+                                 .abs().max()))
+        if exact:
+            check(torch.equal(to_local(mine), block),
+                  f"{label}: a cache block differs from the one-process "
+                  f"cache's")
+    return dict(mesh_tick_ms=float(np.median(ms)),
+                one_tick_ms=float(np.median(ms1)), cache_max_abs_err=worst)
+
+
+def family_serve(dev, mesh, spec, label: str) -> dict:
+    """10m's serving: the one-process engines (eager on the plain
+    versions, then the graph; `serve_both`), then `ServingEngine(mesh=)`
+    on the same weights and requests, counts zeroed just before its run;
+    then the prefill and its ticks ("b", "c") or the ring's ticks ("a")."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import frontend_shapes
+    from repro_torch.models import api
+    from repro_torch.models.common import NO_SHARD, ShardCtx, local_of, to_local
+    from repro_torch.serve import ServingEngine, build_decode_step
+    from repro_torch.serve.serve_step import _rows, mesh_cache, mesh_params
+    from repro_torch.tree import flatten
+    R = MESH_FAMILY_RUN
+    cfg = family_config(spec)
+    dtype = getattr(torch, spec["dtype"])
+    model = api.init_model(cfg, torch.Generator(device=dev).manual_seed(
+        R["seed"]), device=dev, dtype=dtype)
+    if "gate" in spec:
+        model.ca_blocks.gate.fill_(spec["gate"])
+    rng = np.random.default_rng(R["seed"])
+    lens = rng.integers(R["prompt_len"][0], R["prompt_len"][1] + 1,
+                        R["n_requests"])
+    news = rng.integers(R["new_tokens"][0], R["new_tokens"][1] + 1,
+                        R["n_requests"])
+    requests = [(rng.integers(0, cfg.vocab, n).tolist(), int(m))
+                for n, m in zip(lens, news)]
+    slots, max_seq = R["slots"], R["max_seq"]
+    one, engines = serve_both(dev, cfg, model, slots, max_seq, requests,
+                              "mesh-family", f"{label} ")
+    want = [r.out for r in engines["eager"].queue]
+    del engines
+    fresh = ServingEngine(cfg, slots, max_seq, model, device=dev)
+    for p, m in requests:
+        fresh.submit(p, m)
+    fresh._admit()
+    lg_one = first_tick_logits(fresh, NO_SHARD)
+    del fresh
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    eng = ServingEngine(cfg, slots, max_seq, model, mesh=mesh)
+    held, predicted = placed_bytes(
+        list(flatten(eng.params.tree()).values()) + cache_leaves(eng.cache),
+        mesh)
+    reqs = [eng.submit(p, m) for p, m in requests]
+    eng._admit()
+    lg_mesh = first_tick_logits(eng, ShardCtx(mesh, eng.fns.rules))
+    ops.reset_launches()
+    tick_ms = []
+    t0 = time.perf_counter()
+    while any(not r.done for r in reqs):           # ServingEngine.run, timed
+        eng._admit()
+        t = time.perf_counter()
+        eng._tick()
+        tick_ms.append((time.perf_counter() - t) * 1e3)
+    run_s = time.perf_counter() - t0
+    launches = {k: v for k, v in ops.LAUNCHES.items() if v}
+    peak = torch.cuda.max_memory_allocated() - base
+    got = [r.out for r in reqs]
+    scale = float(lg_one[:, :cfg.vocab].float().abs().max())   # no pads
+    logit_err = float((lg_mesh.float() - lg_one.float()).abs().max())
+    check(not launches, f"{label}: custom kernels launched: {launches}")
+    check(all(len(r.out) == m for r, (_, m) in zip(reqs, requests)),
+          f"{label}: a request did not complete with its max_new_tokens")
+    check(held == predicted, f"{label}: params + cache {held} B held, "
+          f"{predicted} B predicted by the placements")
+    if spec["exact"]:
+        check(got == want, f"{label}: tokens differ from the one-process "
+              f"eager engine's")
+        check(torch.equal(lg_mesh, lg_one), f"{label}: the first tick's "
+              f"logits differ from the one-process engine's by {logit_err!r}")
+    else:
+        check(logit_err <= MESH_SERVE_LOGIT_RTOL * scale,
+              f"{label}: the first tick's logits differ by {logit_err!r} "
+              f"(scale {scale!r})")
+    diverged = next((i for i, (g, w) in enumerate(zip(got, want)) if g != w),
+                    None)
+    out = dict(ticks=eng.ticks, mesh_tick_ms=float(np.median(tick_ms)),
+               run_s=run_s, one_eager_tick_ms=one["eager"]["tick_median_ms"],
+               one_graph_tick_ms=one["graph"]["tick_median_ms"],
+               resident_gb=held / 1e9, predicted_gb=predicted / 1e9,
+               peak_gb=peak / 1e9, first_tick_logit_err=logit_err,
+               logit_scale=scale, first_request_differing=diverged)
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    with torch.no_grad():
+        if spec["prefill"]:
+            B, S = spec["prefill"]
+            tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (B, S)).astype(
+                np.int32)).to(dev)
+            batch = {"tokens": tokens}
+            for k, shape in frontend_shapes(cfg, B, S).items():
+                batch[k] = torch.from_numpy(rng.standard_normal(
+                    shape, dtype=np.float32)).to(dev).to(dtype)
+            ms = S + R["ticks"]
+            dec = build_decode_step(cfg, B, ms, mesh=mesh)
+            one_dec = build_decode_step(cfg, B, ms, device=dev)
+            mp = mesh_params(cfg, model, dec)
+            shd = ShardCtx(mesh, dec.rules)
+            cache1 = api.init_cache(cfg, B, ms, device=dev)
+            cache = mesh_cache(cfg, dec)
+            times = {}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            lg1, cache1 = api.prefill(model, cfg, batch, cache1)
+            torch.cuda.synchronize()
+            times["one"] = (time.perf_counter() - t0) * 1e3
+            rows = {k: _rows(v, shd) for k, v in batch.items()}
+            t0 = time.perf_counter()
+            lg, cache = api.prefill(mp, cfg, rows, cache, shd)
+            lg = lg.full_tensor()
+            torch.cuda.synchronize()
+            times["mesh"] = (time.perf_counter() - t0) * 1e3
+            err = float((lg.float() - lg1.float()).abs().max())
+            filled = "enc_out" if cfg.family == "encdec" else "vis"
+            check(tuple(cache[filled].shape) == tuple(cache1[filled].shape)
+                  and bool(to_local(cache[filled]).abs().max() > 0),
+                  f"{label}: the prefill left {filled} unfilled")
+            if spec["exact"]:
+                check(torch.equal(lg, lg1), f"{label}: prefill logits differ "
+                      f"by {err!r}")
+            tok = lg1[:, -1].argmax(-1).to(torch.int32)[:, None]
+            out["prefill"] = dict(shape=[B, S], mesh_ms=times["mesh"],
+                                  one_ms=times["one"], max_abs_err=err,
+                                  **decode_both(mesh, dec, one_dec, mp, model,
+                                                cache, cache1, tok, S,
+                                                R["ticks"], label,
+                                                spec["exact"]))
+            del cache, cache1, mp, dec, one_dec, lg, lg1
+        if spec["ring"]:
+            pos0, ms = spec["ring"]
+            B = R["ring_batch"]
+            dec = build_decode_step(cfg, B, ms, mesh=mesh)
+            one_dec = build_decode_step(cfg, B, ms, device=dev)
+            mp = mesh_params(cfg, model, dec)
+            cache1 = api.init_cache(cfg, B, ms, device=dev)
+            g = torch.Generator(device=dev).manual_seed(R["seed"])
+            for t in cache_leaves(cache1):        # seeded: no attention to 0
+                t.copy_(torch.randn(t.shape, generator=g, device=dev))
+            cache = mesh_cache(cfg, dec)
+            cache_map(lambda mine, whole: to_local(mine).copy_(local_of(
+                whole, mine.placements, mesh)), cache, cache1)
+            window = cache1["attn_k"].shape[2]
+            check(pos0 < window <= pos0 + R["ticks"] - 1,
+                  f"{label}: ticks {pos0}-{pos0 + R['ticks'] - 1} do not "
+                  f"cross the {window}-slot ring's wrap")
+            tok = torch.from_numpy(rng.integers(0, cfg.vocab, (B, 1)).astype(
+                np.int32)).to(dev)
+            out["ring"] = dict(positions=[pos0, pos0 + R["ticks"] - 1],
+                               window=window, max_seq=ms,
+                               **decode_both(mesh, dec, one_dec, mp, model,
+                                             cache, cache1, tok, pos0,
+                                             R["ticks"], label,
+                                             spec["exact"]))
+            del cache, cache1, mp, dec, one_dec
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def mesh_family_rank(rank: int, world: int, runs: dict, out_dir: str
+                     ) -> None:
+    """The rank of phase 10m (a spawned process): every run of `runs`
+    (MESH_FAMILY's form), its training then its serving, over one mesh of
+    NCCL ranks.  Writes rank<r>.json."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_lm_mesh
+    shapes = {tuple(spec["shape"]) for spec in runs.values()}
+    check(len(shapes) == 1, f"10m: runs over several mesh shapes {shapes}")
+    t0 = time.perf_counter()
+    mesh = make_lm_mesh(shapes.pop(), backend="nccl",
+                        init_method=f"file://{out_dir}/store", rank=rank,
+                        world_size=world, timeout_s=300)
+    result = dict(rank=rank, world=world, mesh_s=time.perf_counter() - t0,
+                  coordinate=list(mesh.get_coordinate()), runs={})
+    try:
+        dev = torch.device("cuda", torch.cuda.current_device())
+        for run, spec in runs.items():
+            label = f"10m{run} rank {rank} of {world}"
+            t0 = time.perf_counter()
+            got = {}
+            if spec["train"]:
+                got["train"] = family_train(dev, mesh, spec, label)
+            if spec["serve"]:
+                got["serve"] = family_serve(dev, mesh, spec, label)
+            got["wall_s"] = time.perf_counter() - t0
+            result["runs"][run] = got
+        (Path(out_dir) / f"rank{rank}.json").write_text(json.dumps(result))
+    finally:
+        dist.destroy_process_group()
+
+
+def mesh_families(card: str, runs: dict = MESH_FAMILY,
+                  deadline_s: float = MESH_FAMILY_DEADLINE_S) -> dict:
+    """Phase 10m: the hybrid, enc-dec and VLM families over a (data, model)
+    mesh of NCCL ranks, rank r on card r, every run in one spawn joined
+    with a deadline (`mesh_family_rank`)."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    torch.cuda.synchronize()
+    print(f"[mesh-family] {torch.cuda.memory_allocated() / 1e9:.2f} GB "
+          f"allocated before the ranks start")
+    world = int(np.prod(next(iter(runs.values()))["shape"]))
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        ctx = mp.start_processes(mesh_family_rank, args=(world, runs, tmp),
+                                 nprocs=world, join=False,
+                                 start_method="spawn")
+        deadline = time.monotonic() + deadline_s
+        try:
+            while not ctx.join(timeout=5):
+                check(time.monotonic() < deadline,
+                      "10m: ranks still running at the deadline")
+        finally:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.kill()
+                    p.join()
+        ranks = [json.loads((Path(tmp) / f"rank{r}.json").read_text())
+                 for r in range(world)]
+        wall = time.perf_counter() - t0
+    for run, spec in runs.items():
+        name = spec["arch"] + (" reduced" if spec["reduced"] else "") + (
+            f" (depth {spec['layers']})" if spec.get("layers") else "")
+        for r in ranks:
+            got, where = r["runs"][run], (f"rank {r['rank']} of {world} at "
+                                          f"{tuple(r['coordinate'])}")
+            tr, sv = got.get("train"), got.get("serve")
+            if tr:
+                print(f"[mesh-family] {card}: 10m{run} {name} {where}: "
+                      f"training losses {tr['losses']} (one process "
+                      f"{tr['one_losses']}); step ms mesh "
+                      f"{[round(t, 1) for t in tr['mesh_step_ms']]} (eager), "
+                      f"one process eager {[round(t, 1) for t in tr['one_step_ms']]}"
+                      f", graph {[round(t, 1) for t in tr['graph_step_ms']]} "
+                      f"(eager, capture, replay); parameters resident "
+                      f"{tr['resident_gb']:.4f} GB, predicted params + grads "
+                      f"+ states {tr['predicted_gb']:.4f} GB, peak "
+                      f"{tr['peak_gb']:.4f} GB (one process "
+                      f"{tr['one_peak_gb']:.4f})")
+            if sv:
+                print(f"[mesh-family] {card}: 10m{run} {name} {where}: "
+                      f"serving {MESH_FAMILY_RUN['n_requests']} requests on "
+                      f"{MESH_FAMILY_RUN['slots']} slots, {sv['ticks']} "
+                      f"ticks; median tick {sv['mesh_tick_ms']:.2f} ms mesh "
+                      f"(eager) beside one process "
+                      f"{sv['one_eager_tick_ms']:.2f} (eager, plain) and "
+                      f"{sv['one_graph_tick_ms']:.2f} (graph); params + "
+                      f"cache resident {sv['resident_gb']:.4f} GB (predicted "
+                      f"{sv['predicted_gb']:.4f}), peak {sv['peak_gb']:.4f} "
+                      f"GB; first tick's logits max |diff| "
+                      f"{sv['first_tick_logit_err']!r} (largest logit "
+                      f"{sv['logit_scale']:.3f}); first request differing "
+                      f"{sv['first_request_differing']}")
+                for part in ("prefill", "ring"):
+                    if part in sv:
+                        p = sv[part]
+                        what = (f"prefill {p['shape'][0]} x {p['shape'][1]} "
+                                f"{p['mesh_ms']:.1f} ms mesh, "
+                                f"{p['one_ms']:.1f} ms one process (max "
+                                f"|diff| {p['max_abs_err']!r}), then"
+                                if part == "prefill" else
+                                f"ring of {p['window']} slots (max_seq "
+                                f"{p['max_seq']}), positions "
+                                f"{p['positions'][0]}-{p['positions'][1]}:")
+                        print(f"[mesh-family] 10m{run} {where}: {what} "
+                              f"{MESH_FAMILY_RUN['ticks']} ticks, median "
+                              f"{p['mesh_tick_ms']:.2f} ms mesh, "
+                              f"{p['one_tick_ms']:.2f} ms one process "
+                              f"(eager, plain); the caches' largest "
+                              f"difference {p['cache_max_abs_err']!r}")
+            print(f"[mesh-family] 10m{run} {where} took {got['wall_s']:.1f} s")
+    specs = list(runs.values())
+    if all(s["exact"] for s in specs):
+        held = ("every loss, grad_norm, lr_scale and parameter, every served "
+                "token, the first tick's logits, the prefill's logits and "
+                "every tick and cache block after it bit for bit the "
+                "one-process runs'")
+    else:
+        held = ", ".join(
+            part for part, ran in (
+                (f"training within rtol {MESH_TRAIN_RTOL}",
+                 any(s["train"] for s in specs)),
+                (f"first ticks within {MESH_SERVE_LOGIT_RTOL} of the largest "
+                 f"logit, resident bytes as the placements predict",
+                 any(s["serve"] for s in specs))) if ran)
+    print(f"[mesh-family] 10m: {held}; no kernel launched; {wall:.1f} s with "
+          f"the spawn")
+    return dict(wall_s=wall, runs={run: dict(arch=spec["arch"],
+                                             shape=list(spec["shape"]))
+                                   for run, spec in runs.items()},
+                ranks=ranks)
 
 
 def family_cell(dev, spec) -> dict:
@@ -4812,6 +5341,11 @@ def main() -> int:
     print(f"[mesh-serve] phase 7m took {time.perf_counter() - t7m:.1f} s")
     gc.collect()
     torch.cuda.empty_cache()
+    t10m = time.perf_counter()
+    mesh_family = mesh_families(card)
+    print(f"[mesh-family] phase 10m took {time.perf_counter() - t10m:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
     print(f"[family] training phases freed: "
           f"{torch.cuda.memory_allocated() / 1e9:.2f} GB still allocated")
     t10 = time.perf_counter()
@@ -4864,6 +5398,7 @@ def main() -> int:
         k: v for k, v in train.items() if k != "launches"}, "driver": driver}}))
     print(json.dumps({"mesh_training": mesh_train}))
     print(json.dumps({"mesh_serving": mesh_serve}))
+    print(json.dumps({"mesh_families": mesh_family}))
     print(json.dumps({"moe_serve": serve["summary"]}))
     print(json.dumps({"lm_families": families}))
     print(json.dumps({"dryrun": shapes}))

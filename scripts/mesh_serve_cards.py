@@ -5,7 +5,7 @@ card, on four NVIDIA GPUs of one host: chip_smoke.py phase 7m's rank body
 of one rank replicates, and gloo ranks cannot share a card: see
 chip_smoke.py's MESH_TRAIN).
 
-    python3 scripts/mesh_serve_cards.py [--runs c,d]
+    python3 scripts/mesh_serve_cards.py [--runs c,d,e]
 
 Runs (bf16 weights from a seeded generator, every rank against the
 one-process engines on its own card from the same weights and requests):
@@ -15,15 +15,22 @@ one-process engines on its own card from the same weights and requests):
   d  qwen2-0.5b at its published size (2 KV heads on a model axis of 4:
      the cache's sequence split over "model", each rank attending its
      part of the positions) at (1, 4): 16 requests on 8 slots, max_seq
-     512.
-Each rank's first tick's logits and prefill logits are held within
+     512;
+  e  the hybrid, enc-dec and VLM families at chip_smoke.py phase 10m's
+     sizes (zamba2-7b depth 16, seamless-m4t-medium, llama-3.2-vision-90b
+     depth 5 with its gate at 0.5) at (2, 2), through phase 10m's serving
+     (`family_serve`): 16 requests on 8 slots, max_seq 512, then the 4 x
+     2,048 prefill and its 8 ticks, or the ring's 8 ticks across its wrap.
+Each rank's first tick's logits and ("c") prefill logits are held within
 `MESH_SERVE_LOGIT_RTOL` of the largest logit of the one-process
 engine's; the script prints, for each rank, its resident parameters and
 cache beside what the placements predict, its peak, the median ticks
 (over the mesh, eager; in one process, eager on the plain versions and
 on the graph) and the tick at which its tokens first differ from the
-one-process engine's, if they do; then one JSON line.  Exits 1 if a
-check fails.  Needs four cards.
+one-process engine's, if they do ("e": the first request that differs,
+the prefill's and the ticks' largest differences, and its resident bytes
+held equal to the placements' prediction); then one JSON line.  Exits 1
+if a check fails.  Needs four cards.
 """
 from __future__ import annotations
 
@@ -45,9 +52,16 @@ RUNS = dict(
            new_tokens=(8, 24), prefill=None, exact=False))
 
 
+def families(cs) -> dict:
+    """Run "e": phase 10m's serving runs at (2, 2), held within
+    tolerance."""
+    return {run: dict(spec, shape=(2, 2), exact=False, train=False)
+            for run, spec in cs.MESH_FAMILY.items()}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--runs", default="c,d")
+    ap.add_argument("--runs", default="c,d,e")
     args = ap.parse_args()
     if torch.cuda.device_count() < 4:
         print("mesh_serve_cards: needs four cards", file=sys.stderr)
@@ -61,7 +75,10 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     print(card)
-    out = cs.mesh_serving(card, {r: RUNS[r] for r in args.runs.split(",")})
+    runs = args.runs.split(",")
+    out = cs.mesh_serving(card, {r: RUNS[r] for r in runs if r in RUNS})
+    if "e" in runs:
+        out["e"] = cs.mesh_families(card, families(cs), deadline_s=1500)
     print(json.dumps({"mesh_serve_cards": out}))
     return 0
 

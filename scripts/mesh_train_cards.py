@@ -22,9 +22,16 @@ Runs:
      DP row failing at step 6: it must exit 0, re-mesh (2, 2) -> (1, 2),
      log 10 finite losses, carry the optimizer's step over the restore
      (the first step on the survivors continues the checkpoint's count),
-     and write its final checkpoint.
-Prints chip_smoke.py's `[mesh-train]` lines, the driver's log and one
-JSON line; exits 1 if a check fails.  Needs four cards.
+     and write its final checkpoint;
+  f  the hybrid, enc-dec and VLM families, reduced (zamba2 and the VLM at
+     4 layers, so the shared block and the gated cross-attention run, the
+     VLM's gate at 0.5), in float32, 4 x 512 tokens with the frontend's
+     input, 3 steps: chip_smoke.py phase 10m's training
+     (`family_train`) at (2, 2), every rank within MESH_TRAIN_RTOL of the
+     one-process eager step on its card.
+Prints chip_smoke.py's `[mesh-train]` / `[mesh-family]` lines, the
+driver's log and one JSON line; exits 1 if a check fails.  Needs four
+cards.
 """
 from __future__ import annotations
 
@@ -50,6 +57,14 @@ RUNS = dict(
     d=dict(arch="qwen3-14b", reduced=False, dtype="bfloat16", bits=32,
            batch=8, seq=512, steps=2, lr=3e-4, shape=(2, 2),
            backend="nccl", exact=False, one=False))
+FAMILIES = {
+    run: dict(arch=arch, layers=layers, reduced=True, dtype="float32",
+              bits=32, shape=(2, 2), exact=False, train=True, serve=False,
+              prefill=None, ring=None, **extra)
+    for run, arch, layers, extra in (
+        ("zamba2", "zamba2-7b", 4, {}),
+        ("seamless", "seamless-m4t-medium", None, {}),
+        ("vision", "llama-3.2-vision-90b", 4, {"gate": 0.5}))}
 DRIVER = ("--arch", "qwen3-14b", "--reduced", "--mesh", "2x2", "--steps",
           "10", "--batch", "8", "--seq", "64", "--ckpt-every", "2",
           "--fail-at-step", "6", "--log-every", "1")
@@ -106,7 +121,7 @@ def driver() -> dict:
 
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--runs", default="c,d,e")
+    ap.add_argument("--runs", default="c,d,e,f")
     args = ap.parse_args()
     if torch.cuda.device_count() < 4:
         print("mesh_train_cards: needs four cards", file=sys.stderr)
@@ -124,6 +139,8 @@ def main() -> int:
     out = cs.mesh_training(card, {r: RUNS[r] for r in runs if r in RUNS})
     if "e" in runs:
         out["e"] = driver()
+    if "f" in runs:
+        out["f"] = cs.mesh_families(card, FAMILIES, deadline_s=900)
     print(json.dumps({"mesh_train_cards": out}))
     return 0 if all(out.get("e", {"checks": {}})["checks"].values()) else 1
 

@@ -11,9 +11,9 @@ and serve code never branch on family:
 forward(...) -> (logits, aux) where aux = {} or MoE stats (aux_loss enters the
 training loss; expert_load feeds the SkewShares re-planner).  Over a mesh
 `forward`, `decode_step` and `prefill` take a `common.ShardCtx` (`shd`) and
-the dense, MoE and SSM families run on the model's DTensors, plain tensors
-among them (positions, masks) taken as replicated; the hybrid, enc-dec and
-VLM families do not run over a mesh yet and refuse one.
+every family runs on the model's DTensors, the frontend's input (frames,
+vision embeddings) among them, plain tensors (positions, masks) taken as
+replicated.
 """
 from __future__ import annotations
 
@@ -70,31 +70,15 @@ def _frontend(cfg, batch: dict) -> tuple:
     return ()
 
 
-MESH_FAMILIES = ("dense", "moe", "ssm")
-
-
-def check_mesh_family(cfg) -> None:
-    """Raise unless the config's family runs over a mesh."""
-    if cfg.family not in MESH_FAMILIES:
-        raise NotImplementedError(
-            f"the {cfg.family} family does not run over a mesh yet "
-            f"(families over a mesh: {MESH_FAMILIES})")
-
-
 def forward(params, cfg, batch: dict, last_only: bool = False,
             shd: ShardCtx = NO_SHARD) -> tuple[torch.Tensor, dict[str, Any]]:
     m = family_module(cfg)
-    if shd.mesh is not None:
-        check_mesh_family(cfg)
     with mesh_context(shd):
         if cfg.family == "moe":
             return m.forward(params, cfg, batch["tokens"], last_only=last_only,
                              shd=shd)
-        if shd.mesh is not None:
-            return m.forward(params, cfg, batch["tokens"], last_only=last_only,
-                             shd=shd), {}
         return m.forward(params, cfg, batch["tokens"], *_frontend(cfg, batch),
-                         last_only=last_only), {}
+                         last_only=last_only, shd=shd), {}
 
 
 def mesh_context(shd: ShardCtx):
@@ -114,20 +98,13 @@ def decode_step(params, cfg, cache, batch: dict, pos,
     """One decode step: (logits (B,1,V), cache).  Over a mesh
     the cache is DTensors of `serve_step.cache_placements` and the tokens
     and positions DTensors split as the cache's rows."""
-    m = family_module(cfg)
-    if shd.mesh is None:
-        return m.decode_step(params, cfg, cache, batch["tokens"], pos)
-    check_mesh_family(cfg)
     with mesh_context(shd):
-        return m.decode_step(params, cfg, cache, batch["tokens"], pos,
-                             shd=shd)
+        return family_module(cfg).decode_step(params, cfg, cache,
+                                              batch["tokens"], pos, shd=shd)
 
 
 def prefill(params, cfg, batch: dict, cache, shd: ShardCtx = NO_SHARD):
-    m = family_module(cfg)
-    if shd.mesh is None:
-        return m.prefill(params, cfg, batch["tokens"], *_frontend(cfg, batch),
-                         cache)
-    check_mesh_family(cfg)
     with mesh_context(shd):
-        return m.prefill(params, cfg, batch["tokens"], cache, shd=shd)
+        return family_module(cfg).prefill(params, cfg, batch["tokens"],
+                                          *_frontend(cfg, batch), cache,
+                                          shd=shd)

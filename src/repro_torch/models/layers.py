@@ -230,17 +230,24 @@ def _sdpa_chunked(q, k, v, q_offset, window: int, chunk: int,
     return out.reshape(B, Sq, H, hd).to(q.dtype)
 
 
+def _key_heads(q, k, v, cfg, kv_head: int) -> tuple:
+    """k and v cut to the key heads of q's heads, the grouped heads of k's
+    heads from kv_head on (all of them where q holds every head)."""
+    rep = cfg.n_heads // cfg.n_kv_heads
+    lo = kv_head
+    hi = lo + max(q.shape[2] // rep, 1)
+    if (lo, hi) != (0, k.shape[2]):
+        k, v = k[:, :, lo:hi], v[:, :, lo:hi]
+    return k, v
+
+
 def _causal(q, k, v, cfg, q_offset: int = 0, kv_head: int = 0
             ) -> torch.Tensor:
     """Causal attention of queries q (B,Sq,H,hd) at positions q_offset +
     [0, Sq) over every key (B,Skv,KV,hd); q's heads are the grouped heads
     of k's heads from kv_head on.  Chunked past `attn_chunk` keys."""
     Skv = k.shape[1]
-    rep = cfg.n_heads // cfg.n_kv_heads
-    lo = kv_head
-    hi = lo + max(q.shape[2] // rep, 1)
-    if (lo, hi) != (0, k.shape[2]):
-        k, v = k[:, :, lo:hi], v[:, :, lo:hi]
+    k, v = _key_heads(q, k, v, cfg, kv_head)
     if cfg.attn_chunk and Skv > cfg.attn_chunk:
         return _sdpa_chunked(q, k, v, q_offset, cfg.sliding_window,
                              cfg.attn_chunk)
@@ -249,15 +256,64 @@ def _causal(q, k, v, cfg, q_offset: int = 0, kv_head: int = 0
     return _sdpa_dense(q, k, v, mask)
 
 
+def _bidir(q, k, v, cfg, chunk: int, kv_head: int = 0) -> torch.Tensor:
+    """Bidirectional attention of q (B,Sq,H,hd) over every key
+    (B,Skv,KV,hd), q's heads mapped to k's as in `_causal`: the online
+    softmax over chunks of `chunk` keys where `chunk` is not 0, else
+    dense.  The caller decides the chunking from the global shapes."""
+    k, v = _key_heads(q, k, v, cfg, kv_head)
+    if chunk:
+        return _sdpa_chunked(q, k, v, 0, 0, chunk, causal=False)
+    return _sdpa_dense(q, k, v, torch.zeros((q.shape[1], k.shape[1]),
+                                            dtype=torch.float32,
+                                            device=q.device))
+
+
 def _causal_over_mesh(q, k, v, cfg, shd: ShardCtx) -> torch.Tensor:
-    """`_causal` on each rank's own queries (`local_map`: the attention's
-    grouped einsums flatten dimensions that DTensor cannot flatten across
-    shards): q as pinned (its rows by "batch", its sequence or its heads
-    by "model"); k and v by the same rows and, where q's heads are split,
-    by their own heads when those divide, else whole; each rank's gradient
-    of a k or v it holds whole for queries it does not is a partial sum.
-    Under sequence parallelism a rank's queries start at its sequence
-    offset; under head parallelism its heads map to their key heads."""
+    """`_causal` on each rank's own queries (`_attend_over_mesh`); under
+    sequence parallelism a rank's queries start at its sequence offset."""
+    return _attend_over_mesh(q, k, v, cfg, shd, lambda q, k, v, q_off, kv_head:
+                             _causal(q, k, v, cfg, q_off, kv_head))
+
+
+def _bidir_over_mesh(q, k, v, cfg, shd: ShardCtx, chunk: int
+                     ) -> torch.Tensor:
+    """`_bidir` on each rank's own queries (`_attend_over_mesh`): the
+    encoder's self-attention and cross-attention.  `chunk` is the one
+    `_bidir` takes in one process, from the global shapes, so a rank
+    chunks exactly where one process does."""
+    return _attend_over_mesh(q, k, v, cfg, shd, lambda q, k, v, _, kv_head:
+                             _bidir(q, k, v, cfg, chunk, kv_head))
+
+
+class _DenseGrad(torch.autograd.Function):
+    """The identity, whose gradient leaves contiguous: the attention's
+    einsums give its inputs' gradients in permuted layouts, and DTensor
+    (torch 2.13) views a block so laid out where its global layout allows
+    it (the projections' backward), which the block's own does not ("view
+    size is not compatible"; KV heads split over "model").  Applied only
+    to the blocks of a split tensor: a whole one keeps the one-process
+    layout, and with it the one-process products' bits."""
+
+    @staticmethod
+    def forward(ctx, t):
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.contiguous()
+
+
+def _attend_over_mesh(q, k, v, cfg, shd: ShardCtx, attend) -> torch.Tensor:
+    """`attend(q, k, v, q_offset, kv_head)` on each rank's own queries
+    (`local_map`: the attention's grouped einsums flatten dimensions that
+    DTensor cannot flatten across shards): q as pinned (its rows by
+    "batch", its sequence or its heads by "model"); k and v by the same
+    rows and, where q's heads are split, by their own heads when those
+    divide, else whole; each rank's gradient of a k or v it holds whole
+    for queries it does not is a partial sum.  A rank's queries start at
+    its sequence offset `q_offset`; under head parallelism its heads map
+    to their key heads from `kv_head` on."""
     mesh = shd.mesh
     q_pl = q.placements
     kv_pl, kv_grad = [], []
@@ -275,8 +331,11 @@ def _causal_over_mesh(q, k, v, cfg, shd: ShardCtx) -> torch.Tensor:
     kv_off = local_block(k.shape, kv_pl, mesh)[1]
     rep = cfg.n_heads // cfg.n_kv_heads
     kv_head = q_off[2] // rep - kv_off[2]
+    split = [any(pl.is_shard() for pl in pls) for pls in (q_pl, kv_pl, kv_pl)]
     return local_map(
-        lambda q, k, v: _causal(q, k, v, cfg, q_off[1], kv_head),
+        lambda *qkv: attend(*(_DenseGrad.apply(t) if cut else t
+                              for t, cut in zip(qkv, split)), q_off[1],
+                            kv_head),
         out_placements=(q_pl,), in_placements=(q_pl, kv_pl, kv_pl),
         in_grad_placements=(q_pl, kv_grad, kv_grad), device_mesh=mesh,
         redistribute_inputs=True)(q, k, v)
@@ -374,20 +433,24 @@ def _cache_parts(placements) -> tuple[tuple, tuple, tuple[bool, ...]]:
 
 
 def decode_attention_over_mesh(p, cfg, x, cache_k, cache_v, layer: int, pos,
-                               shd: ShardCtx) -> torch.Tensor:
+                               shd: ShardCtx, write_pos=None, kv_valid=None
+                               ) -> torch.Tensor:
     """`decode_attention` over a mesh: x (B,1,d) and pos (B,) DTensors;
     cache_k and cache_v the stacked caches (L,B,Smax,kv,hd), DTensors of
     the placements `serve_step.cache_placements` gives them (rows over DP,
     the KV heads over "model" or, where those cannot take it, the
-    sequence).  Each rank writes the new key and value of its rows and
-    heads into its block of layer `layer` in place, where its block holds
-    the position, and attends its queries against its block (`local_map`s
-    on the blocks: DTensor's indexing of sharded tensors is not relied
-    on).  Over a sequence split each rank's logits go through a
-    log-sum-exp combination: their maximum over the split (a partial max),
-    then each rank's sum of exp(logit - max) and of the values so
-    weighted, partial sums over the split, summed and divided.  Returns
-    x + the attention's output projected."""
+    sequence).  `write_pos` (B,) and `kv_valid` (B,Smax), DTensors split
+    as pos, are `decode_attention`'s (a ring buffer's slot and written
+    slots); RoPE stays at `pos`.  Each rank writes the new key and value
+    of its rows and heads into its block of layer `layer` in place, where
+    its block holds the slot, and attends its queries against its block
+    (`local_map`s on the blocks: DTensor's indexing of sharded tensors is
+    not relied on), masked by its block's columns of `kv_valid` where
+    given, else causally.  Over a sequence split each rank's logits go
+    through a log-sum-exp combination: their maximum over the split (a
+    partial max), then each rank's sum of exp(logit - max) and of the
+    values so weighted, partial sums over the split, summed and divided.
+    Returns x + the attention's output projected."""
     mesh = shd.mesh
     B = x.shape[0]
     h = rmsnorm(x, p["norm"])
@@ -395,28 +458,35 @@ def decode_attention_over_mesh(p, cfg, x, cache_k, cache_v, layer: int, pos,
     lo = local_block(cache_k.shape, cache_k.placements, mesh)[1][2]
     ck, cv = to_local(cache_k)[layer], to_local(cache_v)[layer]
     rows, heads, split = _cache_parts(cache_k.placements)
+    # The slots written and, for a ring, the written slots: tensors split
+    # as the cache's rows (`valid` empty where the mask is causal).
+    at = (pos if write_pos is None else write_pos,)
+    valid = () if kv_valid is None else (kv_valid,)
     if not any(split):
-        def attend(q, k, v, pos):
-            _write_rows(ck, pos.long(), k)
-            _write_rows(cv, pos.long(), v)
-            o = _attend_cache(q, ck, cv, _decode_mask(cfg, pos, ck.shape[1]),
-                              x.dtype)
+        def attend(q, k, v, pos, at, *valid):
+            _write_rows(ck, at.long(), k)
+            _write_rows(cv, at.long(), v)
+            ok = valid[0] if valid else _decode_mask(cfg, pos, ck.shape[1])
+            o = _attend_cache(q, ck, cv, ok, x.dtype)
             return o.reshape(*q.shape)
 
         o = local_map(attend, out_placements=(heads,),
-                      in_placements=(heads, heads, heads, rows),
-                      device_mesh=mesh, redistribute_inputs=True)(q, k, v, pos)
+                      in_placements=(heads, heads, heads)
+                      + (rows,) * (2 + len(valid)),
+                      device_mesh=mesh, redistribute_inputs=True)(
+            q, k, v, pos, *at, *valid)
     else:
-        o = _split_attention(cfg, q, k, v, pos, ck, cv, lo, rows, heads,
-                             split, x.dtype, mesh)
+        o = _split_attention(cfg, q, k, v, (pos, *at, *valid), ck, cv, lo,
+                             rows, heads, split, x.dtype, mesh)
     o = o.reshape(B, 1, -1)
     return x + shd.shard(dense(o, p["wo"]), "batch", "act_seq", "act_embed")
 
 
-def _split_attention(cfg, q, k, v, pos, ck, cv, lo: int, rows, heads, split,
-                     dtype, mesh):
+def _split_attention(cfg, q, k, v, where, ck, cv, lo: int, rows, heads,
+                     split, dtype, mesh):
     """Attention over a cache whose sequence is split (positions [lo, lo +
-    ck.shape[1]) on this rank): see `decode_attention_over_mesh`."""
+    ck.shape[1]) on this rank): see `decode_attention_over_mesh`.  `where`
+    is (pos, the slots written[, kv_valid])."""
     def over(kv_dim: int, split_as) -> tuple:
         """Placements of a tensor with its rows at dimension 0 and its KV
         heads at `kv_dim`, `split_as` on the dimensions that split the
@@ -425,21 +495,24 @@ def _split_attention(cfg, q, k, v, pos, ck, cv, lo: int, rows, heads, split,
                      else r for s, hp, r in zip(split, heads, rows))
 
     whole = over(1, Replicate())
+    n = ck.shape[1]
 
-    def scores(q, k, v, pos):
-        at = pos.long() - lo
-        held = (at >= 0) & (at < ck.shape[1])
-        at = at.clamp(0, ck.shape[1] - 1)
+    def scores(q, k, v, pos, at, *valid):
+        at = at.long() - lo
+        held = (at >= 0) & (at < n)
+        at = at.clamp(0, n - 1)
         _write_rows(ck, at, k, held)
         _write_rows(cv, at, v, held)
-        lg = _cache_logits(q, ck, _decode_mask(cfg, pos, ck.shape[1], lo))
+        ok = (valid[0][:, lo:lo + n] if valid
+              else _decode_mask(cfg, pos, n, lo))
+        lg = _cache_logits(q, ck, ok)
         return lg, lg.amax(dim=-1, keepdim=True)
 
     logits, m = local_map(
         scores, out_placements=(over(1, Shard(4)),
                                 over(1, Partial("max"))),
-        in_placements=(heads, heads, heads, rows), device_mesh=mesh,
-        redistribute_inputs=True)(q, k, v, pos)
+        in_placements=(heads, heads, heads) + (rows,) * len(where),
+        device_mesh=mesh, redistribute_inputs=True)(q, k, v, *where)
     m = m.redistribute(mesh, whole)
 
     def weigh(lg, m):
@@ -473,6 +546,22 @@ def fill_cache_over_mesh(cache, layer: int, new) -> None:
         block[:, :hi - lo] = mine[:, lo:hi].to(block.dtype)
 
 
+def prefill_attention_over_mesh(p, cfg, x, positions, cache_k, cache_v,
+                                layer: int, shd: ShardCtx) -> torch.Tensor:
+    """One layer's causal self-attention of a prefill over a mesh: its keys
+    and values written into each rank's blocks of layer `layer` of the
+    stacked caches (`fill_cache_over_mesh`), each rank's queries attended
+    (`_causal_over_mesh`).  Returns x + the attention's output
+    projected."""
+    h = rmsnorm(x, p["norm"])
+    q, k, v = _qkv(p, cfg, h, positions)
+    fill_cache_over_mesh(cache_k, layer, k)
+    fill_cache_over_mesh(cache_v, layer, v)
+    q = shd.shard(q, "batch", "act_seq", "act_heads", None)
+    o = _causal_over_mesh(q, k, v, cfg, shd).reshape(*x.shape[:2], -1)
+    return x + shd.shard(dense(o, p["wo"]), "batch", "act_seq", "act_embed")
+
+
 # ---------------------------------------------------------------------------
 # Cross-attention (enc-dec, VLM image layers)
 # ---------------------------------------------------------------------------
@@ -488,28 +577,36 @@ def cross_attention(p, cfg, x, kv_src, shd: ShardCtx = NO_SHARD
                     ) -> torch.Tensor:
     """x: (B,Sq,d) queries; kv_src: (B,Skv,d) encoder/vision states (no
     RoPE).  The KV side is chunked (bidirectional online softmax) when
-    Sq·Skv passes attn_chunk², in chunks of min(attn_chunk, Skv)."""
+    Sq·Skv passes attn_chunk², in chunks of min(attn_chunk, Skv).  Over a
+    mesh the queries' heads go over "model"; kv_src comes with its rows
+    over DP (the encoder's output, the projected vision tokens or a cache
+    leaf) and is not pinned again: a pin per layer would regroup the
+    gradient sums of a source every layer reads, and with them the
+    one-process bits.  The keys' and values' heads split where they
+    divide (`_split_heads`), and each rank attends its rows and heads
+    (`_bidir_over_mesh`)."""
     B, Sq, _ = x.shape
     Skv = kv_src.shape[1]
     hd = cfg.hd()
     h = rmsnorm(x, p["norm"])
-    q = (h @ p["wq"]).reshape(B, Sq, cfg.n_heads, hd)
+    q = _split_heads(dense(h, p["wq"]), cfg.n_heads, hd)
     # JAX promotes a bf16 source (a serving cache) against f32 weights to
     # f32; so does this.
     ct = torch.promote_types(kv_src.dtype, p["wk"].dtype)
     kv_src = kv_src.to(ct)
-    k = (kv_src @ p["wk"].to(ct)).reshape(B, Skv, cfg.n_kv_heads, hd)
-    v = (kv_src @ p["wv"].to(ct)).reshape(B, Skv, cfg.n_kv_heads, hd)
+    k = _split_heads(dense(kv_src, p["wk"].to(ct)), cfg.n_kv_heads, hd)
+    v = _split_heads(dense(kv_src, p["wv"].to(ct)), cfg.n_kv_heads, hd)
     if cfg.qk_norm:
         q, k = rmsnorm(q, p["q_norm"]), rmsnorm(k, p["k_norm"])
-    if cfg.attn_chunk and Sq * Skv > cfg.attn_chunk ** 2:
-        o = _sdpa_chunked(q, k, v, 0, 0, min(cfg.attn_chunk, Skv),
-                          causal=False)
+    chunk = (min(cfg.attn_chunk, Skv)
+             if cfg.attn_chunk and Sq * Skv > cfg.attn_chunk ** 2 else 0)
+    if shd.mesh is None:
+        o = _bidir(q, k, v, cfg, chunk)
     else:
-        o = _sdpa_dense(q, k, v, torch.zeros((Sq, Skv), dtype=torch.float32,
-                                             device=x.device))
-    return x + shd.shard(o.reshape(B, Sq, -1) @ p["wo"], "batch", "act_seq",
-                         "act_embed")
+        q = shd.shard(q, "batch", "act_seq", "act_heads", None)
+        o = _bidir_over_mesh(q, k, v, cfg, shd, chunk)
+    return x + shd.shard(dense(o.reshape(B, Sq, -1), p["wo"]), "batch",
+                         "act_seq", "act_embed")
 
 
 # ---------------------------------------------------------------------------

@@ -161,9 +161,9 @@ def prefill_layers(params, cfg, tokens, cache: dict, ffn: Callable,
     x = L.embed(params["embed"], cfg, tokens, shd)
     for i, lp in enumerate(params["blocks"]):
         ap = lp["attn"]
-        h = L.rmsnorm(x, ap["norm"])
-        q, k, v = L._qkv(ap, cfg, h, positions)
         if shd.mesh is None:
+            h = L.rmsnorm(x, ap["norm"])
+            q, k, v = L._qkv(ap, cfg, h, positions)
             cache["k"][i, :, :S] = k.to(cache["k"].dtype)
             cache["v"][i, :, :S] = v.to(cache["v"].dtype)
             if cfg.attn_chunk and S > cfg.attn_chunk:
@@ -174,12 +174,8 @@ def prefill_layers(params, cfg, tokens, cache: dict, ffn: Callable,
                     S, S, 0, cfg.sliding_window, tokens.device))
             x = x + o.reshape(B, S, -1) @ ap["wo"]
         else:
-            L.fill_cache_over_mesh(cache["k"], i, k)
-            L.fill_cache_over_mesh(cache["v"], i, v)
-            q = shd.shard(q, "batch", "act_seq", "act_heads", None)
-            o = L._causal_over_mesh(q, k, v, cfg, shd).reshape(B, S, -1)
-            x = x + shd.shard(L.dense(o, ap["wo"]), "batch", "act_seq",
-                              "act_embed")
+            x = L.prefill_attention_over_mesh(ap, cfg, x, positions,
+                                              cache["k"], cache["v"], i, shd)
         x = ffn(lp, x)
     return L.logits(params["embed"], cfg, x[:, -1:], shd), cache
 

@@ -96,14 +96,13 @@ def serve_rules(cfg: ArchConfig, mesh, decode: bool):
 
 def _over_mesh(cfg: ArchConfig, mesh, rules, decode: bool) -> dict:
     """ServeFns' mesh fields (none without a mesh); raises where this rank
-    is not in the mesh or the family does not run over one."""
+    is not in the mesh."""
     if mesh is None:
         return {}
     from ..models import api
     from ..models.common import param_placements
     if mesh.get_coordinate() is None:
         raise ValueError("this rank is not in the mesh")
-    api.check_mesh_family(cfg)
     rules = rules or serve_rules(cfg, mesh, decode)
     return dict(mesh=mesh, rules=rules, param_placements=param_placements(
         api.layout(cfg), rules, mesh))
@@ -209,19 +208,22 @@ def cache_placements(cfg: ArchConfig, batch: int, max_seq: int, rules,
                      mesh) -> dict:
     """The placements of each leaf of the family's `init_cache(cfg, batch,
     max_seq)` over `mesh` (the reference's `cache_shardings`): its
-    `cache_axes` through the rules.  Where the KV heads cannot take the
-    "model" axis (fewer heads than ranks, or heads that do not divide), the
-    cache's sequence dimension takes it, provided `max_seq` divides:
-    attention contracts over it, and each rank attends its part of the
-    positions (`layers.decode_attention_over_mesh`); without the fallback a
-    long cache would be held whole on every model rank."""
+    `cache_axes` through the rules, a tree of the cache's keys (None where
+    the cache holds None).  Where the KV heads cannot take the "model"
+    axis (fewer heads than ranks, or heads that do not divide), the
+    cache's sequence dimension takes it (a ring's window), provided it
+    divides: attention contracts over it, and each rank attends its part
+    of the positions (`layers.decode_attention_over_mesh`); without the
+    fallback a long cache would be held whole on every model rank."""
     from ..models import api
     from ..models.common import _flat_axes, mesh_shape, placements_of, resolve_pspec
-    axes = api.family_module(cfg).cache_axes(cfg)
-    shapes = cache_shapes(cfg, batch, max_seq)
     model = mesh_shape(mesh)["model"]
 
     def resolve(shape, ax):
+        if ax is None:
+            return None
+        if isinstance(ax, dict):
+            return {k: resolve(shape[k], a) for k, a in ax.items()}
         spec = list(resolve_pspec(shape, ax, rules, mesh))
         if (len(ax) == 5 and "kv_heads" in ax
                 and not any("model" in _flat_axes(a) for a in spec)
@@ -230,17 +232,22 @@ def cache_placements(cfg: ArchConfig, batch: int, max_seq: int, rules,
             spec[2] = "model"
         return placements_of(tuple(spec), mesh)
 
-    return {k: resolve(shapes[k], ax) for k, ax in axes.items()}
+    return resolve(cache_shapes(cfg, batch, max_seq),
+                   api.family_module(cfg).cache_axes(cfg))
 
 
-def _check_placements(cache, want) -> None:
+def _check_placements(cache, want, key: str = "cache") -> None:
     from torch.distributed.tensor import DTensor
-    for k, pl in want.items():
-        t = cache[k]
-        if not isinstance(t, DTensor) or tuple(t.placements) != tuple(pl):
-            got = t.placements if isinstance(t, DTensor) else "a tensor"
-            raise ValueError(f"cache leaf {k}: {got}; the step was built "
-                             f"for {tuple(pl)}")
+    if isinstance(want, dict):
+        for k, pl in want.items():
+            _check_placements(cache[k], pl, f"{key}/{k}")
+        return
+    if want is None:
+        return
+    if not isinstance(cache, DTensor) or tuple(cache.placements) != tuple(want):
+        got = cache.placements if isinstance(cache, DTensor) else "a tensor"
+        raise ValueError(f"cache leaf {key}: {got}; the step was built "
+                         f"for {tuple(want)}")
 
 
 def mesh_cache(cfg: ArchConfig, fns: ServeFns,
@@ -250,15 +257,19 @@ def mesh_cache(cfg: ArchConfig, fns: ServeFns,
     allocates its own block alone."""
     from ..models import api
     from ..models.common import as_dtensor, local_block
-    meta = api.init_cache(cfg, fns.batch, fns.max_seq, dtype, device="meta")
-    out = {}
-    for k, t in meta.items():
-        pl = fns.cache_placements[k]
+
+    def block(t, pl):
+        if t is None:
+            return None
+        if isinstance(t, dict):
+            return {k: block(v, pl[k]) for k, v in t.items()}
         local = local_block(t.shape, pl, fns.mesh)[0]
-        out[k] = as_dtensor(torch.zeros(local, dtype=t.dtype,
-                                        device=fns.device), t.shape, pl,
-                            fns.mesh)
-    return out
+        return as_dtensor(torch.zeros(local, dtype=t.dtype,
+                                      device=fns.device), t.shape, pl,
+                          fns.mesh)
+
+    return block(api.init_cache(cfg, fns.batch, fns.max_seq, dtype,
+                                device="meta"), fns.cache_placements)
 
 
 def mesh_params(cfg: ArchConfig, params, fns: ServeFns):

@@ -39,17 +39,27 @@ def _flat(tree, prefix=""):
 def jax_case(case: str) -> dict:
     arch, n_micro, bits, shape, _ = lc.CASES[case]
     cfg = ARCHS[arch].reduced()
+    return jax_steps(cfg, n_micro, bits, shape, lc.batch(cfg.vocab))
+
+
+def jax_steps(cfg, n_micro: int, bits: int, shape, batch: dict,
+              adjust=None) -> dict:
+    """The reference's steps of `cfg` on a mesh of `shape` over `batch`
+    (numpy, its keys and shapes the step's), from the seed-made float32
+    parameters, `adjust(params)` (numpy leaves) applied to them first
+    where given (`jax_case`'s body)."""
     devices = np.array(jax.devices()[:shape[0] * shape[1]]).reshape(shape)
     mesh = Mesh(devices, ("data", "model"))
-    babs = {k: jax.ShapeDtypeStruct((lc.B, lc.S), jnp.int32)
-            for k in ("tokens", "labels")}
+    babs = {k: jax.ShapeDtypeStruct(v.shape, v.dtype)
+            for k, v in batch.items()}
     ocfg = AdamWConfig(lr=lc.LR, state_bits=bits)
     fns = build_train_step(cfg, mesh, babs, n_micro=n_micro, opt_cfg=ocfg,
                            donate=False, **lc.STEP_KW)
-    params = jax.device_put(init_params(fns.layout, jax.random.key(0),
-                                        jnp.float32), fns.param_shardings)
+    params = init_params(fns.layout, jax.random.key(0), jnp.float32)
+    if adjust is not None:
+        params = adjust(jax.device_get(params))
+    params = jax.device_put(params, fns.param_shardings)
     opt = jax.device_put(adamw.init(params, ocfg), fns.opt_shardings)
-    batch = lc.batch(cfg.vocab)
     jb = {k: jnp.asarray(v) for k, v in batch.items()}
     metrics, states = [], [jax.device_get((params, opt))]
     for _ in range(lc.STEPS):
@@ -85,7 +95,12 @@ def run(cases, tmp_path_factory, name: str) -> tuple[list[dict], dict]:
     return mc.load_ranks(d, 4), want
 
 
-def check_case(ranks, want, case):
+def check_case(ranks, want, case, shape=None):
+    """Every rank's metrics of `case` against the reference's and the
+    one-process step's, alike on every rank, its shard shapes the
+    reference's, no kernel launched, its mesh coordinate (`shape`: the
+    mesh's, by default the LM case's)."""
+    shape = shape or lc.CASES[case][3]
     for r, rank in enumerate(ranks):
         got = rank[case]
         lc.check_metrics(got["metrics"], want[case]["metrics"], case)
@@ -94,8 +109,7 @@ def check_case(ranks, want, case):
             np.testing.assert_array_equal(v, ranks[0][case]["metrics"][-1][k])
         assert got["shapes"] == want[case]["shapes"][r], (case, r)
         assert all(v == 0 for v in got["launches"].values())
-        assert got["coordinate"] == (r // lc.CASES[case][3][1],
-                                     r % lc.CASES[case][3][1])
+        assert got["coordinate"] == (r // shape[1], r % shape[1])
 
 
 def check_blocks(ranks, case):

@@ -90,14 +90,21 @@ def _block_errors(tree, want, one=None) -> dict:
 
 def run_case(case: str, mesh, in_dir) -> dict:
     from repro_torch.configs import ARCHS
+    arch, n_micro, bits, _, chained = CASES[case]
+    with open(Path(in_dir) / f"{case}.pkl", "rb") as f:
+        ref = pickle.load(f)
+    return run_steps(ARCHS[arch].reduced(), n_micro, bits, chained, mesh,
+                     ref)
+
+
+def run_steps(cfg, n_micro: int, bits: int, chained: bool, mesh,
+              ref: dict) -> dict:
+    """STEPS steps of `cfg` over `mesh` and in one process from `ref`'s
+    start on its batch (`run_case`'s body; module docstring)."""
     from repro_torch.kernels import ops
     from repro_torch.models.convert import opt_state_from_jax, params_from_jax
     from repro_torch.optim import AdamWConfig, adamw
     from repro_torch.train import build_train_step
-    arch, n_micro, bits, _, chained = CASES[case]
-    with open(Path(in_dir) / f"{case}.pkl", "rb") as f:
-        ref = pickle.load(f)
-    cfg = ARCHS[arch].reduced()
     ocfg = AdamWConfig(lr=LR, state_bits=bits)
     fns = build_train_step(cfg, ocfg, n_micro=n_micro, mesh=mesh,
                            device="cpu", **STEP_KW)
@@ -143,7 +150,6 @@ def check_metrics(got, want, case):
     expert_load equal and summing to B·S·K·L."""
     import pytest
     from repro_torch.configs import ARCHS
-    arch = CASES[case][0]
     for i, w in enumerate(want):
         for k in ("loss", "zloss", "grad_norm"):
             assert float(got[i][k]) == pytest.approx(float(w[k]), **TOL), (
@@ -152,7 +158,7 @@ def check_metrics(got, want, case):
             float(w["lr_scale"]), abs=1e-7)
         assert set(got[i]) == set(w)
         if "expert_load" in w:
-            cfg = ARCHS[arch].reduced()
+            cfg = ARCHS[CASES[case][0]].reduced()
             np.testing.assert_array_equal(got[i]["expert_load"],
                                           np.asarray(w["expert_load"]))
             assert got[i]["expert_load"].sum() == (

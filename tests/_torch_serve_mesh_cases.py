@@ -58,7 +58,6 @@ CASES = {
 }
 DECODE = [c for c, v in CASES.items() if v[0] == "decode"]
 OTHERS = [c for c, v in CASES.items() if v[0] != "decode"]
-REFUSED = ("zamba2-7b", "seamless-m4t-medium", "llama-3.2-vision-90b")
 
 
 def config(case: str, archs):
@@ -99,6 +98,30 @@ def _errors(mine, want, one=None) -> dict:
     return out
 
 
+def tree_map(fn, t, *rest):
+    """fn over the leaves of a cache tree (and the matching leaves of
+    `rest`), None kept: the hybrid's nested states and the tails that a
+    config without one holds as None."""
+    if t is None:
+        return None
+    if isinstance(t, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in t.items()}
+    return fn(t, *rest)
+
+
+def flat(t, prefix: str = "") -> dict:
+    """A cache tree's leaves by `/`-joined path, sorted, None dropped."""
+    if t is None:
+        return {}
+    if not isinstance(t, dict):
+        return {prefix[:-1]: t}
+    out = {}
+    for k in sorted(t):
+        out.update(flat(t[k], f"{prefix}{k}/"))
+    return out
+
+
 def _decode_logits(model, cfg, cache, tokens, pos, shd):
     """The step's last-position logits on a copy of the cache: (B, V),
     whole (over a mesh, the same on every rank)."""
@@ -109,8 +132,10 @@ def _decode_logits(model, cfg, cache, tokens, pos, shd):
                                                         None), shd.mesh)
         pos = distribute_tree(pos, shd.placements(pos.shape, "batch"),
                               shd.mesh)
-    copy = {k: v.clone() for k, v in cache.items()}
-    lg, _ = api.decode_step(model, cfg, copy, {"tokens": tokens}, pos, shd)
+    copy = tree_map(torch.Tensor.clone, cache)
+    with torch.no_grad():
+        lg, _ = api.decode_step(model, cfg, copy, {"tokens": tokens}, pos,
+                                shd)
     lg = lg[:, -1]
     return lg.full_tensor() if shd.mesh is not None else lg
 
@@ -184,13 +209,16 @@ def run_decode(case: str, mesh, ref: dict) -> dict:
 
 
 def run_engine(case: str, mesh, ref: dict) -> dict:
+    from repro_torch.configs import ARCHS
+    return serve_engine(config(case, ARCHS), mesh, ref)
+
+
+def serve_engine(cfg, mesh, ref: dict) -> dict:
     """The five requests on a mesh engine (the reference's numpy tree as
     its parameters) and a one-process engine; the last request, which
     reuses a slot, alone on a fresh mesh engine."""
-    from repro_torch.configs import ARCHS
     from repro_torch.models.convert import params_from_jax
     from repro_torch.serve import ServingEngine
-    cfg = config(case, ARCHS)
     prompts = ref["inputs"]["prompts"]
     news = [m for _, m in ENGINE["requests"]]
 
@@ -208,7 +236,8 @@ def run_engine(case: str, mesh, ref: dict) -> dict:
                                   device="cpu"), [len(prompts) - 1])
     return {"tokens": mesh_out, "one": one_out, "solo": solo[0],
             "counts": (eng.fns.eager_calls, eng.fns.captures,
-                       eng.fns.replays), "ticks": eng.ticks}
+                       eng.fns.replays), "ticks": eng.ticks,
+            "cache_keys": sorted(flat(eng.cache))}
 
 
 def run_prefill(case: str, mesh, ref: dict) -> dict:
@@ -255,35 +284,6 @@ def run_prefill(case: str, mesh, ref: dict) -> dict:
     return got
 
 
-def refusals(mesh) -> dict:
-    """Whether each family that does not run over a mesh refuses one in
-    `build_decode_step`, `build_prefill` and `api.decode_step`."""
-    from repro_torch.configs import ARCHS
-    from repro_torch.models import api
-    from repro_torch.models.common import ShardCtx, rules_for
-    from repro_torch.serve import build_decode_step, build_prefill
-    out = {}
-    for arch in REFUSED:
-        cfg = ARCHS[arch].reduced()
-        calls = {
-            "decode": lambda: build_decode_step(cfg, B, MAX_SEQ, mesh=mesh,
-                                                device="cpu"),
-            "prefill": lambda: build_prefill(cfg, mesh=mesh, device="cpu"),
-            "api": lambda: api.decode_step(
-                None, cfg, None, {"tokens": None}, None,
-                ShardCtx(mesh, rules_for(cfg, mesh))),
-        }
-        out[arch] = {}
-        for name, call in calls.items():
-            try:
-                call()
-            except NotImplementedError as err:
-                out[arch][name] = "does not run over a mesh" in str(err)
-            else:
-                out[arch][name] = False
-    return out
-
-
 RUNS = {"decode": run_decode, "moe": run_decode, "engine": run_engine,
         "prefill": run_prefill}
 
@@ -292,7 +292,7 @@ def serve_rank(rank: int, world: int, store: str, out_dir: str, cases
                ) -> None:
     """A gloo rank on the CPU: every case of `cases`, each over a mesh of
     its shape (built by every rank, in case order, from one default
-    group), then the refusals on (2, 2)."""
+    group)."""
     import torch.distributed as dist
     from repro_torch.launch.mesh import lm_mesh, make_lm_mesh
     torch.set_num_threads(1)
@@ -313,8 +313,6 @@ def serve_rank(rank: int, world: int, store: str, out_dir: str, cases
             mesh = meshes[CASES[case][2]]
             got[case] = RUNS[CASES[case][0]](case, mesh, ref)
             got[case]["coordinate"] = tuple(mesh.get_coordinate())
-        if (2, 2) in meshes:
-            got["refusals"] = refusals(meshes[(2, 2)])
         with open(Path(out_dir) / f"rank{rank}.pkl", "wb") as f:
             pickle.dump(got, f)
     finally:

@@ -5,9 +5,10 @@ in one process, from the same seed-made float32 parameters:
 requests on 2 slots (reduced qwen2-0.5b, the reference's numpy tree as its
 parameters), reduced mixtral-8x22b's decode under the reference's MoE
 decode rules (the experts' hidden dimension over "data"), reduced
-qwen3-14b's `build_prefill(mesh=)`, `api.prefill` over the mesh filling
-the decode step's cache, and the refusal of the families that do not run
-over a mesh.  Tolerances are tests/_serve_mesh_jax.py's."""
+qwen3-14b's `build_prefill(mesh=)` and `api.prefill` over the mesh filling
+the decode step's cache.  Tolerances are tests/_serve_mesh_jax.py's.  (The
+hybrid, enc-dec and VLM families over a mesh:
+tests/test_torch_family_mesh_serve.py.)"""
 import numpy as np
 import pytest
 
@@ -93,11 +94,3 @@ def test_api_prefill_fills_each_rank_block(runs):
         assert got["logits"] <= sj.LOGIT_TOL, got
         for key, err in got["cache"].items():
             assert err["one_rel"] <= sj.CACHE_TOL, (key, err)
-
-
-@pytest.mark.parametrize("arch", sc.REFUSED)
-def test_family_without_mesh_refuses_one(runs, arch):
-    ranks, _ = runs
-    for rank in ranks:
-        assert rank["refusals"][arch] == {"decode": True, "prefill": True,
-                                          "api": True}
