@@ -317,6 +317,14 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      11c. mamba2-370m x long_500k (B 1, ticks at positions 524,284-
          524,287), the same checks, its peak beside the prediction
          (printed, not gated);
+     11m. the dry run over a mesh (`run_cell(..., mesh_kind)`), traced in
+         the same child process: phase 9m "a" (full-size qwen2-0.5b, 8 x
+         512, bf16, float32 states) and phase 10m's three serving engines
+         (8 slots, max_seq 512, 10m's depths) over a `1x1` mesh; each
+         prediction beside the measured peak (9m "a") or params + cache
+         resident (10m) of the rank, with the ratio (printed); the `1x1`
+         records' memory must equal the one-card records' to the byte,
+         and 10m's resident bytes the `1x1` prediction's (checked);
  12. one JSON line each of phases 3 / 3b / 3c, 3m, 6, 6e, 8, 9, 9m, 7m, 7, 10
      and 11's numbers, one JSON line of per-kernel results (each with the
      path its launches were counted on: segment_histogram's is phase 9a's,
@@ -619,6 +627,53 @@ DECODE_CELLS = (
     dict(tag="11c", arch="mamba2-370m", shape="long_500k", seed=0, ticks=4,
          graph_passes=2, peak_tol=None),
 )
+
+
+def mesh_prediction(arch: str, cell, mesh_kind: str | None, *,
+                    layers: int | None = None, dtype: str | None = None,
+                    bits: int = 32) -> dict:
+    """The dry run's record (`run_cell`) of `arch` at `cell` (a
+    ShapeCell) over `mesh_kind` (None: one card), the depth cut to
+    `layers`, the parameters in `dtype`, one microbatch, `bits`-bit
+    states; traced on fake tensors, no card (phase 11m and the four-card
+    scripts' predictions)."""
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.launch import dryrun
+    over = {k: v for k, v in (("n_layers", layers), ("param_dtype", dtype))
+            if v is not None}
+    rec = dryrun.run_cell(arch, cell, mesh_kind, n_micro=1, opt_bits=bits,
+                          cfg_overrides=over or None)
+    check(rec["status"] == "ok", f"the dry run of {arch} at {cell} over "
+          f"{mesh_kind}: {rec.get('error')}")
+    return rec
+
+
+def mesh_predictions(mesh_kind: str) -> dict:
+    """11m's (and the four-card scripts') predictions over `mesh_kind`:
+    phase 9m "a"'s train step (also on one card, `card`) and phase 10m's
+    three serving engines (also on one card), each a `mesh_prediction`
+    record."""
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.configs import ShapeCell
+    a = MESH_TRAIN["a"]
+    train = ShapeCell("9m-a", a["seq"], a["batch"], "train")
+    out = {"9m-a": {mk or "card": mesh_prediction(
+        a["arch"], train, mk, dtype=a["dtype"], bits=a["bits"])
+        for mk in (None, mesh_kind)}}
+    R = MESH_FAMILY_RUN
+    for run, spec in MESH_FAMILY.items():
+        cell = ShapeCell(f"10m-{run}", R["max_seq"], R["slots"], "decode")
+        out[f"10m-{run}"] = {mk or "card": mesh_prediction(
+            spec["arch"], cell, mk, layers=spec["layers"],
+            dtype=spec["dtype"]) for mk in (None, mesh_kind)}
+    return out
+
+
+def resident(rec) -> int:
+    """A serving record's params + cache bytes (its arguments but the
+    tokens and positions)."""
+    parts = rec["memory"]["argument_parts"]
+    return parts["params"] + parts["state"]
 
 
 def fail(msg: str) -> None:
@@ -4573,7 +4628,8 @@ def family_serve(dev, mesh, spec, label: str) -> dict:
                run_s=run_s, one_eager_tick_ms=one["eager"]["tick_median_ms"],
                one_graph_tick_ms=one["graph"]["tick_median_ms"],
                resident_gb=held / 1e9, predicted_gb=predicted / 1e9,
-               peak_gb=peak / 1e9, first_tick_logit_err=logit_err,
+               resident_bytes=held, peak_gb=peak / 1e9,
+               first_tick_logit_err=logit_err,
                logit_scale=scale, first_request_differing=diverged)
     del eng
     gc.collect()
@@ -5038,9 +5094,9 @@ def lm_families(dev) -> dict:
 def dryrun_predictions() -> dict:
     """Phase 11's predictions, traced on fake tensors (no card): the dry
     run's `size` of each training step that phases 9 and 10 measure (the
-    same config cut, batch, remat and state bits), and its record of each
-    cell of DECODE_CELLS.  Runs in a child process while the card runs
-    phases 3-10."""
+    same config cut, batch, remat and state bits), its record of each
+    cell of DECODE_CELLS, and 11m's (`mesh_predictions("1x1")`).  Runs in
+    a child process while the card runs phases 3-10."""
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.configs import ARCHS, ShapeCell
     from repro_torch.launch import dryrun
@@ -5063,6 +5119,7 @@ def dryrun_predictions() -> dict:
             FAMILY_RUN["batch"], FAMILY_RUN["seq"], spec["state_bits"])
     for spec in DECODE_CELLS:
         out[spec["tag"]] = dryrun.run_cell(spec["arch"], spec["shape"])
+    out["11m"] = mesh_predictions("1x1")
     return out
 
 
@@ -5234,6 +5291,62 @@ def dryrun_phase(dev, card: str, pred: dict, measured: dict) -> dict:
     return out
 
 
+def mesh_dryrun_phase(card: str, pred: dict, mesh_train: dict,
+                      mesh_family: dict, mesh_kind: str = "1x1") -> dict:
+    """Phase 11m (the module's docstring): the dry run over `mesh_kind`
+    (`pred`: `mesh_predictions`' form) beside the measured peak of each
+    phase 9m run it holds and the resident params + cache of each phase
+    10m engine, rank by rank.  The `1x1` records' memory must equal the
+    one-card records' to the byte, and each rank's resident bytes the
+    prediction's."""
+    out = {"card": card, "mesh": mesh_kind}
+    for key, recs in pred.items():
+        if "card" in recs and mesh_kind == "1x1":
+            check(recs["1x1"]["memory"] == recs["card"]["memory"],
+                  f"11m {key}: the 1x1 record's memory "
+                  f"{recs['1x1']['memory']} is not the one-card record's "
+                  f"{recs['card']['memory']}")
+    for run in [r for r in MESH_TRAIN if f"9m-{r}" in pred]:
+        out.update(mesh_train_beside(pred[f"9m-{run}"][mesh_kind], run,
+                                     mesh_train[run]["ranks"], mesh_kind))
+    for run in [r for r in MESH_FAMILY if f"10m-{r}" in pred]:
+        want = resident(pred[f"10m-{run}"][mesh_kind])
+        out[f"10m-{run}"] = []
+        for r in mesh_family["ranks"]:
+            got = r["runs"][run]["serve"]["resident_bytes"]
+            out[f"10m-{run}"].append(dict(rank=r["rank"], predicted=want,
+                                          resident=got, ratio=want / got))
+            print(f"[dryrun] 10m{run} {MESH_FAMILY[run]['arch']} over "
+                  f"{mesh_kind}, rank {r['rank']}: params + cache predicted "
+                  f"{want} B, resident {got} B: ratio {want / got:.6f}")
+            check(want == got, f"10m{run}: rank {r['rank']} holds {got} "
+                  f"B of params + cache, the dry run predicts {want} B")
+    return out
+
+
+def mesh_train_beside(rec: dict, run: str, ranks: list[dict],
+                      mesh_kind: str, tol: float | None = None) -> dict:
+    """A train prediction (`rec`, over `mesh_kind`) beside each rank's
+    measured peak (`ranks`: a phase 9m run's rank results), printed with
+    the ratio; with `tol`, each |ratio - 1| checked against it."""
+    want = rec["memory"]["total_per_device"]
+    out = []
+    for r in ranks:
+        got = r["peak_gb"] * 1e9
+        out.append(dict(rank=r["rank"], predicted_gb=want / 1e9,
+                        measured_peak_gb=r["peak_gb"],
+                        predicted_over_measured=want / got))
+        print(f"[dryrun] 9m{run} {rec['arch']} over {mesh_kind}, rank "
+              f"{r['rank']}: predicted {want / 1e9:.4f} GB a card "
+              f"(arguments {rec['memory']['argument_bytes'] / 1e9:.4f}, temp "
+              f"{rec['memory']['temp_bytes'] / 1e9:.4f}), measured peak "
+              f"{r['peak_gb']:.4f} GB: predicted / measured {want / got:.4f}")
+        if tol is not None:
+            check(abs(want / got - 1) <= tol, f"9m{run} rank {r['rank']}: "
+                  f"predicted / measured {want / got:.4f}, past ±{tol}")
+    return {f"9m-{run}": out}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -5365,6 +5478,8 @@ def main() -> int:
         measured[spec["tag"]] = (got["train_peak_gb"]
                                  - got["train_base_gb"]) * 1e9
     shapes = dryrun_phase(dev, card, pred, measured)
+    shapes["11m"] = mesh_dryrun_phase(card, pred["11m"], mesh_train,
+                                      mesh_family)
     print(f"[dryrun] phase 11 took {time.perf_counter() - t11:.1f} s")
     t_end = time.perf_counter()
 

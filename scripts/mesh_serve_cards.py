@@ -20,7 +20,11 @@ one-process engines on its own card from the same weights and requests):
      sizes (zamba2-7b depth 16, seamless-m4t-medium, llama-3.2-vision-90b
      depth 5 with its gate at 0.5) at (2, 2), through phase 10m's serving
      (`family_serve`): 16 requests on 8 slots, max_seq 512, then the 4 x
-     2,048 prefill and its 8 ticks, or the ring's 8 ticks across its wrap.
+     2,048 prefill and its 8 ticks, or the ring's 8 ticks across its wrap;
+     each rank's resident params + cache beside the dry run's at 2x2 for
+     the engine's own config (`chip_smoke.mesh_prediction`, traced on
+     fake tensors in a child process while the ranks run; held to the
+     byte).
 Each rank's first tick's logits and ("c") prefill logits are held within
 `MESH_SERVE_LOGIT_RTOL` of the largest logit of the one-process
 engine's; the script prints, for each rank, its resident parameters and
@@ -36,8 +40,10 @@ from __future__ import annotations
 
 import argparse
 import json
+import multiprocessing
 import subprocess
 import sys
+from concurrent.futures import ProcessPoolExecutor
 from pathlib import Path
 
 import torch
@@ -76,9 +82,24 @@ def main() -> int:
         check=True).stdout.strip().splitlines()[0]
     print(card)
     runs = args.runs.split(",")
+    pred = {}
+    if "e" in runs:
+        from repro_torch.configs import ShapeCell
+        R = cs.MESH_FAMILY_RUN
+        tracer = ProcessPoolExecutor(1, mp_context=multiprocessing.get_context(
+            "spawn"))
+        pred = {run: tracer.submit(
+            cs.mesh_prediction, spec["arch"],
+            ShapeCell(f"10m-{run}", R["max_seq"], R["slots"], "decode"),
+            "2x2", layers=spec["layers"], dtype=spec["dtype"])
+            for run, spec in cs.MESH_FAMILY.items()}
     out = cs.mesh_serving(card, {r: RUNS[r] for r in runs if r in RUNS})
     if "e" in runs:
         out["e"] = cs.mesh_families(card, families(cs), deadline_s=1500)
+        out["e"]["dryrun"] = cs.mesh_dryrun_phase(
+            card, {f"10m-{run}": {"2x2": f.result()} for run, f in
+                   pred.items()}, None, out["e"], "2x2")
+        tracer.shutdown()
     print(json.dumps({"mesh_serve_cards": out}))
     return 0
 

@@ -16,7 +16,9 @@ Runs:
      states: 177 GB of parameters, gradients and states, more than one
      80 GB card holds), 8 x 512 tokens, 2 steps, no one-process reference;
      each rank's peak beside the prediction (those bytes over the shards
-     the placements give);
+     the placements give) and beside the dry run's rank peak at 2x2 for
+     the run's own config (`chip_smoke.mesh_prediction`, traced on fake
+     tensors in a child process while the ranks run; held within ±10 %);
   e  the training driver, `torchrun --nproc-per-node 4 -m
      repro_torch.launch.train --mesh 2x2` (reduced qwen3-14b, NCCL), a
      DP row failing at step 6: it must exit 0, re-mesh (2, 2) -> (1, 2),
@@ -38,6 +40,7 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import multiprocessing
 import os
 import re
 import signal
@@ -45,6 +48,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ProcessPoolExecutor
 from pathlib import Path
 
 import torch
@@ -136,7 +140,22 @@ def main() -> int:
         check=True).stdout.strip().splitlines()[0]
     print(card)
     runs = args.runs.split(",")
+    pred = None
+    if "d" in runs:
+        from repro_torch.configs import ShapeCell
+        d = RUNS["d"]
+        tracer = ProcessPoolExecutor(1, mp_context=multiprocessing.get_context(
+            "spawn"))
+        pred = tracer.submit(
+            cs.mesh_prediction, d["arch"],
+            ShapeCell("d", d["seq"], d["batch"], "train"),
+            "x".join(map(str, d["shape"])), dtype=d["dtype"], bits=d["bits"])
     out = cs.mesh_training(card, {r: RUNS[r] for r in runs if r in RUNS})
+    if pred is not None:
+        out["d"]["dryrun"] = cs.mesh_train_beside(
+            pred.result(), "d", out["d"]["ranks"],
+            "x".join(map(str, RUNS["d"]["shape"])), tol=0.10)
+        tracer.shutdown()
     if "e" in runs:
         out["e"] = driver()
     if "f" in runs:

@@ -1,4 +1,5 @@
-"""The meshes of ranks: the join's 1-D mesh and the LM's (data, model) mesh.
+"""The meshes of ranks: the join's 1-D mesh, the LM's (data, model) or
+(pod, data, model) mesh, and the dry run's fake world.
 
 `ShardedJoinExecutor(plan, n_devices, ..., mesh=make_join_mesh(...))` runs
 the executor's n_devices logical devices over the mesh's W ranks, the
@@ -13,10 +14,17 @@ for ranks that share one card.  No backend or device is switched quietly.
 
 `make_lm_mesh(shape)` is the counterpart of the reference's
 `make_test_mesh` / `make_mesh_compat` for the LM scaffold: a 2-D mesh
-("data", "model") over the same process-group set-up (`init_ranks`), rank
-r at position (r // model, r % model), the reference's device order.  The
+("data", "model") or a 3-D one ("pod", "data", "model") over the same
+process-group set-up (`init_ranks`), ranks laid out row-major (rank r at
+(r // model, r % model) on two axes), the reference's device order.  The
 train step lays the parameters, optimizer states and batch out over it
-through the sharding rules (`models.common`).
+through the sharding rules (`models.common`: DP over ("pod", "data")).
+
+`fake_world(shape)` is the dry run's counterpart of the reference's
+`make_production_mesh` (`dryrun_shape`: "single" (16, 16), "multi" (2,
+16, 16), or "DxM"): torch's fake process group of the mesh's size, this
+process rank 0, and the DeviceMesh over it.  Nothing is sent and no card
+is needed; the steps run on fake tensors over it (`launch.dryrun`).
 
 Launch on several cards with torchrun, which sets RANK, WORLD_SIZE,
 LOCAL_RANK, MASTER_ADDR and MASTER_PORT:
@@ -28,6 +36,7 @@ and `world_size` yourself.
 """
 from __future__ import annotations
 
+import contextlib
 import datetime
 import math
 import os
@@ -162,36 +171,85 @@ def make_join_mesh(backend: str | None = None, *, device=None,
 
 
 LM_AXES = ("data", "model")
+POD_AXES = ("pod", "data", "model")
 
 
-def make_lm_mesh(shape: tuple[int, int], backend: str | None = None, *,
+def lm_axes(ndim: int) -> tuple[str, ...]:
+    """The axis names of an LM mesh of `ndim` dimensions."""
+    if ndim not in (2, 3):
+        raise ExecutorError(f"an LM mesh has 2 or 3 dimensions, not {ndim}")
+    return LM_AXES if ndim == 2 else POD_AXES
+
+
+def make_lm_mesh(shape: tuple[int, ...], backend: str | None = None, *,
                  device=None, init_method: str | None = None,
                  rank: int | None = None, world_size: int | None = None,
                  timeout_s: float = 300.0):
     """Initialise the default process group (`init_ranks`, its arguments
     and refusals) and return a DeviceMesh of `shape` over its ranks, named
-    LM_AXES, rank r at position (r // model, r % model).  The product of
-    `shape` must be the world size."""
+    `lm_axes`, laid out row-major (rank r at (r // model, r % model) on two
+    axes).  The product of `shape` must be the world size."""
     dev, world_size = init_ranks(backend, device=device,
                                  init_method=init_method, rank=rank,
                                  world_size=world_size, timeout_s=timeout_s,
                                  who="make_lm_mesh")
     shape = tuple(shape)
-    if math.prod(shape) != world_size or len(shape) != len(LM_AXES):
+    if math.prod(shape) != world_size or len(shape) not in (2, 3):
         dist.destroy_process_group()
         raise ExecutorError(
-            f"make_lm_mesh: a mesh of shape {shape} over axes {LM_AXES} "
-            f"does not hold the {world_size} ranks")
+            f"make_lm_mesh: a mesh of shape {shape} over axes "
+            f"{LM_AXES} or {POD_AXES} does not hold the {world_size} ranks")
     return lm_mesh(dev.type, shape)
 
 
-def lm_mesh(device_type: str, shape: tuple[int, int], ranks=None):
+def lm_mesh(device_type: str, shape: tuple[int, ...], ranks=None):
     """A DeviceMesh of `shape` over `ranks` (default: every rank of the
-    default group, in order), laid out row-major and named LM_AXES.
+    default group, in order), laid out row-major and named `lm_axes`.
     Every rank of the default group must call it (each builds the
     sub-groups); a rank outside `ranks` gets no coordinate."""
     from torch.distributed.device_mesh import DeviceMesh
     ids = (torch.arange(math.prod(shape)) if ranks is None
            else torch.as_tensor(ranks))
-    return DeviceMesh(device_type, ids.reshape(shape),
-                      mesh_dim_names=LM_AXES)
+    return DeviceMesh(device_type, ids.reshape(tuple(shape)),
+                      mesh_dim_names=lm_axes(len(shape)))
+
+
+# The reference's production meshes (`make_production_mesh`), by its names.
+PRODUCTION_MESHES = {"single": (16, 16), "multi": (2, 16, 16)}
+
+
+def dryrun_shape(kind: str) -> tuple[int, ...]:
+    """The mesh shape the dry run's `--mesh` names: "single" (16, 16) or
+    "multi" (2, 16, 16), as the reference's `make_production_mesh`, or
+    "DxM" (data x model, as `launch.train --mesh`) or "PxDxM"."""
+    if kind in PRODUCTION_MESHES:
+        return PRODUCTION_MESHES[kind]
+    try:
+        shape = tuple(int(n) for n in kind.lower().split("x"))
+    except ValueError:
+        shape = ()
+    if len(shape) not in (2, 3) or min(shape) < 1:
+        raise ExecutorError(f"mesh {kind!r}: not 'single', 'multi', 'DxM' "
+                            f"or 'PxDxM'")
+    return shape
+
+
+@contextlib.contextmanager
+def fake_world(shape: tuple[int, ...]):
+    """A fake world of prod(shape) ranks and the DeviceMesh of `shape`
+    over it (named `lm_axes`, on the CPU), this process rank 0, at
+    position (0, ..., 0): torch's "fake" process-group backend, whose
+    collectives move nothing (over fake tensors they never reach it).
+    Refused while a default process group exists; the world is destroyed
+    on leaving, so a later process group in this process starts clean."""
+    if dist.is_initialized():
+        raise ExecutorError("fake_world: the default process group exists "
+                            "already")
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    shape = tuple(shape)
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=math.prod(shape))
+    try:
+        yield lm_mesh("cpu", shape)
+    finally:
+        dist.destroy_process_group()

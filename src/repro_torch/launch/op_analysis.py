@@ -18,13 +18,27 @@ no storage), and every op the dispatcher sees is counted:
     without a fill counts 0, and an in-place indexed write (`index_put_`,
     `scatter_`, ...) counts the elements it writes, not its whole
     destination;
-  * collective bytes and counts: the input bytes of `c10d` ops, by the
-    reference's names (`all-reduce`, ...).  A one-card step has none; the
-    fields stay.
+  * collective bytes and counts: the operand bytes of the `c10d` and
+    `_c10d_functional` collectives, by the reference's names
+    (`all-reduce`, ...), as `hlo_analysis` counts its operands (their
+    operands and outputs are HBM bytes too, as there); `wait_tensor`
+    counts nothing.  With `pod_size`, `coll_bytes_crosspod`
+    holds those of the collectives whose group's ranks lie in more than
+    one pod (rank // pod_size), the reference's lines.  A one-card step
+    has none; the fields stay.
   * memory: the bytes of the storages the ops allocate while they live
     (a storage is freed when its last tensor dies), their peak above what
     was live before (`temp_bytes`), each rounded up to the CUDA caching
     allocator's 512-byte blocks.
+
+Over a mesh (DTensors over a `DeviceMesh`, usually of `launch.mesh.
+fake_world`) the counts are one rank's: an op on DTensors is passed on
+(`NotImplemented`), and DTensor's dispatch then runs what this rank runs,
+the op on its local shards and the collectives of a redistribution, each
+of which is counted.  What DTensor runs to propagate shardings (the op
+again on fake tensors of the global shapes, the first time each op and
+layout is seen in the process) is not counted: a record does not depend
+on what ran before it in the process.
 
 Trip counts: the reference corrects XLA's count of a `while` body by its
 trip count; nothing needs correcting here, since the trace runs the
@@ -39,6 +53,8 @@ from dataclasses import dataclass
 from typing import Any, Callable
 
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_leaves
 from torch.utils.flop_counter import flop_registry
@@ -48,10 +64,11 @@ COLLECTIVES = ("all-reduce", "all-gather", "reduce-scatter", "all-to-all",
 # c10d ops (eager and functional) by the reference's collective names.
 _COLLECTIVE_OF = {
     "allreduce_": "all-reduce", "all_reduce": "all-reduce",
-    "allreduce_coalesced_": "all-reduce",
+    "all_reduce_": "all-reduce", "allreduce_coalesced_": "all-reduce",
     "allgather_": "all-gather", "_allgather_base_": "all-gather",
     "allgather_into_tensor_coalesced_": "all-gather",
     "all_gather_into_tensor": "all-gather",
+    "all_gather_into_tensor_out": "all-gather",
     "reduce_scatter_": "reduce-scatter", "_reduce_scatter_base_":
     "reduce-scatter", "reduce_scatter_tensor": "reduce-scatter",
     "alltoall_": "all-to-all", "alltoall_base_": "all-to-all",
@@ -83,6 +100,39 @@ _INDEXED = {_ATEN.index_put_: ("values", False),
             _ATEN.scatter_reduce_: ("src", True)}
 # The CUDA caching allocator's block size.
 _BLOCK = 512
+_COLLECTIVE_NAMESPACES = ("c10d", "_c10d_functional")
+
+
+def _group_ranks(args) -> list[int] | None:
+    """The global ranks of a collective's group: a functional collective
+    names it (a string), a c10d one passes the group itself (boxed as a
+    TorchScript object)."""
+    from torch.distributed.distributed_c10d import _resolve_process_group
+    for a in args:
+        if (isinstance(a, torch.ScriptObject)
+                and a._type().name().endswith("ProcessGroup")):
+            a = dist.ProcessGroup.unbox(a)
+        if isinstance(a, dist.ProcessGroup):
+            return dist.get_process_group_ranks(a)
+        if isinstance(a, str):
+            try:
+                return dist.get_process_group_ranks(_resolve_process_group(a))
+            except (ValueError, RuntimeError, KeyError):
+                continue
+    return None
+
+
+@functools.cache
+def _propagator():
+    """DTensor's sharding propagator class and the method of it that runs
+    an op on fake tensors of the global shapes to learn its output's."""
+    from torch.distributed.tensor._sharding_prop import ShardingPropagator
+    name = "_propagate_tensor_meta_non_cached"
+    if not hasattr(ShardingPropagator, name):
+        raise RuntimeError(
+            f"this torch's DTensor has no ShardingPropagator.{name}: the op "
+            f"counter cannot tell its sharding propagation from a rank's ops")
+    return ShardingPropagator, name
 
 
 def _distinct_bytes(t: torch.Tensor) -> int:
@@ -131,10 +181,15 @@ class OpCounter(TorchDispatchMode):
     (a tensor), `before` keeps the counts as they stood at the first op
     that writes that tensor's storage (a train step's optimizer step
     counter, which `adamw.apply` advances first: what comes before it is
-    the microbatches' part)."""
+    the microbatches' part).  `pod_size`: ranks a pod, for the cross-pod
+    bytes."""
 
-    def __init__(self, split_at: torch.Tensor | None = None):
+    def __init__(self, split_at: torch.Tensor | None = None,
+                 pod_size: int | None = None):
         super().__init__()
+        self.pod_size = pod_size
+        self.coll_crosspod = 0.0
+        self._paused = 0
         self.flops = 0.0
         self.hbm_bytes = 0.0
         self.coll_bytes = dict.fromkeys(COLLECTIVES, 0.0)
@@ -147,8 +202,38 @@ class OpCounter(TorchDispatchMode):
                        else split_at.untyped_storage()._cdata)
         self._live: set[int] = set()     # the storages counted live
 
+    def __enter__(self):
+        cls, name = _propagator()
+        run = getattr(cls, name)
+        counter = self
+
+        def paused(prop, *a, **kw):
+            counter._paused += 1
+            try:
+                return run(prop, *a, **kw)
+            finally:
+                counter._paused -= 1
+
+        setattr(cls, name, paused)
+        self._restore = lambda: setattr(cls, name, run)
+        try:
+            return super().__enter__()
+        except BaseException:
+            self._restore()
+            raise
+
+    def __exit__(self, *exc):
+        try:
+            return super().__exit__(*exc)
+        finally:
+            self._restore()
+
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
+        if self._paused:                   # DTensor's sharding propagation
+            return func(*args, **kwargs)
+        if any(isinstance(t, DTensor) for t in tree_leaves((args, kwargs))):
+            return NotImplemented          # this rank's part comes back
         if func.namespace == "prim":      # metadata (`.device`, ...)
             return func(*args, **kwargs)
         if self._split is not None and self.before is None and any(
@@ -161,16 +246,29 @@ class OpCounter(TorchDispatchMode):
                if isinstance(t, torch.Tensor)]
         outs = [t for t in tree_leaves(out) if isinstance(t, torch.Tensor)]
         packet = func._overloadpacket
-        if func.namespace in ("c10d", "_c10d_functional"):
+        if func.namespace in _COLLECTIVE_NAMESPACES:
             kind = _COLLECTIVE_OF.get(packet.__name__)
-            if kind is not None:
-                self.coll_counts[kind] += 1
-                self.coll_bytes[kind] += sum(_distinct_bytes(t) for t in ins)
+            if kind is None:          # `wait_tensor`: no traffic of its own
+                self._allocated(ins, outs)
+                return out
+            self._collective(kind, args, ins)
         elif packet in flop_registry:
             self.flops += flop_registry[packet](*args, **kwargs, out_val=out)
         self.hbm_bytes += self._bytes(func, packet, args, kwargs, ins, outs)
         self._allocated(ins, outs)
         return out
+
+    def _collective(self, kind: str, args, ins) -> None:
+        n = sum(_distinct_bytes(t) for t in ins)
+        self.coll_counts[kind] += 1
+        self.coll_bytes[kind] += n
+        if self.pod_size:
+            ranks = _group_ranks(args)
+            if ranks is None:
+                raise ValueError(f"a {kind} whose group the counter cannot "
+                                 f"read")
+            if len({r // self.pod_size for r in ranks}) > 1:
+                self.coll_crosspod += n
 
     @staticmethod
     def _bytes(func, packet, args, kwargs, ins, outs) -> int:
@@ -219,7 +317,7 @@ class OpCounter(TorchDispatchMode):
             flops=self.flops, hbm_bytes=self.hbm_bytes,
             coll_bytes={k: v for k, v in self.coll_bytes.items() if v},
             coll_bytes_total=sum(self.coll_bytes.values()),
-            coll_bytes_crosspod=0.0,
+            coll_bytes_crosspod=self.coll_crosspod,
             coll_counts=dict(self.coll_counts))
 
 
@@ -237,11 +335,11 @@ class Trace:
 
 
 def analyze(fn: Callable, *args, split_at: torch.Tensor | None = None,
-            **kwargs) -> Trace:
+            pod_size: int | None = None, **kwargs) -> Trace:
     """Run `fn(*args, **kwargs)` under one `OpCounter` and return its
     result with the counts.  Call it inside a `FakeTensorMode` on fake
     tensors to size a step without allocating it."""
-    counter = OpCounter(split_at)
+    counter = OpCounter(split_at, pod_size)
     with counter:
         out = fn(*args, **kwargs)
     return Trace(out=out, terms=counter.terms(), before=counter.before,

@@ -26,9 +26,11 @@ DP over ("pod", "data")) into a PartitionSpec, with a divisibility
 fallback and a mesh axis sharding one dimension at most; pjit lays the
 parameters, states and batch out so, and `ShardCtx.shard` pins
 activations with `with_sharding_constraint`.  Here the same table
-resolves into `torch.distributed.tensor` placements on a 2-D
-`DeviceMesh` (`resolve_placements`, one `Shard(d)` or `Replicate()` a
-mesh dimension; `resolve_pspec` is the same resolution in the
+resolves into `torch.distributed.tensor` placements on a 2-D ("data",
+"model") or 3-D ("pod", "data", "model") `DeviceMesh`
+(`resolve_placements`, one `Shard(d)` or `Replicate()` a mesh dimension;
+the batch's rows `Shard(0)` on both "pod" and "data", pod-major as the
+reference's tuple entry; `resolve_pspec` is the same resolution in the
 reference's form, a mesh-axis name or tuple or None a dimension), the
 parameters are DTensors (`distribute_tree`: each rank takes its own shard
 of the same full tensors, no collective), the model code runs on them, and

@@ -1,5 +1,5 @@
 """Serve-step builders: prefill and batched greedy decode, on one device or
-over a (data, model) mesh of ranks.
+over a (data, model) or (pod, data, model) mesh of ranks.
 
 `build_decode_step` / `build_prefill` return the functions the serving
 engine calls, with the device they run on; they run without autograd, so
@@ -26,11 +26,11 @@ mostly device work, which a graph does not shorten, and a graph for each
 prompt shape would pin that shape's activations.
 
 Over a mesh (`mesh=`, a DeviceMesh of `launch.mesh.make_lm_mesh`) the
-builders are the reference's pjit builders.  The rules (`rules_for(cfg,
-mesh)`, and for MoE decode the reference's override `embed=None,
-expert_ffn="data"`) give the parameters' placements
+builders are the reference's pjit builders.  The rules (`rules`, by
+default `rules_for(cfg, mesh)`; for MoE decode, given or not, the
+reference's override `embed=None, expert_ffn="data"`) give the parameters' placements
 (`ServeFns.param_placements`) and the cache's (`cache_placements`: each
-family's `cache_axes`, the rows over DP, the KV or SSM heads over
+family's `cache_axes`, the rows over DP ("pod" and "data"), the KV or SSM heads over
 "model", and where the KV heads cannot take "model", the sequence when
 `max_seq` divides).  Tokens, positions and prompts are split over DP when
 the batch divides, else replicated.  The step runs eagerly (no graph over
@@ -82,13 +82,13 @@ class ServeFns:
         return self.compiled.replays
 
 
-def serve_rules(cfg: ArchConfig, mesh, decode: bool):
-    """The builders' rules: `rules_for(cfg, mesh)`; MoE decode keeps the
-    experts' contraction dimension whole and splits their hidden dimension
-    over "data" instead (decode moves weights more than activations: the
-    reference's override)."""
+def serve_rules(cfg: ArchConfig, mesh, decode: bool, rules=None):
+    """The builders' rules: `rules` (by default `rules_for(cfg, mesh)`);
+    MoE decode keeps the experts' contraction dimension whole and splits
+    their hidden dimension over "data" instead, given rules too (decode
+    moves weights more than activations: the reference's override)."""
     from ..models.common import rules_for
-    rules = rules_for(cfg, mesh)
+    rules = rules or rules_for(cfg, mesh)
     if decode and cfg.family == "moe":
         rules = rules.override(embed=None, expert_ffn="data")
     return rules
@@ -103,7 +103,7 @@ def _over_mesh(cfg: ArchConfig, mesh, rules, decode: bool) -> dict:
     from ..models.common import param_placements
     if mesh.get_coordinate() is None:
         raise ValueError("this rank is not in the mesh")
-    rules = rules or serve_rules(cfg, mesh, decode)
+    rules = serve_rules(cfg, mesh, decode, rules)
     return dict(mesh=mesh, rules=rules, param_placements=param_placements(
         api.layout(cfg), rules, mesh))
 

@@ -34,13 +34,15 @@ that fails raises.  The CPU and `use_kernels=False` run every call eagerly:
 that is the reference.  `StepFns.compiled` holds the graph and its
 counters (`eager_calls`, `captures`, `replays`).
 
-Over a mesh (`mesh=`, a 2-D ("data", "model") DeviceMesh from
-`launch.mesh.make_lm_mesh`) the step is the reference's pjit step: the
+Over a mesh (`mesh=`, a 2-D ("data", "model") or 3-D ("pod", "data",
+"model") DeviceMesh from `launch.mesh.make_lm_mesh`, or the dry run's
+`fake_world`) the step is the reference's pjit step: the
 rules (`default_rules(mesh)` overridden by `cfg.sharding_hints`, or
 `rules=`) give the parameters', states' and batch's placements
 (`StepFns.param_placements`, `opt_placements`, `batch_placements`): DP
-over ("pod", "data"), FSDP over "data", TP over "model", expert slots
-over "model".  The model's parameters are DTensors of those placements
+over ("pod", "data") (the batch's rows split pod-major), FSDP over
+"data", TP over "model", expert slots over "model"; "pod" splits no
+parameter, so each gradient is summed over it.  The model's parameters are DTensors of those placements
 (`models.common.distribute_tree`, `convert.params_from_jax(mesh=)`), the
 batch is distributed by the step (every rank gives the same global batch
 and keeps its rows; a microbatch is the same rows of it as in the

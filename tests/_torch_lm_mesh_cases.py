@@ -35,6 +35,11 @@ LR = 1e-2
 STEP_KW = dict(total_steps=10, warmup_steps=1)
 COLLECTIVE_TIMEOUT_S = 60.0
 DEADLINE_S = 240.0
+# Parameters further than PARAM_LISTED from the reference's or the
+# one-process step's (tests/_lm_mesh_jax.py's PARAM_TOL) are listed
+# element by element, at most LISTED_MAX a leaf, for its check.
+PARAM_LISTED = 1e-3
+LISTED_MAX = 64
 
 # case -> (arch, n_micro, state bits, mesh shape, chained)
 CASES = {
@@ -66,10 +71,13 @@ def _flat(tree, prefix=""):
     return out
 
 
-def _block_errors(tree, want, one=None) -> dict:
+def _block_errors(tree, want, one=None, listed=None) -> dict:
     """{leaf: largest |difference|} of this rank's blocks of `tree`
     (DTensors) from the same blocks of `want` (numpy, the whole arrays)
-    and of `one` (the one-process run's tensors), codes as integers."""
+    and of `one` (the one-process run's tensors), codes as integers.
+    With `listed`, each leaf also lists its elements further than that
+    from either (`over`: global index, |difference| from `want`, from
+    `one`; at most LISTED_MAX) and counts them (`n_over`)."""
     from repro_torch.models.common import local_block
     out = {}
     for key, t in _flat(tree).items():
@@ -81,9 +89,18 @@ def _block_errors(tree, want, one=None) -> dict:
                "ref_rel": float((np.abs(mine - ref)
                                  / np.maximum(np.abs(ref), 1e-30)).max(
                                      initial=0.0))}
+        d_one = np.zeros_like(mine)
         if one is not None:
             o = _flat(one)[key].detach().double().numpy()[sl]
-            err["one"] = float(np.abs(mine - o).max(initial=0.0))
+            d_one = np.abs(mine - o)
+            err["one"] = float(d_one.max(initial=0.0))
+        if listed is not None:
+            d_ref = np.abs(mine - ref)
+            far = np.argwhere(np.maximum(d_ref, d_one) > listed)
+            err["n_over"] = len(far)
+            err["over"] = [(tuple(int(i + o) for i, o in zip(idx, offset)),
+                            float(d_ref[tuple(idx)]), float(d_one[tuple(idx)]))
+                           for idx in far[:LISTED_MAX]]
         out[key] = err
     return out
 
@@ -131,7 +148,8 @@ def run_steps(cfg, n_micro: int, bits: int, chained: bool, mesh,
         if i + 1 < len(states):
             want_p, want_o = states[i + 1]
             got["errors"].append({
-                "params": _block_errors(model.tree(), want_p, model1.tree()),
+                "params": _block_errors(model.tree(), want_p, model1.tree(),
+                                        listed=PARAM_LISTED),
                 "opt": _block_errors(state, want_o, state1)})
     got["shapes"] = {f"params/{k}": tuple(v.to_local().shape)
                      for k, v in _flat(model.tree()).items()}

@@ -12,7 +12,9 @@ a seed and split over DP as tokens are.  The ranks run every case in one
 spawn (tests/_torch_family_mesh_cases.py); the reference's side is
 tests/_family_mesh_jax.py.  The tolerances and checks are
 tests/test_torch_train_mesh.py's (tests/_lm_mesh_jax.py): loss, zloss
-and grad_norm within rtol 1e-5, parameters within 1e-3, float32 moments
+and grad_norm within rtol 1e-5, parameters within 1e-3 (an element the
+reference's float64 update shows ill-conditioned, within its Adam range:
+`adam_ranges`), float32 moments
 within 1e-5, 8-bit codes within one and scales within rtol 1e-3, every
 block's shape the reference's shard's on the device at that mesh
 position."""
@@ -36,5 +38,5 @@ def test_mesh_step_matches_jax_and_one_process(runs, case):
 
 @pytest.mark.parametrize("case", list(fc.TRAIN))
 def test_mesh_params_and_states_match_jax(runs, case):
-    ranks, _ = runs
-    lj.check_blocks(ranks, case)
+    ranks, want = runs
+    lj.check_blocks(ranks, case, want[case], fc.TRAIN[case][4])

@@ -1,5 +1,6 @@
 """The port's sharding rules against the JAX package's, with no rank
-spawned: for every registered architecture's layout on five mesh shapes,
+spawned: for every registered architecture's layout on five (data, model)
+mesh shapes and one (pod, data, model) shape,
 `resolve_pspec` (the pspec form of `resolve_placements`) equals the
 reference's PartitionSpec leaf by leaf, under the rules the train steps
 build (`default_rules` overridden by the config's `sharding_hints`,
@@ -32,14 +33,22 @@ from repro_torch.optim import AdamWConfig, adamw
 from repro_torch.train.train_step import batch_placements, batch_pspecs
 from repro_torch.tree import flatten
 
-MESHES = [(2, 4), (4, 2), (2, 2), (1, 4), (8, 1)]
+MESHES = [(2, 4), (4, 2), (2, 2), (1, 4), (8, 1), (2, 2, 2)]
+
+
+def _axes(shape):
+    return ("data", "model") if len(shape) == 2 else ("pod", "data", "model")
+
+
+def _id(shape):
+    return "x".join(map(str, shape))
 
 
 class FakeMesh:
     """A mesh's shape alone, as both packages' rules read it."""
 
     def __init__(self, shape):
-        self.shape = dict(zip(("data", "model"), shape))
+        self.shape = dict(zip(_axes(shape), shape))
 
 
 def _rules(cfg, mesh):
@@ -58,7 +67,7 @@ def _specs(tree):
     return {"": tuple(tree)}
 
 
-@pytest.mark.parametrize("shape", MESHES, ids=lambda s: f"{s[0]}x{s[1]}")
+@pytest.mark.parametrize("shape", MESHES, ids=_id)
 @pytest.mark.parametrize("name", sorted(ARCHS))
 def test_param_and_state_specs_equal_the_reference(name, shape):
     cfg, jcfg = ARCHS[name], JARCHS[name]
@@ -76,7 +85,7 @@ def test_param_and_state_specs_equal_the_reference(name, shape):
     placements = common.param_placements(layout, rules, mesh.shape)
     for key, pl in flatten(placements).items():
         spec = flatten(got)[key]
-        for i, axis in enumerate(("data", "model")):
+        for i, axis in enumerate(_axes(shape)):
             dims = [d for d, a in enumerate(spec)
                     if a == axis or (isinstance(a, tuple) and axis in a)]
             assert pl[i] == (common.Shard(dims[0])
@@ -99,10 +108,10 @@ def test_param_and_state_specs_equal_the_reference(name, shape):
                 spec, mesh.shape), key
 
 
-@pytest.mark.parametrize("shape", MESHES, ids=lambda s: f"{s[0]}x{s[1]}")
+@pytest.mark.parametrize("shape", MESHES, ids=_id)
 def test_batch_placements_equal_batch_shardings(shape):
-    devices = np.array(jax.devices()[:shape[0] * shape[1]]).reshape(shape)
-    mesh = Mesh(devices, ("data", "model"))
+    devices = np.array(jax.devices()[:int(np.prod(shape))]).reshape(shape)
+    mesh = Mesh(devices, _axes(shape))
     rules = common.default_rules(dict(mesh.shape))
     jrules = jcommon.default_rules(mesh)
     for cell in SHAPES.values():
@@ -120,8 +129,8 @@ def test_batch_placements_equal_batch_shardings(shape):
         for k, spec in got.items():
             assert pl[k] == common.placements_of(spec, dict(mesh.shape))
     one = {"tokens": jax.ShapeDtypeStruct((1, 524_288), jnp.int32)}
-    if shape[0] == 1:          # one data rank holds every batch
+    if shape[-2] == 1:         # one data rank holds every batch
         return
     assert batch_pspecs(one, rules, dict(mesh.shape))["tokens"] == (None, None)
     assert batch_placements(one, rules, dict(mesh.shape))["tokens"] == (
-        common.Replicate(), common.Replicate())
+        (common.Replicate(),) * len(shape))

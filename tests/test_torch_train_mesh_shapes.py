@@ -23,5 +23,5 @@ def test_mesh_step_matches_jax_and_one_process(runs, case):
 
 @pytest.mark.parametrize("case", lc.SHAPES)
 def test_mesh_params_and_states_match_jax(runs, case):
-    ranks, _ = runs
-    lj.check_blocks(ranks, case)
+    ranks, want = runs
+    lj.check_blocks(ranks, case, want[case], lc.CASES[case][4])
